@@ -1,0 +1,221 @@
+"""The port's CUDA flash kernels against their plain PyTorch versions, and
+the tolerance that holds them there.
+
+The kernel cases need a CUDA device and skip without one; run them on a
+GPU host with ``python -m pytest --noconftest tests/test_torch_cuda.py``.
+
+Tolerance (``kernels.plain_excess``): every element within 2% of its own
+magnitude plus 16 bf16 epsilons of the output's RMS.  The kernels
+multiply bf16 tiles on the tensor cores and round the probabilities p and
+dS to bf16 before the second product of each tile, where the plain
+versions stay in f32 throughout; both round their outputs to bf16.
+
+The planted-fault cases run on the CPU too: at the bench shape (S=256,
+D=128, causal), where a late row of O or a late key tile of dK/dV is two
+orders smaller than row 0 or key 0, the tolerance passes the kernels'
+stated numerics (on the CPU an f32 emulation of them, on the card the
+kernels) and fails a kernel that skips a tile or never rescales its
+running softmax sums.
+"""
+
+import pytest
+import torch
+
+from tpumon_torch.loadgen import kernels as K
+
+TILE = 64  # the kernels' tile, rows and keys
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.fixture(params=["cpu", "cuda"])
+def device(request):
+    if request.param == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device(request.param)
+
+
+def _inputs(device, BH, S, D, seed=0):
+    g = torch.Generator(device).manual_seed(seed)
+    return [torch.randn((BH, S, D), generator=g, device=device,
+                        dtype=torch.float32).to(torch.bfloat16)
+            for _ in range(4)]
+
+
+def _close(got, want):
+    assert K.plain_excess(got, want) <= 1.0
+
+
+# (BH, S, D, causal, block_q, block_k): the bench shape, padded causal
+# tails, D=64, a ragged kernel tile (S not a multiple of 64), non-causal
+CASES = [
+    (64, 256, 128, True, 128, 128),
+    (64, 256, 128, False, 128, 128),
+    (6, 100, 128, True, 100, 100),
+    (6, 96, 64, False, 32, 32),
+    (4, 192, 64, True, 64, 64),
+    (3, 40, 128, True, 8, 8),
+]
+
+
+@pytest.mark.parametrize("BH,S,D,causal,bq,bk", CASES)
+def test_kernels_match_plain(cuda, BH, S, D, causal, bq, bk):
+    q, k, v, do = _inputs(cuda, BH, S, D)
+    o, lse = K.flash_fwd(q, k, v, causal, bq, bk)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = K.flash_fwd_plain(q, k, v, causal, bq, bk)
+    _close(o, o_ref)
+    assert (lse - lse_ref).abs().max().item() < 1e-2
+    delta = (do.float() * o_ref.float()).sum(-1)
+    dq = K.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal, bq, bk)
+    dk, dv = K.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal, bq, bk)
+    torch.cuda.synchronize()
+    _close(dq, K.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, causal,
+                                    bq, bk))
+    dk_ref, dv_ref = K.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta,
+                                           causal, bq, bk)
+    _close(dk, dk_ref)
+    _close(dv, dv_ref)
+
+
+def test_attention_autograd_runs_on_kernels(cuda):
+    """flash_attention forward and backward on the card launch the three
+    kernels, never the plain versions."""
+
+    g = torch.Generator(cuda).manual_seed(1)
+    q, k, v = (torch.randn((2, 255, 4, 128), generator=g, device=cuda)
+               .to(torch.bfloat16).requires_grad_() for _ in range(3))
+    before = dict(K.LAUNCHES)
+    out = K.flash_attention(q, k, v, causal=True)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and torch.isfinite(out.float()).all()
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert K.LAUNCHES[name] == before[name] + 1
+
+
+def test_kernel_refuses_unbuilt_head_dim(cuda):
+    q, k, v, _ = _inputs(cuda, 2, 64, 32)
+    with pytest.raises(ValueError):
+        K.flash_fwd(q, k, v, True, 64, 64)
+
+
+# ---- the tolerance against planted faults ------------------------------------
+
+def _scores(q, k):
+    S = q.shape[1]
+    s = q.float() @ k.float().mT * q.shape[-1] ** -0.5
+    keep = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    return s.masked_fill(~keep, float("-inf"))
+
+
+def _forward(q, k, v, *, round_p=False, rescale=True, k_stop=None):
+    """Causal online-softmax O over 64-key tiles, as the forward kernel
+    walks them.  ``round_p``: p rounded to bf16 for its product with V;
+    ``rescale=False``: the running sums are never rescaled when a row's
+    max moves; ``k_stop``: the tiles from there on are skipped."""
+
+    s = _scores(q, k)
+    BH, S, D = q.shape
+    m = torch.full((BH, S, 1), float("-inf"), device=q.device)
+    l = torch.zeros((BH, S, 1), device=q.device)
+    acc = torch.zeros((BH, S, D), device=q.device)
+    for j0 in range(0, k_stop or S, TILE):
+        st = s[..., j0:j0 + TILE]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
+        p = torch.exp(st - m_safe)
+        corr = torch.exp(m - m_safe) if rescale else torch.ones_like(m)
+        pv = p.bfloat16().float() if round_p else p
+        acc = acc * corr + pv @ v[:, j0:j0 + TILE].float()
+        l = l * corr + p.sum(-1, keepdim=True)
+        m = m_new
+    return (acc / l.clamp_min(1e-20)).bfloat16()
+
+
+def _backward(q, k, v, do, lse, delta, *, round_p=False, q_stop=None,
+              k_stop=None):
+    """Causal dQ, dK, dV from p = exp(s - lse), over the rows before
+    ``q_stop`` and the keys before ``k_stop``.  ``round_p``: p and dS
+    rounded to bf16 before their second products."""
+
+    p = torch.exp(_scores(q, k) - lse[..., None])
+    if q_stop is not None:
+        p[:, q_stop:] = 0.0
+    if k_stop is not None:
+        p[..., k_stop:] = 0.0
+    ds = (p * (do.float() @ v.float().mT - delta[..., None])
+          * q.shape[-1] ** -0.5)
+    if round_p:
+        p, ds = p.bfloat16().float(), ds.bfloat16().float()
+    return tuple(t.bfloat16() for t in (ds @ k.float(), ds.mT @ q.float(),
+                                        p.mT @ do.float()))
+
+
+def _bench_case(device):
+    """Bench-shape causal inputs (64 heads on the card, 4 on the CPU),
+    the plain versions' outputs, and the candidate's: the kernels on the
+    card, the f32 emulation of their numerics on the CPU."""
+
+    BH = 64 if device.type == "cuda" else 4
+    q, k, v, do = _inputs(device, BH, 256, 128, seed=3)
+    o_p, lse = K.flash_fwd_plain(q, k, v, True, 128, 128)
+    delta = (do.float() * o_p.float()).sum(-1)
+    want = {"o": o_p,
+            "dq": K.flash_bwd_dq_plain(q, k, v, do, lse, delta, True, 128,
+                                       128)}
+    want["dk"], want["dv"] = K.flash_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                                   True, 128, 128)
+    if device.type == "cuda":
+        got = {"o": K.flash_fwd(q, k, v, True, 128, 128)[0],
+               "dq": K.flash_bwd_dq(q, k, v, do, lse, delta, True, 128, 128)}
+        got["dk"], got["dv"] = K.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                               True, 128, 128)
+        torch.cuda.synchronize()
+    else:
+        got = {"o": _forward(q, k, v, round_p=True)}
+        got["dq"], got["dk"], got["dv"] = _backward(q, k, v, do, lse, delta,
+                                                    round_p=True)
+    return (q, k, v, do, lse, delta), want, got
+
+
+def test_tolerance_passes_kernel_numerics(device):
+    _, want, got = _bench_case(device)
+    for name in want:
+        assert K.plain_excess(got[name], want[name]) <= 1.0, name
+
+
+LAST = 256 - TILE
+# (output, fault): a kernel that skips its last k tile (or part of it),
+# never rescales its running sums, or ends its dK/dV q loop one tile early
+FAULTS = [
+    pytest.param("o", lambda a: _forward(*a[:3], k_stop=LAST),
+                 id="fwd-last-k-tile"),
+    pytest.param("o", lambda a: _forward(*a[:3], rescale=False),
+                 id="fwd-no-rescale"),
+    pytest.param("dq", lambda a: _backward(*a, k_stop=LAST)[0],
+                 id="dq-last-k-tile"),
+    pytest.param("dk", lambda a: _backward(*a, k_stop=LAST)[1],
+                 id="dk-last-k-tile"),
+    pytest.param("dv", lambda a: _backward(*a, k_stop=LAST)[2],
+                 id="dv-last-k-tile"),
+    # one warp's 16 keys: a limit of 2% of the tensor's largest |dK| (at
+    # key 0) rejects this one by a margin of only 1.3x on the CPU case
+    pytest.param("dk", lambda a: _backward(*a, k_stop=256 - 16)[1],
+                 id="dk-last-16-keys"),
+    pytest.param("dk", lambda a: _backward(*a, q_stop=LAST)[1],
+                 id="dk-last-q-tile"),
+    pytest.param("dv", lambda a: _backward(*a, q_stop=LAST)[2],
+                 id="dv-last-q-tile"),
+]
+
+
+@pytest.mark.parametrize("output,fault", FAULTS)
+def test_tolerance_fails_planted_fault(device, output, fault):
+    args, want, _ = _bench_case(device)
+    assert K.plain_excess(fault(args), want[output]) > 1.0

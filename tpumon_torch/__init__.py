@@ -1,0 +1,107 @@
+"""tpumon_torch — the PyTorch/CUDA port of tpumon.
+
+A second package beside ``tpumon`` (the JAX reference, which it never
+imports).  Slice 1 carries the monitored training path onto an NVIDIA
+H100: the bench transformer (:mod:`.loadgen.model`) with its attention on
+hand-written CUDA flash kernels (:mod:`.loadgen.kernels`,
+``csrc/flash_attn.cu``), the in-process CUDA backend
+(:mod:`.backends.cuda`), and the exporter's sweep core
+(:mod:`.exporter.exporter`), driven by ``python -m
+tpumon_torch.loadgen.run``.
+
+This module is the trimmed façade: a refcounted :func:`init` /
+:func:`shutdown` pair guarding one process-wide :class:`Handle` that
+carries what the exporter and the runner use (backend, watches,
+inventory, topology, versions).
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import List, Optional
+
+from .backends import (Backend, BackendError, ChipNotFound, LibraryNotFound,
+                       make_backend)
+from .types import ChipInfo, TopologyInfo, VersionInfo
+from .watch import WatchManager
+
+__version__ = "0.1.0"
+
+
+class Handle:
+    """One initialized monitoring session over a backend."""
+
+    def __init__(self, backend: Backend, *, own_backend: bool = True,
+                 clock=None) -> None:
+        self.backend = backend
+        self._own_backend = own_backend
+        self.watches = WatchManager(backend, clock=clock)
+
+    def supported_chips(self) -> List[int]:
+        return self.backend.supported_chips()
+
+    def chip_info(self, index: int) -> ChipInfo:
+        return self.backend.chip_info(index)
+
+    def versions(self) -> VersionInfo:
+        return self.backend.versions()
+
+    def topology(self, index: int) -> TopologyInfo:
+        return self.backend.topology(index)
+
+    def close(self) -> None:
+        # a raising watch stop must not leak the backend
+        try:
+            self.watches.stop()
+        finally:
+            if self._own_backend:
+                self.backend.close()
+
+
+_lock = threading.Lock()
+_handle: Optional[Handle] = None
+_refcount = 0
+
+
+def init(*, backend: Optional[Backend] = None,
+         backend_name: Optional[str] = None, clock=None) -> Handle:
+    """Initialize (refcounted).  Repeated calls share one Handle.  Raises
+    :class:`LibraryNotFound` when the backend has no device to open."""
+
+    global _handle, _refcount
+    with _lock:
+        if _handle is None:
+            b = backend or make_backend(backend_name)
+            try:
+                b.open()
+                h = Handle(b, own_backend=backend is None, clock=clock)
+            except BaseException:
+                if backend is None:
+                    try:
+                        b.close()
+                    except Exception:
+                        pass  # the open error is the one to report
+                raise
+            _handle = h
+        _refcount += 1
+        return _handle
+
+
+def shutdown() -> None:
+    """Release one reference; closes the Handle at zero."""
+
+    global _handle, _refcount
+    with _lock:
+        if _refcount == 0:
+            raise BackendError("shutdown() without matching init()")
+        _refcount -= 1
+        if _refcount == 0 and _handle is not None:
+            _handle.close()
+            _handle = None
+
+
+__all__ = [
+    "__version__", "init", "shutdown", "Handle",
+    "Backend", "BackendError", "ChipNotFound", "LibraryNotFound",
+    "make_backend",
+]

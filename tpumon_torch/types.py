@@ -1,0 +1,362 @@
+"""Core data types for the TPU monitoring framework.
+
+These are the TPU-native analogs of the reference's public structs:
+
+* ``ChipInfo``   <- nvml ``Device`` static info (reference ``bindings/go/nvml/nvml.go:328-396``)
+                    + dcgm ``Device`` (``bindings/go/dcgm/device_info.go``)
+* ``ChipStatus`` <- nvml ``DeviceStatus`` (``nvml.go:433-512``) /
+                    dcgm ``DeviceStatus`` (``device_status.go``)
+* ``P2PLink`` / ``IciLink`` <- ``GetP2PLink``/``GetNVLink`` (``nvml.go:514-568``)
+* ``ProcessInfo``  <- dcgm ``ProcessInfo`` (``process_info.go:96-189``)
+* ``HealthResult`` <- dcgm health check (``health.go:26-124``)
+* ``EngineStatus`` <- hostengine introspection (``hostengine_status.go:18-49``)
+
+Conventions kept from the reference: every dynamic quantity is Optional and
+``None`` means "not supported / blank" (NVML nil-on-NOT_SUPPORTED,
+``bindings.go:222-224``); unit normalization happens at the API boundary
+(mW->W ``nvml.go:390``, B->MiB ``bindings.go:428``, KB/s->MB/s ``nvml.go:506-509``)
+so consumers never see raw device units.
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+
+class ChipArch(enum.Enum):
+    """TPU chip generations (the CUDA-compute-capability analog)."""
+
+    V4 = "v4"
+    V5E = "v5e"
+    V5P = "v5p"
+    V6E = "v6e"
+    UNKNOWN = "unknown"
+
+
+#: public per-generation capability numbers:
+#: (HBM MiB, HBM GB/s, peak bf16 TFLOP/s).  Single source of truth for
+#: every backend (pjrt fallback caps, fake waveform scaling) — two
+#: hand-maintained copies silently drift.
+ARCH_CAPS: Dict["ChipArch", Tuple[int, float, float]] = {
+    ChipArch.V4: (32 * 1024, 1228.0, 275.0),
+    ChipArch.V5E: (16 * 1024, 819.0, 197.0),
+    ChipArch.V5P: (95 * 1024, 2765.0, 459.0),
+    ChipArch.V6E: (32 * 1024, 1638.0, 918.0),
+}
+
+#: public per-generation ICI capability: (links per chip, per-chip
+#: aggregate interconnect bandwidth GB/s) — from the published
+#: interchip-interconnect figures (v4 2400 / v5e 1600 / v5p 4800 /
+#: v6e 3584 Gbps per chip).  The aggregate is the PHYSICS CEILING the
+#: trace-attributed ICI rate is sanity-checked against: an attribution
+#: that claims more bytes/s than every link flat-out can carry is a
+#: bug, not a measurement (the reference's NVLink bandwidth counters
+#: are physical and need no such proof; a modeled bound does).
+ARCH_ICI_CAPS: Dict["ChipArch", Tuple[int, float]] = {
+    ChipArch.V4: (6, 300.0),
+    ChipArch.V5E: (4, 200.0),
+    ChipArch.V5P: (6, 600.0),
+    ChipArch.V6E: (4, 448.0),
+}
+
+#: device-kind substrings -> generation (shared by the pjrt backend and
+#: the trace analyzer; profiler planes carry ``device_type_string`` in
+#: the same vocabulary as PJRT's ``device_kind``)
+_ARCH_BY_KIND = {
+    "v4": ChipArch.V4,
+    "v5 lite": ChipArch.V5E, "v5e": ChipArch.V5E, "v5litepod": ChipArch.V5E,
+    "v5p": ChipArch.V5P, "v5": ChipArch.V5P,
+    "v6 lite": ChipArch.V6E, "v6e": ChipArch.V6E,
+}
+
+
+def arch_from_kind(kind: str) -> "ChipArch":
+    k = kind.lower()
+    for key, arch in _ARCH_BY_KIND.items():
+        if key in k:
+            return arch
+    return ChipArch.UNKNOWN
+
+
+@dataclass(frozen=True)
+class ClockInfo:
+    """Max clocks in MHz (nvml.go ClockInfo analog)."""
+
+    tensorcore: Optional[int] = None
+    hbm: Optional[int] = None
+
+
+@dataclass(frozen=True)
+class HbmInfo:
+    """HBM capacity in MiB."""
+
+    total: Optional[int] = None
+
+
+@dataclass(frozen=True)
+class PciInfo:
+    """Host-link identity/throughput ceiling (nvml.go PCI analog)."""
+
+    bus_id: str = ""
+    bandwidth_mb_s: Optional[int] = None  # max host-link bandwidth, MB/s
+
+
+@dataclass(frozen=True)
+class ChipCoords:
+    """Position of the chip in its pod slice (no NVML analog; TPU-native).
+
+    ``slice_index`` distinguishes slices in a multi-slice deployment
+    (BASELINE config 5); x/y/z are ICI torus coordinates.
+    """
+
+    x: int = 0
+    y: int = 0
+    z: int = 0
+    slice_index: int = 0
+
+
+@dataclass(frozen=True)
+class ChipInfo:
+    """Static per-chip information, gathered once at discovery."""
+
+    index: int
+    uuid: str
+    name: str                      # e.g. "TPU v5e"
+    arch: ChipArch
+    serial: str = ""
+    dev_path: str = ""             # /dev/accel<N> (cf. /dev/nvidia%d nvml.go:363)
+    firmware: str = ""
+    driver_version: str = ""
+    cores_per_chip: int = 1
+    power_limit_w: Optional[float] = None
+    hbm: HbmInfo = field(default_factory=HbmInfo)
+    clocks_max: ClockInfo = field(default_factory=ClockInfo)
+    pci: PciInfo = field(default_factory=PciInfo)
+    coords: ChipCoords = field(default_factory=ChipCoords)
+    numa_node: Optional[int] = None  # host NUMA affinity (nvml.go:294-312)
+    host: str = ""                   # hostname serving this chip
+
+
+@dataclass(frozen=True)
+class UtilizationInfo:
+    tensorcore: Optional[int] = None   # duty cycle %
+    hbm_bw: Optional[int] = None       # HBM bandwidth %
+    infeed: Optional[int] = None       # %
+    outfeed: Optional[int] = None      # %
+
+
+@dataclass(frozen=True)
+class MemoryInfo:
+    """MiB at the API boundary."""
+
+    total: Optional[int] = None
+    used: Optional[int] = None
+    free: Optional[int] = None
+
+
+@dataclass(frozen=True)
+class ChipMode:
+    """Occupancy/accounting state — the ``GetDeviceMode`` analog
+    (reference ``nvml.go:582-604``).
+
+    NVML reports display/persistence/accounting flags; on TPU the questions
+    a scheduler actually asks map to: ``held`` — whether any process
+    currently holds the chip (TPU access is exclusive, so this is the
+    availability bit), ``holder_pids`` — who, and ``accounting`` — whether
+    per-PID accounting (``watch_pid_fields``) covers the holders.
+    """
+
+    held: bool
+    holder_pids: Tuple[int, ...] = ()
+    accounting: bool = False
+
+
+@dataclass(frozen=True)
+class EccCounters:
+    sbe_aggregate: Optional[int] = None
+    dbe_aggregate: Optional[int] = None
+    sbe_volatile: Optional[int] = None
+    dbe_volatile: Optional[int] = None
+
+
+@dataclass(frozen=True)
+class HostLinkThroughput:
+    """MB/s at the API boundary (KB/s->MB/s normalization, nvml.go:506-509)."""
+
+    tx: Optional[int] = None
+    rx: Optional[int] = None
+    replays: Optional[int] = None
+
+
+@dataclass(frozen=True)
+class IciThroughput:
+    tx: Optional[int] = None           # MB/s aggregate
+    rx: Optional[int] = None
+    crc_errors: Optional[int] = None
+    recovery_errors: Optional[int] = None
+    replay_errors: Optional[int] = None
+    links_up: Optional[int] = None
+
+
+class ThrottleReason(enum.IntEnum):
+    """Why the chip is running below max clocks (nvml throttle-reason analog)."""
+
+    NONE = 0
+    IDLE = 1
+    POWER_CAP = 2
+    THERMAL = 3
+    RELIABILITY = 4
+    BOARD_LIMIT = 5
+    UNKNOWN = 99
+
+
+@dataclass(frozen=True)
+class ChipStatus:
+    """Live snapshot, one read per tick (nvml DeviceStatus analog)."""
+
+    power_w: Optional[float] = None
+    core_temp_c: Optional[int] = None
+    hbm_temp_c: Optional[int] = None
+    utilization: UtilizationInfo = field(default_factory=UtilizationInfo)
+    memory: MemoryInfo = field(default_factory=MemoryInfo)
+    clocks: ClockInfo = field(default_factory=ClockInfo)
+    ecc: EccCounters = field(default_factory=EccCounters)
+    host_link: HostLinkThroughput = field(default_factory=HostLinkThroughput)
+    ici: IciThroughput = field(default_factory=IciThroughput)
+    throttle: ThrottleReason = ThrottleReason.NONE
+    performance_state: Optional[int] = None
+    processes: List["DeviceProcess"] = field(default_factory=list)
+
+
+@dataclass(frozen=True)
+class DeviceProcess:
+    """A process holding the chip (nvml ProcessInfo analog, bindings.go:527-582)."""
+
+    pid: int
+    name: str
+    hbm_used_mib: Optional[int] = None
+
+
+class P2PLinkType(enum.IntEnum):
+    """Topology link classification (dcgm topology.go P2PLinkType analog)."""
+
+    UNKNOWN = 0
+    SAME_HOST_PCIE = 1      # chips on one host, PCIe only
+    ICI_NEIGHBOR = 2        # directly connected over ICI
+    ICI_SAME_SLICE = 3      # same slice, >1 ICI hop
+    DCN = 4                 # different slices, data-center network
+
+
+@dataclass(frozen=True)
+class P2PLink:
+    """Directed link descriptor returned by topology queries."""
+
+    chip_index: int
+    bus_id: str
+    link: P2PLinkType
+    hops: int = 0
+
+
+@dataclass(frozen=True)
+class TopologyInfo:
+    """Per-chip view of the pod-slice topology."""
+
+    coords: ChipCoords
+    cpu_affinity: str = ""                 # e.g. "0-47" (topology.go:90-96 analog)
+    numa_node: Optional[int] = None
+    links: List[P2PLink] = field(default_factory=list)
+    mesh_shape: Tuple[int, ...] = ()       # ICI torus shape, e.g. (16, 16)
+    wrap: Tuple[bool, ...] = ()            # torus wraparound per axis
+
+
+@dataclass(frozen=True)
+class ProcessUtilSample:
+    avg: Optional[int] = None
+    max: Optional[int] = None
+
+
+@dataclass(frozen=True)
+class ProcessInfo:
+    """Per-PID accounting (dcgm GetProcessInfo analog, process_info.go:96-189)."""
+
+    pid: int
+    name: str = ""
+    chip_indices: List[int] = field(default_factory=list)
+    start_time_us: Optional[int] = None
+    end_time_us: Optional[int] = None      # None while running
+    energy_mj: Optional[int] = None
+    tensorcore_util: ProcessUtilSample = field(default_factory=ProcessUtilSample)
+    hbm_util: ProcessUtilSample = field(default_factory=ProcessUtilSample)
+    max_hbm_used_mib: Optional[int] = None
+    pcie_tx_mb_s: Optional[int] = None
+    pcie_rx_mb_s: Optional[int] = None
+    health_event_count: int = 0
+    num_resets: int = 0
+
+
+class HealthSystem(enum.Flag):
+    """Watchable subsystems (dcgm DCGM_HEALTH_WATCH_* analog, health.go)."""
+
+    NONE = 0
+    PCIE = enum.auto()
+    ICI = enum.auto()         # <- NVLINK
+    HBM = enum.auto()         # <- MEM
+    TENSORCORE = enum.auto()  # <- SM
+    THERMAL = enum.auto()
+    POWER = enum.auto()
+    RUNTIME = enum.auto()     # <- DRIVER (TPU runtime process health)
+    FIRMWARE = enum.auto()    # <- INFOROM
+    DCN = enum.auto()         # multi-slice network (no NVLink-era analog)
+    ALL = (PCIE | ICI | HBM | TENSORCORE | THERMAL | POWER | RUNTIME
+           | FIRMWARE | DCN)
+
+
+class HealthStatus(enum.IntEnum):
+    PASS = 0
+    WARN = 10
+    FAIL = 20
+
+
+@dataclass(frozen=True)
+class HealthIncident:
+    system: HealthSystem
+    status: HealthStatus
+    message: str
+
+
+@dataclass(frozen=True)
+class HealthResult:
+    chip_index: int
+    status: HealthStatus
+    incidents: List[HealthIncident] = field(default_factory=list)
+
+
+@dataclass(frozen=True)
+class EngineStatus:
+    """Self-metrics of the monitoring agent (hostengine_status.go analog).
+
+    This is how the <1% host CPU north-star target is self-measured.
+    """
+
+    memory_kb: float
+    cpu_percent: float
+    pid: int = 0
+    uptime_s: float = 0.0
+    samples_per_second: float = 0.0
+
+
+@dataclass(frozen=True)
+class VersionInfo:
+    driver: str = ""
+    runtime: str = ""
+    framework: str = ""
+
+
+def mib(nbytes: Optional[int]) -> Optional[int]:
+    """B -> MiB normalization helper (bindings.go:428 analog)."""
+
+    if nbytes is None:
+        return None
+    return int(nbytes // (1024 * 1024))
