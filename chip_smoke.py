@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit (``nvidia-smi``) and builds the
-   port's CUDA kernels from ``tpumon_torch/csrc`` (``nvcc``, at first use).
+   port's CUDA kernels from ``tpumon_torch/csrc`` (one ``nvcc`` per source,
+   all started together, at first use).
 2. Holds each flash-attention kernel (forward, dQ, dK/dV) against its
    plain PyTorch version at the bench shapes (B*H=64, D=128, bf16): causal
    at S=255 padded to 256, as the model's loss runs it, and non-causal at
@@ -15,19 +16,44 @@
    built from the kernels' outputs (the last key tile skipped).  Times the
    kernel, the plain version and ``scaled_dot_product_attention``
    (forward, and backward for the two gradient kernels) as the library
-   yardstick, which the port never calls.
-3. Holds ``flash_attention`` forward and backward, the model's entry to
+   yardstick, which the port never calls.  The forward kernel is held and
+   timed again at the ``flash`` pattern's shape (B*H=4, S=1024, causal).
+3. Holds the load-shaping kernels against their plain versions at the
+   patterns' shapes: ``hbm_stream`` bit for bit (f32, and a planted
+   (256, 1024) block left unwritten must fail), at the card's ``hbm``
+   shape and at the reference's (2048, 4096); ``mxu_burn`` (T=256,
+   iters=64, the pattern's number of tiles) on bounded inputs, x random
+   normal and w a random orthogonal matrix, within ``kernels.mxu_excess``
+   (every element within one bf16 ulp of itself plus 8 * sqrt(iters) bf16
+   unit roundoffs of the output's RMS: the two chains sum in different
+   orders and part by rounding flips that later steps carry), which the
+   chain run one step short must fail.  Library yardsticks: ``copy_`` of
+   the same bytes, and the chained bf16 ``torch.matmul``.
+4. Holds ``flash_attention`` forward and backward, the model's entry to
    the kernels, against dense f32 attention at the bench shape (same
    tolerance), and one bench train step with flash against one of the
    dense model: the q, k, v and o projections' updates (relative
    Frobenius error at most ``UPDATE_RTOL``) and the loss (rtol 2e-2, the
    JAX package's own check).
-4. Sets the launch counts to 0, drives the main path in-process —
-   ``tpumon_torch.loadgen.run --size bench --self-monitor --seconds 10`` —
-   and fails unless the loss is finite, steps ran, families were
-   non-blank (HBM used and total among them) and every kernel launched.
-5. Prints one ``{"kernels": [...]}`` line, then, last, the
-   ``{"ok": true, "device": {...}}`` line.
+5. Drives each main path in-process with the launch counts set to 0 just
+   before it and read just after: ``tpumon_torch.loadgen.run --size bench
+   --self-monitor --seconds 10`` (fails unless the loss is finite) and
+   ``--pattern P --self-monitor --seconds 3`` for each of mxu, hbm, mixed,
+   flash and conv.  Each fails unless steps ran, the HBM families (used
+   and total) were non-blank and the path's kernels launched.
+6. The metric-semantics check (the reference's
+   ``tests/test_real_tpu_semantics.py``) on the port's ``CudaBackend``,
+   with the ``mxu`` pattern as the load on a worker thread: idle
+   utilization <= 20, busy >= 50 and more than idle + 30, a 1 GiB
+   allocation seen as >= 900 MiB more HBM used, the not-idle clock <= 5 s
+   under load, utilization after the load <= 25.  Only the ordering is
+   asserted: the probes are queue-delay estimators.
+7. Prints one ``{"kernels": [...]}`` line, a row for each kernel: ``ms``
+   is one call through the port's wrapper as the main path makes it and
+   ``kernel_ms`` the kernel's C entry called directly (device time over
+   back-to-back calls, so the wrapper's host work shows in ``ms`` only
+   where it outlasts the kernel); then, last, the ``{"ok": true,
+   "device": {...}}`` line.
 
 Exits non-zero, printing no result, on any failure, when CUDA is not
 available, or when the ``tpumon_torch`` package is not beside it.
@@ -42,6 +68,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -59,12 +86,25 @@ PEAK_HBM_BYTES = 3.35e12
 UPDATE_RTOL = 3e-2
 
 BH, HEADS, D = 64, 8, 128
-KERNELS = (
+FLASH_KERNELS = (
     ("flash_fwd", "_flash_kernel", "tpumon/loadgen/kernels.py:122"),
     ("flash_bwd_dq", "_flash_bwd_dq_kernel", "tpumon/loadgen/kernels.py:192"),
     ("flash_bwd_dkv", "_flash_bwd_dkv_kernel",
      "tpumon/loadgen/kernels.py:219"),
 )
+KERNELS = FLASH_KERNELS + (
+    ("mxu_burn", "_mxu_kernel", "tpumon/loadgen/kernels.py:34"),
+    ("hbm_stream", "_stream_kernel", "tpumon/loadgen/kernels.py:59"),
+)
+#: each main path's run, and the kernels it must launch
+PATHS = {
+    "train": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+    "mxu": ("mxu_burn",),
+    "hbm": ("hbm_stream",),
+    "mixed": ("mxu_burn", "hbm_stream"),
+    "flash": ("flash_fwd",),
+    "conv": (),
+}
 
 
 def fail(msg: str) -> int:
@@ -247,10 +287,7 @@ def kernel_cases(K, lib):
                               4 * 2 * D * pairs),
         }
         kernel_ms = {name: time_ms(raw[name], 200) for name in raw}
-        for name, tpu_kernel, replaces in KERNELS:
-            nbytes, flops = work[name]
-            t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-            t_ops = flops / PEAK_BF16_FLOPS * 1e3
+        for name, tpu_kernel, replaces in FLASH_KERNELS:
             rows[name] = {
                 "name": name,
                 "route": "cuda",
@@ -258,18 +295,202 @@ def kernel_cases(K, lib):
                 "replaces": f"{replaces} ({tpu_kernel})",
                 "max_abs_err": errs[name][0],
                 "tol_excess": errs[name][1],
-                "ms": kernel_ms[name],
+                "ms": time_ms(wrapped[name], 200),
                 "kernel_ms": kernel_ms[name],
-                "wrapper_ms": time_ms(wrapped[name], 200),
                 "plain_ms": time_ms(plain[name], 20),
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                **bound(*work[name]),
                 "library_ms": lib_fwd if name == "flash_fwd" else lib_bwd,
                 "library_call": ("scaled_dot_product_attention forward"
                                  if name == "flash_fwd" else
                                  "scaled_dot_product_attention backward "
                                  "(dQ, dK and dV together)"),
             }
+    return rows
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take for work that must move
+    ``nbytes`` (each input read once, each output written once) and do
+    ``flops`` bf16 tensor-core operations, and which of the two bounds
+    it."""
+
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def flash_pattern_case(K, lib) -> dict:
+    """The forward kernel at the ``flash`` pattern's shape (B=1, S=1024,
+    H=4, D=128, causal: 64 blocks of 64 rows), against its plain version
+    with the kernels' tolerance, timed beside its bound and SDPA."""
+
+    import torch
+    import torch.nn.functional as F
+    from tpumon_torch import _build
+
+    B, S, H, Dp = K.FLASH_SHAPE["cuda"]
+    bh = B * H
+    g = torch.Generator("cuda").manual_seed(11)
+    q, k, v = (torch.randn((bh, S, Dp), generator=g, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    o, lse = K.flash_fwd(q, k, v, True, 128, 128)
+    torch.cuda.synchronize()
+    o_p, lse_p = K.flash_fwd_plain(q, k, v, True, 128, 128)
+    excess = check_close(K, "flash_fwd at the flash pattern's shape", o, o_p)
+    if max_err(lse, lse_p) > 1e-2:
+        raise AssertionError(f"flash_fwd lse off by {max_err(lse, lse_p)} "
+                             f"at the flash pattern's shape")
+    o_b, lse_b = torch.empty_like(q), torch.empty((bh, S), device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    half = bh * S * Dp * 2
+    q4, k4, v4 = (t.reshape(B, H, S, Dp) for t in (q, k, v))
+    return {
+        "shape": [bh, S, Dp],
+        "max_abs_err": max_err(o, o_p),
+        "tol_excess": excess,
+        "ms": time_ms(lambda: K.flash_fwd(q, k, v, True, 128, 128), 200),
+        "kernel_ms": time_ms(lambda: _build.check(lib.tpumon_flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o_b.data_ptr(),
+            lse_b.data_ptr(), bh, S, Dp, 1, Dp ** -0.5, stream),
+            "flash_fwd"), 200),
+        "plain_ms": time_ms(lambda: K.flash_fwd_plain(q, k, v, True, 128,
+                                                      128), 20),
+        **bound(4 * half + bh * S * 4, 2 * 2 * Dp * bh * S * (S + 1) // 2),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True), 200),
+    }
+
+
+def step_ms(fn, x, iters: int) -> float:
+    """Host-clock time per step of the chain ``x = fn(x)``, as a pattern
+    steps, over ``iters`` steps ending in a synchronise: the device's
+    time where it is busy throughout, the host's where the host cannot
+    keep it fed."""
+
+    import torch
+
+    y = fn(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        y = fn(y)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def stream_case(K, lib, shape) -> dict:
+    """``hbm_stream`` at ``shape`` (f32): the kernel bit for bit equal to
+    its plain version, a planted unwritten (256, 1024) block rejected, and
+    its times; ``gbps`` is the bytes the pass must move over the kernel's
+    time, ``step_ms`` the chained pattern step on the host clock."""
+
+    import torch
+    from tpumon_torch import _build
+
+    x = torch.randn(shape, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(5))
+    got = K.hbm_stream(x)
+    torch.cuda.synchronize()
+    want = K.hbm_stream_plain(x)
+    if not torch.equal(got, want):
+        raise AssertionError(f"hbm_stream {shape}: kernel differs from its "
+                             f"plain version (max abs err "
+                             f"{max_err(got, want):.3e})")
+    fault = got.clone()
+    fault[256:512, 1024:2048] = 0.0
+    if torch.equal(fault, want):
+        raise AssertionError("the hbm_stream check passes a block left "
+                             "unwritten")
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+    nbytes = 2 * x.numel() * 4
+    kernel_ms = time_ms(lambda: _build.check(lib.tpumon_hbm_stream(
+        x.data_ptr(), out.data_ptr(), x.numel(), stream), "hbm_stream"), 200)
+    return {
+        "shape": list(shape),
+        "max_abs_err": max_err(got, want),
+        "bitwise": True,
+        "ms": time_ms(lambda: K.hbm_stream(x), 200),
+        "kernel_ms": kernel_ms,
+        "gbps": nbytes / kernel_ms / 1e6,
+        "step_ms": step_ms(K.hbm_stream, x, 500),
+        "plain_ms": time_ms(lambda: K.hbm_stream_plain(x), 200),
+        **bound(nbytes, 0),
+        "library_ms": time_ms(lambda: out.copy_(x), 200),
+        "library_call": "torch.Tensor.copy_ of the same bytes",
+    }
+
+
+def mxu_case(K, lib) -> dict:
+    """``mxu_burn`` at the pattern's depth and number of tiles on bounded
+    inputs (x random normal, w random orthogonal), within its tolerance of
+    the plain chain; the chain one step short must fail it."""
+
+    import numpy as np
+    import torch
+    from tpumon_torch import _build
+
+    T, iters, n = K.MXU_TILE, 64, K.mxu_tiles("cuda")
+    x = torch.randn((n, T, T), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(3)
+                    ).to(torch.bfloat16)
+    qr, _ = np.linalg.qr(np.random.default_rng(4).standard_normal((T, T)))
+    w = torch.from_numpy(qr.astype(np.float32)).to("cuda", torch.bfloat16)
+    got = K.mxu_burn(x, w, iters=iters)
+    short = K.mxu_burn(x, w, iters=iters - 1)
+    torch.cuda.synchronize()
+    want = K.mxu_burn_plain(x, w, iters=iters)
+    excess = K.mxu_excess(got, want, iters)
+    if not excess <= 1.0:
+        raise AssertionError(f"mxu_burn: |kernel - plain| reaches "
+                             f"{excess:.3g}x its elementwise limit")
+    fault = K.mxu_excess(short, want, iters)
+    if not fault > 1.0:
+        raise AssertionError(f"the mxu_burn check passes a chain one step "
+                             f"short (excess {fault:.3g})")
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def library():
+        acc = x
+        for _ in range(iters):
+            acc = torch.matmul(acc, w)
+        return acc
+
+    flops = n * iters * 2 * T ** 3
+    kernel_ms = time_ms(lambda: _build.check(lib.tpumon_mxu_burn(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), n, iters, stream),
+        "mxu_burn"), 50)
+    return {
+        "shape": [n, T, T],
+        "iters": iters,
+        "max_abs_err": max_err(got, want),
+        "tol_excess": excess,
+        "planted_fault_excess": fault,
+        "ms": time_ms(lambda: K.mxu_burn(x, w, iters=iters), 50),
+        "kernel_ms": kernel_ms,
+        "tflops": flops / kernel_ms / 1e9,
+        "plain_ms": time_ms(lambda: K.mxu_burn_plain(x, w, iters=iters), 5),
+        **bound((2 * n + 1) * T * T * 2, flops),
+        "library_ms": time_ms(library, 20),
+        "library_call": f"torch.matmul bf16 (n, T, T) @ (T, T), f32 "
+                        f"accumulate, bf16 out: {iters} chained calls",
+    }
+
+
+def load_kernel_cases(K, lib) -> dict:
+    """Rows of the kernels line for the two load-shaping kernels, at the
+    card's pattern shapes; the stream also at the reference's (2048, 4096)
+    f32, whose 64 MiB of traffic the 50 MB L2 can partly serve."""
+
+    stream = stream_case(K, lib, K.HBM_SHAPE["cuda"])
+    stream["at_reference_shape"] = stream_case(K, lib, (2048, 4096))
+    rows = {"mxu_burn": mxu_case(K, lib), "hbm_stream": stream}
+    for name, tpu_kernel, replaces in KERNELS[3:]:
+        rows[name] = {"name": name, "route": "cuda",
+                      "source": "tpumon_torch/csrc/load_kernels.cu",
+                      "replaces": f"{replaces} ({tpu_kernel})", **rows[name]}
     return rows
 
 
@@ -351,6 +572,126 @@ def model_check(M) -> dict:
             "update_rel_err": rel}
 
 
+def drive_path(K, R, fields, path: str) -> tuple:
+    """One main path in-process, self-monitored: the bench train run for
+    ``train``, else ``--pattern <path>``.  The launch counts are set to 0
+    just before it and read just after; fails unless steps ran, the HBM
+    families were non-blank, the loss (train) is finite and every kernel
+    of the path launched.  Returns (its JSON result, the counts)."""
+
+    args = (["--size", "bench", "--seconds", "10"] if path == "train"
+            else ["--pattern", path, "--seconds", "3"])
+    for name in K.LAUNCHES:
+        K.LAUNCHES[name] = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = R.main([*args, "--self-monitor", "--json"])
+    launches = dict(K.LAUNCHES)
+    out = buf.getvalue().strip().splitlines()
+    if rc != 0 or not out:
+        raise AssertionError(f"main path {path} exited {rc}")
+    result = json.loads(out[-1])
+    F = fields.F
+    hbm = {fields.CATALOG[int(F.HBM_USED)].prom_name,
+           fields.CATALOG[int(F.HBM_TOTAL)].prom_name}
+    if path == "train":
+        loss = result.get("final_loss")
+        if loss is None or not math.isfinite(loss):
+            raise AssertionError(f"final loss {loss}")
+    if result.get("steps", 0) <= 0:
+        raise AssertionError(f"no steps ran on main path {path}")
+    if result.get("families_nonblank", 0) <= 0:
+        raise AssertionError(f"no non-blank metric families ({path})")
+    if not hbm <= set(result.get("families", [])):
+        raise AssertionError(f"HBM families {sorted(hbm)} blank ({path})")
+    for name in PATHS[path]:
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"kernel {name} never launched on main "
+                                 f"path {path}")
+    return result, launches
+
+
+def semantics_check(K, fields) -> dict:
+    """The reference's metric-semantics check on a real device, on the
+    port's CudaBackend: the ``mxu`` pattern on a worker thread (batches of
+    32 steps, each drained by a scalar read, so the backlog stays bounded)
+    must drive utilization up, a 1 GiB allocation must show in HBM used,
+    and an idle device must decay back.  Only the ordering is asserted."""
+
+    import torch
+    from tpumon_torch.backends.cuda import CudaBackend
+
+    F = fields.F
+    UTIL, HBM_USED, NOT_IDLE = (int(F.TENSORCORE_UTIL), int(F.HBM_USED),
+                                int(F.NOT_IDLE_TIME))
+    b = CudaBackend()
+    b.PROBE_INTERVAL_S = 0.2
+    b.open()
+    try:
+        def read(fid):
+            return b.read_fields(0, [fid])[fid]
+
+        b.warmup_probes(0)
+        read(UTIL)
+        time.sleep(0.3)
+        idle_util = read(UTIL)
+
+        step, state = K.make_pattern("mxu", device="cuda")
+        step(state).reshape(-1)[0].item()  # built and launched once first
+        stop = threading.Event()
+        errors = []
+
+        def worker():
+            s = state
+            try:
+                while not stop.is_set():
+                    for _ in range(32):
+                        s = step(s)
+                    s.reshape(-1)[0].item()
+            except Exception as e:  # surfaced below, after the join
+                errors.append(e)
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        time.sleep(1.0)
+        busy = []
+        for _ in range(4):
+            busy.append(read(UTIL))
+            time.sleep(0.3)
+        not_idle_at_busy = read(NOT_IDLE)
+        stop.set()
+        t.join(timeout=60)
+        if t.is_alive() or errors:
+            raise AssertionError(f"mxu load thread failed: {errors}")
+
+        before = read(HBM_USED)
+        buf = torch.ones((256, 1024, 1024), device="cuda")  # 1 GiB
+        torch.cuda.synchronize()
+        after = read(HBM_USED)
+        del buf
+
+        time.sleep(1.5)
+        decay = []
+        for _ in range(3):
+            time.sleep(0.3)
+            decay.append(read(UTIL))
+    finally:
+        b.close()
+    m = {"idle_util": idle_util, "busy_utils": busy,
+         "busy_util": max(busy), "idle_after": min(decay),
+         "hbm_before": before, "hbm_after": after,
+         "not_idle_at_busy": not_idle_at_busy}
+    ok = (m["busy_util"] >= 50 and m["idle_util"] <= 20
+          and m["idle_after"] <= 25
+          and m["busy_util"] > m["idle_util"] + 30
+          and m["hbm_after"] - m["hbm_before"] >= 900
+          and m["not_idle_at_busy"] is not None
+          and m["not_idle_at_busy"] <= 5)
+    if not ok:
+        raise AssertionError(f"metric semantics out of order: {m}")
+    return m
+
+
 def main() -> int:
     import torch
 
@@ -383,37 +724,22 @@ def main() -> int:
             print("  " + line.strip()[:160])
 
     rows = kernel_cases(K, lib)
+    rows["flash_fwd"]["at_flash_pattern"] = flash_pattern_case(K, lib)
+    rows.update(load_kernel_cases(K, lib))
     print("attention check, excess: " + json.dumps(attention_check(K)))
     print("model check: " + json.dumps(model_check(M)))
 
-    for name in K.LAUNCHES:
-        K.LAUNCHES[name] = 0
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = R.main(["--size", "bench", "--self-monitor", "--seconds", "10",
-                     "--json"])
-    launches = dict(K.LAUNCHES)
-    out = buf.getvalue().strip().splitlines()
-    if rc != 0 or not out:
-        return fail(f"main path exited {rc}")
-    result = json.loads(out[-1])
-    print("main path: " + json.dumps(result))
-    F = fields.F
-    hbm = {fields.CATALOG[int(F.HBM_USED)].prom_name,
-           fields.CATALOG[int(F.HBM_TOTAL)].prom_name}
-    loss = result.get("final_loss")
-    if loss is None or not math.isfinite(loss):
-        return fail(f"final loss {loss}")
-    if result.get("steps", 0) <= 0:
-        return fail("no training steps ran")
-    if result.get("families_nonblank", 0) <= 0:
-        return fail("no non-blank metric families")
-    if not hbm <= set(result.get("families", [])):
-        return fail(f"HBM families {sorted(hbm)} blank")
     for name, _, _ in KERNELS:
-        if launches.get(name, 0) <= 0:
-            return fail(f"kernel {name} never launched on the main path")
-        rows[name]["launches"] = launches[name]
+        rows[name]["launches"] = 0
+        rows[name]["launches_by_path"] = {}
+    for path in PATHS:
+        result, launches = drive_path(K, R, fields, path)
+        print(f"main path {path}: " + json.dumps(result))
+        for name in PATHS[path]:
+            rows[name]["launches"] += launches[name]
+            rows[name]["launches_by_path"][path] = launches[name]
+
+    print("semantics check: " + json.dumps(semantics_check(K, fields)))
 
     print(json.dumps({"kernels": [rows[n] for n, _, _ in KERNELS]}))
     print(json.dumps({"ok": True, "device": {

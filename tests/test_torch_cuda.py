@@ -1,5 +1,6 @@
-"""The port's CUDA flash kernels against their plain PyTorch versions, and
-the tolerance that holds them there.
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+tolerances that hold them there: the flash kernels, the tensor-core burn
+(``mxu_burn``) and the memory stream (``hbm_stream``).
 
 The kernel cases need a CUDA device and skip without one; run them on a
 GPU host with ``python -m pytest --noconftest tests/test_torch_cuda.py``.
@@ -16,8 +17,17 @@ orders smaller than row 0 or key 0, the tolerance passes the kernels'
 stated numerics (on the CPU an f32 emulation of them, on the card the
 kernels) and fails a kernel that skips a tile or never rescales its
 running softmax sums.
+
+``hbm_stream``'s kernel equals its plain version bit for bit.
+``mxu_burn``'s is held by ``kernels.mxu_excess`` (every element within 8 *
+sqrt(iters) bf16 unit roundoffs of the output's RMS) on bounded inputs, x
+random normal and w a random orthogonal matrix, at the pattern's tile and
+depth; on the CPU the candidate is the same chain summed in f64, another
+summation order.  Both checks must reject planted faults: a stream block
+left unwritten, a chain one step short.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -219,3 +229,111 @@ FAULTS = [
 def test_tolerance_fails_planted_fault(device, output, fault):
     args, want, _ = _bench_case(device)
     assert K.plain_excess(fault(args), want[output]) > 1.0
+
+
+# ---- the load-shaping kernels -------------------------------------------------
+
+def _orthogonal_bf16(T, device, seed=2):
+    q, _ = np.linalg.qr(np.random.default_rng(seed).standard_normal((T, T)))
+    return torch.from_numpy(q.astype(np.float32)).to(device, torch.bfloat16)
+
+
+def _mxu_case(device, iters=64):
+    """Bounded inputs at the pattern's tile and depth: on the card as many
+    tiles as the pattern burns, on the CPU two; the plain chain, and the
+    candidate's (the kernel on the card, an f64-summed chain on the
+    CPU)."""
+
+    T = K.MXU_TILE
+    n = K.mxu_tiles(device) if device.type == "cuda" else 2
+    g = torch.Generator(device).manual_seed(1)
+    x = torch.randn((n, T, T), generator=g, device=device).to(torch.bfloat16)
+    w = _orthogonal_bf16(T, device)
+    want = K.mxu_burn_plain(x, w, iters=iters)
+    if device.type == "cuda":
+        got = K.mxu_burn(x, w, iters=iters)
+        torch.cuda.synchronize()
+    else:
+        got = x
+        for _ in range(iters):
+            got = (got.double() @ w.double()).to(torch.bfloat16)
+    return x, w, want, got
+
+
+@pytest.mark.parametrize("iters", [64, 1, 16])
+def test_mxu_kernel_matches_plain(device, iters):
+    _, _, want, got = _mxu_case(device, iters)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert K.mxu_excess(got, want, iters) <= 1.0
+
+
+def test_mxu_tolerance_fails_chain_one_step_short(device):
+    x, w, want, _ = _mxu_case(device)
+    if device.type == "cuda":
+        short = K.mxu_burn(x, w, iters=63)
+        torch.cuda.synchronize()
+    else:
+        short = K.mxu_burn_plain(x, w, iters=63)
+    assert K.mxu_excess(short, want, 64) > 1.0
+
+
+def test_mxu_kernel_identity_and_single_tile(cuda):
+    eye = torch.eye(256, device=cuda, dtype=torch.bfloat16)
+    before = K.LAUNCHES["mxu_burn"]
+    out = K.mxu_burn(eye, eye, iters=4)
+    torch.cuda.synchronize()
+    assert out.shape == (256, 256) and torch.equal(out, eye)
+    assert K.LAUNCHES["mxu_burn"] == before + 1
+
+
+def test_mxu_kernel_refuses_unbuilt_tile(cuda):
+    x = torch.zeros((128, 128), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        K.mxu_burn(x, x, iters=1)
+    with pytest.raises(ValueError):
+        K.mxu_burn(x.float(), x.float(), iters=1)
+
+
+# the pattern's shapes on the CPU and the card, a tail of 3 scalars past the
+# 16-byte vectors, and one exact (256, 1024) block
+STREAM_SHAPES = [(2048, 4096), K.HBM_SHAPE["cuda"], (5, 3), (256, 1024)]
+
+
+@pytest.mark.parametrize("shape", STREAM_SHAPES)
+def test_hbm_stream_kernel_bitwise(cuda, shape):
+    x = torch.randn(shape, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(0))
+    before = K.LAUNCHES["hbm_stream"]
+    got = K.hbm_stream(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, K.hbm_stream_plain(x))
+    assert K.LAUNCHES["hbm_stream"] == before + 1
+
+
+def test_hbm_stream_check_fails_unwritten_block(device):
+    x = torch.randn((2048, 4096), device=device,
+                    generator=torch.Generator(device).manual_seed(0))
+    got = K.hbm_stream(x)
+    fault = got.clone()
+    fault[256:512, 1024:2048] = 0.0
+    assert torch.equal(got, K.hbm_stream_plain(x))
+    assert not torch.equal(fault, K.hbm_stream_plain(x))
+
+
+def test_hbm_stream_kernel_refuses_other_dtypes(cuda):
+    with pytest.raises(ValueError):
+        K.hbm_stream(torch.zeros((256, 1024), device=cuda,
+                                 dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("name,kernels", [
+    ("mxu", {"mxu_burn"}), ("hbm", {"hbm_stream"}),
+    ("mixed", {"mxu_burn", "hbm_stream"}), ("flash", {"flash_fwd"}),
+    ("conv", set())])
+def test_patterns_step_on_kernels(cuda, name, kernels):
+    step, state = K.make_pattern(name, device=cuda)
+    before = dict(K.LAUNCHES)
+    state = step(step(state))
+    torch.cuda.synchronize()
+    launched = {k for k in K.LAUNCHES if K.LAUNCHES[k] > before[k]}
+    assert launched == kernels

@@ -405,10 +405,12 @@ def test_runner_cli_on_cpu():
     assert d["device"] == "cpu" and d["final_loss"] > 0
 
 
-def test_runner_refuses_unported_patterns(capsys):
+@pytest.mark.parametrize("pattern", ["ringattn", "allreduce", "dcn", "pp",
+                                     "moe"])
+def test_runner_refuses_unported_patterns(capsys, pattern):
     from tpumon_torch.loadgen import run
     with pytest.raises(SystemExit):
-        run.main(["--pattern", "mxu", "--device", "cpu"])
+        run.main(["--pattern", pattern, "--device", "cpu"])
     assert "not yet ported" in capsys.readouterr().err
 
 

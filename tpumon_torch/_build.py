@@ -1,11 +1,12 @@
 """Build and bind the port's CUDA kernels.
 
-One ``nvcc`` run per source file compiles ``csrc/*.cu`` for ``sm_90a``
-into a shared library with a plain C interface under
+One ``nvcc`` run per source file compiles each of ``csrc/*.cu`` for
+``sm_90a`` into a shared library with a plain C interface under
 ``build/tpumon_torch/`` at the repository root, named by a hash of the
 source and the flags so an edited source never loads a stale library.
-The library is loaded with :mod:`ctypes`; nothing includes PyTorch's
-headers, which keeps a cold build to seconds.
+The runs start together, one thread each.  The libraries are loaded with
+:mod:`ctypes` and their entry points gathered into one namespace;
+nothing includes PyTorch's headers, which keeps a cold build to seconds.
 
 The build runs at first use (:func:`load`), never at import: the CPU
 tests import every module on hosts without ``nvcc``.  A failed build
@@ -20,30 +21,40 @@ import os
 import shutil
 import subprocess
 import threading
+import types
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Optional
+from typing import Dict, List, Optional
 
 PKG_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PKG_DIR.parent / "build" / "tpumon_torch"
-SOURCES = ("csrc/flash_attn.cu",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-#: C entry point -> argument types (pointers, ints, the softmax scale,
-#: the stream); every entry returns cudaGetLastError() as an int
-SIGNATURES = {
-    "tpumon_flash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
-    "tpumon_flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _F, _P),
-    "tpumon_flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _F, _P),
+_L = ctypes.c_longlong
+#: source -> its C entry points -> argument types (pointers, ints, the
+#: softmax scale, the stream); every entry returns cudaGetLastError() as
+#: an int
+SIGNATURES: Dict[str, Dict[str, tuple]] = {
+    "csrc/flash_attn.cu": {
+        "tpumon_flash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+        "tpumon_flash_bwd_dq": (_P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _F, _P),
+        "tpumon_flash_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _F, _P),
+    },
+    "csrc/load_kernels.cu": {
+        "tpumon_mxu_burn": (_P, _P, _P, _I, _I, _P),
+        "tpumon_hbm_stream": (_P, _P, _L, _P),
+    },
 }
+SOURCES = tuple(SIGNATURES)
 
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+_lib: Optional[types.SimpleNamespace] = None
 
 
 def nvcc() -> str:
@@ -84,34 +95,40 @@ def _compile(src: Path) -> Path:
     return out
 
 
-def build() -> Path:
-    """Compile every source (a no-op when the hashed library exists) and
-    return the library path.  Slice 1 has one source, so one library."""
+def build() -> List[Path]:
+    """Compile every source, all ``nvcc`` runs at once (each a no-op when
+    its hashed library exists), and return the library paths in the
+    order of :data:`SOURCES`.  The first failure raises."""
 
-    (lib,) = [_compile(PKG_DIR / s) for s in SOURCES]
-    return lib
+    with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
+        futures = [pool.submit(_compile, PKG_DIR / s) for s in SOURCES]
+        return [f.result() for f in futures]
 
 
 def build_log() -> str:
-    """ptxas's report from the last build of the library (registers,
+    """ptxas's report from the last build of every library (registers,
     shared memory, spills per kernel), or '' before any build."""
 
-    path = build().with_suffix(".log")
-    return path.read_text() if path.exists() else ""
+    logs = [p.with_suffix(".log") for p in build()]
+    return "".join(p.read_text() for p in logs if p.exists())
 
 
-def load() -> ctypes.CDLL:
-    """The bound kernel library, built on first call."""
+def load() -> types.SimpleNamespace:
+    """Every C entry point of every library, bound and typed, as
+    attributes of one namespace; built on first call."""
 
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
-            _lib = lib
+            fns = {}
+            for src, path in zip(SOURCES, build()):
+                lib = ctypes.CDLL(str(path))
+                for name, argtypes in SIGNATURES[src].items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = list(argtypes)
+                    fn.restype = ctypes.c_int
+                    fns[name] = fn
+            _lib = types.SimpleNamespace(**fns)
         return _lib
 
 

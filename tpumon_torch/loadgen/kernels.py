@@ -1,22 +1,27 @@
-"""Flash attention for the monitored workload: hand-written CUDA kernels
-for Hopper, with a plain PyTorch twin of each.
+"""The loadgen's device kernels: flash attention for the monitored
+workload and the two load-shaping kernels, each hand-written in CUDA for
+Hopper with a plain PyTorch twin; and the load patterns built on them.
 
-Counterpart of the flash part of ``tpumon/loadgen/kernels.py``: the same
-public contract (:func:`flash_attention` on (B, S, H, D) tensors, folded
-to (B*H, S, D), causal tail padding, the non-causal ``ValueError``) and
-the same three device kernels, forward, dQ and dK/dV, now in
-``tpumon_torch/csrc/flash_attn.cu``.
+Counterpart of ``tpumon/loadgen/kernels.py``: the same public contracts
+(:func:`flash_attention` on (B, S, H, D) tensors, folded to (B*H, S, D),
+causal tail padding, the non-causal ``ValueError``; :func:`mxu_burn` on
+square bf16 tiles; :func:`hbm_stream` over (256, 1024) blocks with its
+divisibility check; :func:`make_pattern`) and the same five device
+kernels: flash forward, dQ and dK/dV in
+``tpumon_torch/csrc/flash_attn.cu``, the tensor-core burn and the memory
+stream in ``tpumon_torch/csrc/load_kernels.cu``.
 
 Each kernel has a wrapper (:func:`flash_fwd`, :func:`flash_bwd_dq`,
-:func:`flash_bwd_dkv`).  A wrapper runs its plain version (the
-``*_plain`` function beside it) when, and only when, its tensors lie on
-the CPU; on a CUDA tensor it launches the kernel or raises.  Every launch
-adds one to ``LAUNCHES[<wrapper name>]``, so a run can show that its
-attention went through the kernels.
+:func:`flash_bwd_dkv`, :func:`mxu_burn`, :func:`hbm_stream`).  A wrapper
+runs its plain version (the ``*_plain`` function beside it) when, and
+only when, its tensors lie on the CPU; on a CUDA tensor it launches the
+kernel or raises.  Every launch adds one to ``LAUNCHES[<wrapper name>]``,
+so a run can show that its work went through the kernels.
 
-The plain versions walk the same (block_q, block_k) tiles as the Pallas
-grid, with the same online-softmax carries (:func:`attention_combine`)
-and the same softmax recomputation in the backward pass, all in f32.
+The plain flash versions walk the same (block_q, block_k) tiles as the
+Pallas grid, with the same online-softmax carries
+(:func:`attention_combine`) and the same softmax recomputation in the
+backward pass, all in f32.
 """
 
 from __future__ import annotations
@@ -30,7 +35,8 @@ from .. import _build
 
 #: kernel launches per wrapper since the counts were last set to 0
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
-                            "flash_bwd_dkv": 0}
+                            "flash_bwd_dkv": 0, "mxu_burn": 0,
+                            "hbm_stream": 0}
 
 #: head dims the CUDA kernels are instantiated for
 KERNEL_HEAD_DIMS = (64, 128)
@@ -211,14 +217,21 @@ def flash_bwd_dkv_plain(qf, kf, vf, do, lse, delta, causal: bool,
 
 # ---- kernel wrappers ---------------------------------------------------------
 
-def _on_cpu(*ts: torch.Tensor) -> bool:
+def _on_cpu(*ts: torch.Tensor, name: str = "flash attention") -> bool:
     devs = {t.device.type for t in ts}
     if devs == {"cpu"}:
         return True
     if devs != {"cuda"} or len({t.device for t in ts}) != 1:
-        raise ValueError(f"flash attention needs all tensors on one CUDA "
-                         f"device or all on the CPU, got {sorted(devs)}")
+        raise ValueError(f"{name} needs all tensors on one CUDA device or "
+                         f"all on the CPU, got {sorted(devs)}")
     return False
+
+
+def _launchable(name: str, *ts: torch.Tensor) -> None:
+    for t in ts:
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: inputs must be contiguous and "
+                             f"16-byte aligned")
 
 
 def _kernel_args(name: str, halves, floats=()):
@@ -239,10 +252,7 @@ def _kernel_args(name: str, halves, floats=()):
         if t.dtype != torch.float32 or t.shape != (BH, S):
             raise ValueError(f"{name}: want f32 {(BH, S)}, got "
                              f"{t.dtype} {tuple(t.shape)}")
-    for t in (*halves, *floats):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name}: inputs must be contiguous and "
-                             f"16-byte aligned")
+    _launchable(name, *halves, *floats)
     return _build.load(), torch.cuda.current_stream(halves[0].device).cuda_stream
 
 
@@ -360,8 +370,251 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q, k, v = (F.pad(x, (0, 0, 0, 0, 0, S_pad - S)) for x in (q, k, v))
 
     def fold(x):
-        return x.transpose(1, 2).reshape(B * H, S_pad, D)
+        # at B=1 reshape may return a strided view instead of a copy; the
+        # kernels take contiguous heads
+        return x.transpose(1, 2).reshape(B * H, S_pad, D).contiguous()
 
     out = _Flash3.apply(fold(q), fold(k), fold(v), causal, block_q, block_k)
     out = out.reshape(B, H, S_pad, D).transpose(1, 2)
     return out[:, :S] if S_pad != S else out
+
+
+# ---- load-shaping kernels ------------------------------------------------------
+
+#: the reference's tile and stream block (tpumon/loadgen/kernels.py)
+MXU_TILE = 256
+STREAM_BLOCK = (256, 1024)
+#: rows of a tile that one block of the mxu kernel owns
+MXU_BLOCK_ROWS = 128
+
+
+#: How far mxu_burn's kernel may stand from its plain version, element by
+#: element: |got - want| <= 2**-7 * |want| + atol, where atol is
+#: MXU_ATOL_EPS * sqrt(iters) bf16 unit roundoffs (2**-8) of the output's
+#: RMS.  Both sum exact products of bf16 values in f32, in different
+#: orders, and round each step's sums to bf16.  Where two sums straddle a
+#: rounding boundary the chains part by one ulp of that element, at most
+#: 2**-7 of it: the first term.  From then on each step adds its own
+#: rounding error to each chain, which an orthogonal w carries forward
+#: without growth: once wholly parted, after t steps they differ by about
+#: sqrt(2t/3) * 2**-8 * RMS per element, and the largest of 4.3M such
+#: elements (66 tiles of 256 x 256) sits near 5.2 of those, 0.13 RMS at
+#: t=64.  At 8 atol is 0.25 RMS there, about twice that; f64 against f32
+#: sums on the CPU parted by 0.078 RMS at most over 16 tiles, 64 steps.  A
+#: chain one step short reads ~1.4 RMS off.  The inputs must keep the
+#: chain bounded (w orthogonal): the pattern's own random w overflows bf16
+#: within one call.
+MXU_ATOL_EPS = 8
+
+
+def mxu_excess(got: torch.Tensor, want: torch.Tensor, iters: int) -> float:
+    """Largest ``|got - want|`` over its limit (see MXU_ATOL_EPS): at
+    most 1 when the kernel's chain is within tolerance of the plain
+    version's."""
+
+    got, want = got.float(), want.float()
+    atol = (MXU_ATOL_EPS * iters ** 0.5 * 2.0 ** -8
+            * want.square().mean().sqrt())
+    return ((got - want).abs() / (atol + 2.0 ** -7 * want.abs())
+            ).max().item()
+
+
+def mxu_burn_plain(x: torch.Tensor, w: torch.Tensor, *,
+                   iters: int = 64) -> torch.Tensor:
+    """``iters`` chained products ``acc = acc @ w``, each summed in f32
+    and rounded back to the input dtype, as the Pallas body does."""
+
+    acc = x
+    for _ in range(iters):
+        acc = (acc.float() @ w.float()).to(x.dtype)
+    return acc
+
+
+def mxu_burn(x: torch.Tensor, w: torch.Tensor, *,
+             iters: int = 64) -> torch.Tensor:
+    """Chained matmuls of square bf16 tiles: (T, T) x, or (n, T, T) x of
+    n independent chains, through one (T, T) w.  Kernel on CUDA (T of
+    256, the reference's tile), plain version on the CPU.
+
+    FLOPs ~= n * iters * 2 * T^3 with one read of x and w and one write
+    of the result: compute intensity scales linearly with ``iters``.
+    """
+
+    if (w.ndim != 2 or w.shape[0] != w.shape[1] or x.ndim not in (2, 3)
+            or x.shape[-2:] != w.shape):
+        raise ValueError(f"mxu_burn: square tiles, got x {tuple(x.shape)} "
+                         f"and w {tuple(w.shape)}")
+    if _on_cpu(x, w, name="mxu_burn"):
+        return mxu_burn_plain(x, w, iters=iters)
+    T = w.shape[0]
+    n = x.shape[0] if x.ndim == 3 else 1
+    if T != MXU_TILE:
+        raise ValueError(f"mxu_burn: tile {T} has no kernel (built for "
+                         f"{MXU_TILE})")
+    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise ValueError(f"mxu_burn: want bf16, got {x.dtype} and {w.dtype}")
+    if not 0 < n <= 65535:
+        raise ValueError(f"mxu_burn: {n} tiles outside the kernel's grid")
+    _launchable("mxu_burn", x, w)
+    o = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        _build.check(_build.load().tpumon_mxu_burn(
+            x.data_ptr(), w.data_ptr(), o.data_ptr(), n, iters,
+            torch.cuda.current_stream().cuda_stream), "mxu_burn")
+    LAUNCHES["mxu_burn"] += 1
+    return o
+
+
+def _stream_blocks(x: torch.Tensor) -> None:
+    """The reference's block contract: (256, 1024) blocks clipped to the
+    shape must tile it exactly."""
+
+    if x.ndim != 2 or x.numel() == 0:
+        raise ValueError(f"hbm_stream: want a non-empty (rows, cols) array, "
+                         f"got {tuple(x.shape)}")
+    rows, cols = x.shape
+    br, bc = min(STREAM_BLOCK[0], rows), min(STREAM_BLOCK[1], cols)
+    if rows % br or cols % bc:
+        raise ValueError(f"shape {tuple(x.shape)} not divisible by block "
+                         f"({br},{bc})")
+
+
+def hbm_stream_plain(x: torch.Tensor) -> torch.Tensor:
+    """``x * 1.0001 + 0.25``: one multiply-add per element, any dtype."""
+
+    return x * 1.0001 + 0.25
+
+
+def hbm_stream(x: torch.Tensor) -> torch.Tensor:
+    """Elementwise pass that reads and writes every byte of ``x`` once.
+    Kernel on CUDA (f32, bit for bit the plain version), plain version
+    on the CPU."""
+
+    _stream_blocks(x)
+    if _on_cpu(x, name="hbm_stream"):
+        return hbm_stream_plain(x)
+    if x.dtype != torch.float32:
+        raise ValueError(f"hbm_stream: want f32, got {x.dtype}")
+    _launchable("hbm_stream", x)
+    o = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        _build.check(_build.load().tpumon_hbm_stream(
+            x.data_ptr(), o.data_ptr(), x.numel(),
+            torch.cuda.current_stream().cuda_stream), "hbm_stream")
+    LAUNCHES["hbm_stream"] += 1
+    return o
+
+
+# ---- load patterns ---------------------------------------------------------------
+
+PATTERNS = ("mxu", "hbm", "mixed", "flash", "conv")
+#: ``hbm`` pattern shape: the reference's (2048, 4096) f32 on the CPU; on
+#: a card a size that device memory, not the 50 MB L2, has to serve
+HBM_SHAPE = {"cpu": (2048, 4096), "cuda": (16384, 4096)}
+#: ``flash`` (B, S, H, D) and ``conv`` (B, HW, C): the reference's chip
+#: sizes on a card, its interpret sizes on the CPU
+FLASH_SHAPE = {"cpu": (1, 64, 2, 8), "cuda": (1, 1024, 4, 128)}
+CONV_SHAPE = {"cpu": (1, 16, 8), "cuda": (8, 128, 128)}
+
+
+def _randn(shape, seed: int, device, dtype=torch.bfloat16) -> torch.Tensor:
+    g = torch.Generator(device).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=device).to(dtype)
+
+
+def mxu_tiles(device) -> int:
+    """Tiles the ``mxu`` pattern burns at once: the reference's one on
+    the CPU; on a card enough for one block on every SM (a 256 tile
+    splits into two blocks of 128 rows, and one block fills an SM's
+    shared memory)."""
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 1
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return -(-sms // (MXU_TILE // MXU_BLOCK_ROWS))
+
+
+def conv_step(a: torch.Tensor, ws) -> torch.Tensor:
+    """Three 'SAME' 3x3 convolutions (bf16 in and out, f32 sums), then
+    the reference's RMS renormalisation so the loop sustains forever.
+    ``a`` is (B, C, H, W) in channels_last memory: NHWC, as the
+    reference lays it out."""
+
+    for w in ws:
+        a = F.conv2d(a, w, padding=1)
+    scale = torch.sqrt(a.float().square().mean() + 1e-6)
+    return (a.float() / scale).to(torch.bfloat16)
+
+
+def conv_weights(hwio) -> list:
+    """(3, 3, C, C) HWIO filters as the reference holds them -> conv2d's
+    (C_out, C_in, 3, 3), in channels_last memory like the activations."""
+
+    return [w.permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last) for w in hwio]
+
+
+def make_pattern(pattern: str, *, device="cuda"):
+    """Return (step_fn, state) producing sustained load of the given shape
+    on ``device``.
+
+    ``mxu``: tensor-core duty (:func:`mxu_burn`); ``hbm``: device-memory
+    bandwidth (:func:`hbm_stream`); ``mixed``: the two alternating;
+    ``flash``: causal flash attention forward, its output fed back as Q;
+    ``conv``: a CNN forward on ``torch.nn.functional.conv2d`` (the
+    reference runs plain XLA convolutions here, no Pallas kernel).
+    """
+
+    device = torch.device(device)
+    kind = "cuda" if device.type == "cuda" else "cpu"
+    if pattern == "mxu":
+        n = mxu_tiles(device)
+        shape = (n, MXU_TILE, MXU_TILE) if n > 1 else (MXU_TILE, MXU_TILE)
+        # random normal x and w as the reference's: at width 256 the chain
+        # grows ~16x a product and leaves the bf16 range within the first
+        # call, after which it steps on inf/NaN, as the reference does
+        x = _randn(shape, 0, device)
+        w = _randn((MXU_TILE, MXU_TILE), 1, device)
+
+        def step(state):
+            return mxu_burn(state, w, iters=64)
+
+        return step, x
+    if pattern == "hbm":
+        big = _randn(HBM_SHAPE[kind], 0, device, torch.float32)
+        return hbm_stream, big
+    if pattern == "flash":
+        B, S, H, D = FLASH_SHAPE[kind]
+        q, k, v = (_randn((B, S, H, D), seed, device) for seed in range(3))
+
+        def step(state):
+            q_cur, k_cur, v_cur = state
+            with torch.no_grad():
+                out = flash_attention(q_cur, k_cur, v_cur, causal=True)
+            # feed the output back as Q to keep steps data-dependent
+            return (out, k_cur, v_cur)
+
+        return step, (q, k, v)
+    if pattern == "conv":
+        B, HW, C = CONV_SHAPE[kind]
+        x = _randn((B, HW, HW, C), 0, device).permute(0, 3, 1, 2)
+        ws = conv_weights(_randn((3, 3, C, C), seed, device, torch.float32)
+                          .div(3.0 * C ** 0.5).to(torch.bfloat16)
+                          for seed in (1, 2, 3))
+        return (lambda a: conv_step(a, ws)), x
+    if pattern == "mixed":
+        mxu_step, mxu_state = make_pattern("mxu", device=device)
+        hbm_step, hbm_state = make_pattern("hbm", device=device)
+
+        def step(s):
+            a, b, i = s
+            if i % 2 == 0:
+                a = mxu_step(a)
+            else:
+                b = hbm_step(b)
+            return (a, b, i + 1)
+
+        return step, (mxu_state, hbm_state, 0)
+    raise ValueError(
+        f"unknown pattern {pattern!r} (mxu|hbm|mixed|flash|conv)")

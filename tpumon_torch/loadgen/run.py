@@ -1,8 +1,10 @@
 """Load-generator runner: step the model on the card while being monitored.
 
-Counterpart of ``tpumon/loadgen/run.py`` for the ``train`` pattern:
+Counterpart of ``tpumon/loadgen/run.py`` for its single-device patterns
+(``train``, ``mxu``, ``hbm``, ``mixed``, ``flash``, ``conv``):
 
-* generate device load (``python -m tpumon_torch.loadgen.run --seconds 30``);
+* generate device load (``python -m tpumon_torch.loadgen.run --seconds 30
+  [--pattern P]``);
 * demonstrate the *embedded* monitoring mode — with ``--self-monitor`` the
   workload process samples its own CUDA device through the port's backend
   and exporter at 1 Hz, optionally writing a textfile
@@ -23,9 +25,11 @@ import time
 #: the bench run's batch
 DEFAULT_BATCH = 8
 
-#: load shapes of the reference runner; only ``train`` is ported so far
+#: load shapes of the reference runner
 PATTERNS = ("train", "mxu", "hbm", "mixed", "flash", "conv", "ringattn",
             "allreduce", "dcn", "pp", "moe")
+#: the ones ported so far; the multi-device shapes are not
+PORTED = PATTERNS[:6]
 
 
 def capture_step_cost(blocks, spans, t0: float, t1: float):
@@ -103,6 +107,19 @@ def workload(size: str, batch: int, device):
     return cfg, params, tokens
 
 
+def tensor_leaves(state):
+    """The tensors of a pattern's state: a tensor, or tuples of tensors
+    and plain values (the ``mixed`` pattern's step counter)."""
+
+    import torch
+
+    if isinstance(state, torch.Tensor):
+        yield state
+    elif isinstance(state, (tuple, list)):
+        for part in state:
+            yield from tensor_leaves(part)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="tpumon-torch-loadgen",
                                 description=__doc__)
@@ -110,8 +127,11 @@ def main(argv=None) -> int:
     p.add_argument("--size", choices=("tiny", "bench"), default="bench")
     p.add_argument("--batch", type=int, default=DEFAULT_BATCH)
     p.add_argument("--pattern", choices=PATTERNS, default="train",
-                   help="load shape; only 'train' (transformer training "
-                        "steps) is ported so far")
+                   help="load shape: transformer training steps; a kernel "
+                        "pinning tensor-core duty / device-memory bandwidth "
+                        "/ the two alternating; causal flash attention "
+                        "forward; a CNN forward (conv2d).  The multi-device "
+                        "shapes are not ported yet")
     p.add_argument("--sync-every", type=int, default=32,
                    help="force a host-visible sync every N steps; bounds "
                         "the async launch backlog and makes steps/sec an "
@@ -126,15 +146,21 @@ def main(argv=None) -> int:
                    help="torch device to run on (default cuda; cpu only "
                         "when asked for)")
     args = p.parse_args(argv)
-    if args.pattern != "train":
-        p.error(f"--pattern {args.pattern}: not yet ported (only 'train')")
+    if args.pattern not in PORTED:
+        p.error(f"--pattern {args.pattern}: not yet ported "
+                f"(ported: {', '.join(PORTED)})")
 
     import torch
 
+    from . import kernels as K
     from . import model as M
 
     device = resolve_device(args.device)
-    cfg, params, tokens = workload(args.size, args.batch, device)
+    if args.pattern == "train":
+        cfg, params, tokens = workload(args.size, args.batch, device)
+    else:
+        pattern_step, pattern_state = K.make_pattern(args.pattern,
+                                                     device=device)
 
     exporter = None
     h = None
@@ -156,15 +182,25 @@ def main(argv=None) -> int:
             note_step = backend_note
 
     loss = None
+    if args.pattern == "train":
+        def do_step():
+            nonlocal params, loss
+            params, loss = M.train_step(cfg, params, tokens)
 
-    def do_step():
-        nonlocal params, loss
-        params, loss = M.train_step(cfg, params, tokens)
+        def sync():
+            # a scalar device->host read is a real barrier: the loss of
+            # step N depends on every prior step's params
+            loss.item()
+    else:
+        def do_step():
+            nonlocal pattern_state
+            pattern_state = pattern_step(pattern_state)
 
-    def sync():
-        # a scalar device->host read is a real barrier: the loss of step
-        # N depends on every prior step's params
-        loss.item()
+        def sync():
+            # one scalar read from each tensor of the state drains them
+            # all: the mixed pattern writes its two tensors in turn
+            for leaf in tensor_leaves(pattern_state):
+                leaf.reshape(-1)[0].item()
 
     # first step outside the timed loop; the probes calibrate here too,
     # so the measured window pays sweep cost, not set-up cost
