@@ -16,8 +16,9 @@
    built from the kernels' outputs (the last key tile skipped).  Times the
    kernel, the plain version and ``scaled_dot_product_attention``
    (forward, and backward for the two gradient kernels) as the library
-   yardstick, which the port never calls.  The forward kernel is held and
-   timed again at the ``flash`` pattern's shape (B*H=4, S=1024, causal).
+   yardstick, which the port never calls.  The forward kernel's wrapper is
+   held and timed again at the ``flash`` pattern's card shape and at the
+   reference's (B*H=4, S=1024, causal).
 3. Holds the load-shaping kernels against their plain versions at the
    patterns' shapes: ``hbm_stream`` bit for bit (f32, and a planted
    (256, 1024) block left unwritten must fail), at the card's ``hbm``
@@ -44,15 +45,22 @@
 6. The metric-semantics check (the reference's
    ``tests/test_real_tpu_semantics.py``) on the port's ``CudaBackend``,
    with the ``mxu`` pattern as the load on a worker thread: idle
-   utilization <= 20, busy >= 50 and more than idle + 30, a 1 GiB
+   utilization (the least of three reads, as after the load) <= 20,
+   busy >= 50 and more than idle + 30, a 1 GiB
    allocation seen as >= 900 MiB more HBM used, the not-idle clock <= 5 s
    under load, utilization after the load <= 25.  Only the ordering is
    asserted: the probes are queue-delay estimators.
-7. Prints one ``{"kernels": [...]}`` line, a row for each kernel: ``ms``
-   is one call through the port's wrapper as the main path makes it and
-   ``kernel_ms`` the kernel's C entry called directly (device time over
-   back-to-back calls, so the wrapper's host work shows in ``ms`` only
-   where it outlasts the kernel); then, last, the ``{"ok": true,
+7. Prints each load pattern's busy share (its kernel's device time over
+   its self-monitored step), then one ``{"kernels": [...]}`` line, a row
+   for each kernel: ``ms`` is one call through the port's wrapper as the
+   main path makes it and ``kernel_ms`` the kernel's C entry called
+   directly (CUDA events over back-to-back calls, so the wrapper's host
+   work shows in ``ms`` only where it outlasts the kernel); ``device_ms``
+   and ``library_device_ms`` are the sums of the device kernels that the
+   kernel's entry and the library call launch, as torch.profiler records
+   them, so the host's pace between launches counts in neither
+   (``library_kernels`` names them; each fails unless the profiler kept
+   every launch of the timed calls); then, last, the ``{"ok": true,
    "device": {...}}`` line.
 
 Exits non-zero, printing no result, on any failure, when CUDA is not
@@ -128,6 +136,42 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, per_call=None, names=None) -> float:
+    """Mean device time of one call of ``fn``: the sum of the device
+    kernels it launches, as torch.profiler (CUPTI) records them, over
+    ``iters`` calls after one warm-up call.  Unlike :func:`time_ms`, the
+    host's pace between launches does not count.  Fails unless the
+    profiler kept every launch: ``per_call`` kernels a call where it is
+    given (the port's C entries launch one), else the same number in
+    every call.  The kernels' names are appended to ``names`` when it is
+    given."""
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from tpumon_torch.loadgen.profile import device_us
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and device_us(e) > 0]
+    if names is not None:
+        names.extend(e.key for e in events)
+    us = sum(device_us(e) for e in events)
+    n = sum(e.count for e in events)
+    if not us > 0:
+        raise AssertionError("the profiler recorded no device time")
+    if n % iters or (per_call is not None and n != per_call * iters):
+        raise AssertionError(f"the profiler kept {n} device kernels over "
+                             f"{iters} calls"
+                             + (f" of {per_call}" if per_call else ""))
+    return us / 1e3 / iters
 
 
 def max_err(got, want) -> float:
@@ -269,10 +313,16 @@ def kernel_cases(K, lib):
                            for t in (q, k, v, do))
         qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
         out4 = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True), 200)
-        lib_bwd = time_ms(lambda: torch.autograd.grad(
-            out4, (qg, kg, vg), do4, retain_graph=True), 200)
+        lib_calls = {
+            "fwd": lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True),
+            "bwd": lambda: torch.autograd.grad(
+                out4, (qg, kg, vg), do4, retain_graph=True),
+        }
+        lib_ms = {n: time_ms(fn, 200) for n, fn in lib_calls.items()}
+        lib_kernels = {n: [] for n in lib_calls}
+        lib_dev = {n: device_ms(fn, 200, names=lib_kernels[n])
+                   for n, fn in lib_calls.items()}
 
         # roofline bound from this run's inputs: bytes each input read
         # once and each output written once; tensor-core FLOPs over the
@@ -286,8 +336,8 @@ def kernel_cases(K, lib):
             "flash_bwd_dkv": (4 * half + 2 * rowvec + 2 * half,
                               4 * 2 * D * pairs),
         }
-        kernel_ms = {name: time_ms(raw[name], 200) for name in raw}
         for name, tpu_kernel, replaces in FLASH_KERNELS:
+            lib_key = "fwd" if name == "flash_fwd" else "bwd"
             rows[name] = {
                 "name": name,
                 "route": "cuda",
@@ -296,10 +346,13 @@ def kernel_cases(K, lib):
                 "max_abs_err": errs[name][0],
                 "tol_excess": errs[name][1],
                 "ms": time_ms(wrapped[name], 200),
-                "kernel_ms": kernel_ms[name],
+                "kernel_ms": time_ms(raw[name], 200),
+                "device_ms": device_ms(raw[name], 200, per_call=1),
                 "plain_ms": time_ms(plain[name], 20),
                 **bound(*work[name]),
-                "library_ms": lib_fwd if name == "flash_fwd" else lib_bwd,
+                "library_ms": lib_ms[lib_key],
+                "library_device_ms": lib_dev[lib_key],
+                "library_kernels": [k[:100] for k in lib_kernels[lib_key]],
                 "library_call": ("scaled_dot_product_attention forward"
                                  if name == "flash_fwd" else
                                  "scaled_dot_product_attention backward "
@@ -320,16 +373,23 @@ def bound(nbytes: float, flops: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def flash_pattern_case(K, lib) -> dict:
-    """The forward kernel at the ``flash`` pattern's shape (B=1, S=1024,
-    H=4, D=128, causal: 64 blocks of 64 rows), against its plain version
-    with the kernels' tolerance, timed beside its bound and SDPA."""
+#: the reference's ``flash`` pattern shape (B, S, H, D), which the card's
+#: pattern outgrew in heads: the forward kernel's row is timed here too, to
+#: stay comparable with earlier runs
+FLASH_SHAPE_REFERENCE = (1, 1024, 4, 128)
+
+
+def flash_pattern_case(K, lib, shape) -> dict:
+    """The forward kernel at a ``flash`` pattern shape (B, S, H, D),
+    causal, through its wrapper as the main path calls it, against its
+    plain version with the kernels' tolerance, timed beside its bound and
+    SDPA."""
 
     import torch
     import torch.nn.functional as F
     from tpumon_torch import _build
 
-    B, S, H, Dp = K.FLASH_SHAPE["cuda"]
+    B, S, H, Dp = shape
     bh = B * H
     g = torch.Generator("cuda").manual_seed(11)
     q, k, v = (torch.randn((bh, S, Dp), generator=g, device="cuda")
@@ -337,28 +397,30 @@ def flash_pattern_case(K, lib) -> dict:
     o, lse = K.flash_fwd(q, k, v, True, 128, 128)
     torch.cuda.synchronize()
     o_p, lse_p = K.flash_fwd_plain(q, k, v, True, 128, 128)
-    excess = check_close(K, "flash_fwd at the flash pattern's shape", o, o_p)
+    excess = check_close(K, f"flash_fwd at {list(shape)}", o, o_p)
     if max_err(lse, lse_p) > 1e-2:
         raise AssertionError(f"flash_fwd lse off by {max_err(lse, lse_p)} "
-                             f"at the flash pattern's shape")
+                             f"at {list(shape)}")
     o_b, lse_b = torch.empty_like(q), torch.empty((bh, S), device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
+    raw = lambda: _build.check(lib.tpumon_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o_b.data_ptr(),
+        lse_b.data_ptr(), bh, S, Dp, 1, Dp ** -0.5, stream), "flash_fwd")
     half = bh * S * Dp * 2
     q4, k4, v4 = (t.reshape(B, H, S, Dp) for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
     return {
         "shape": [bh, S, Dp],
         "max_abs_err": max_err(o, o_p),
         "tol_excess": excess,
         "ms": time_ms(lambda: K.flash_fwd(q, k, v, True, 128, 128), 200),
-        "kernel_ms": time_ms(lambda: _build.check(lib.tpumon_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o_b.data_ptr(),
-            lse_b.data_ptr(), bh, S, Dp, 1, Dp ** -0.5, stream),
-            "flash_fwd"), 200),
+        "kernel_ms": time_ms(raw, 200),
+        "device_ms": device_ms(raw, 200, per_call=1),
         "plain_ms": time_ms(lambda: K.flash_fwd_plain(q, k, v, True, 128,
                                                       128), 20),
         **bound(4 * half + bh * S * 4, 2 * 2 * Dp * bh * S * (S + 1) // 2),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True), 200),
+        "library_ms": time_ms(sdpa, 200),
+        "library_device_ms": device_ms(sdpa, 200),
     }
 
 
@@ -405,19 +467,22 @@ def stream_case(K, lib, shape) -> dict:
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream().cuda_stream
     nbytes = 2 * x.numel() * 4
-    kernel_ms = time_ms(lambda: _build.check(lib.tpumon_hbm_stream(
-        x.data_ptr(), out.data_ptr(), x.numel(), stream), "hbm_stream"), 200)
+    raw = lambda: _build.check(lib.tpumon_hbm_stream(
+        x.data_ptr(), out.data_ptr(), x.numel(), stream), "hbm_stream")
+    kernel_ms = time_ms(raw, 200)
     return {
         "shape": list(shape),
         "max_abs_err": max_err(got, want),
         "bitwise": True,
         "ms": time_ms(lambda: K.hbm_stream(x), 200),
         "kernel_ms": kernel_ms,
+        "device_ms": device_ms(raw, 200, per_call=1),
         "gbps": nbytes / kernel_ms / 1e6,
         "step_ms": step_ms(K.hbm_stream, x, 500),
         "plain_ms": time_ms(lambda: K.hbm_stream_plain(x), 200),
         **bound(nbytes, 0),
         "library_ms": time_ms(lambda: out.copy_(x), 200),
+        "library_device_ms": device_ms(lambda: out.copy_(x), 200),
         "library_call": "torch.Tensor.copy_ of the same bytes",
     }
 
@@ -459,9 +524,10 @@ def mxu_case(K, lib) -> dict:
         return acc
 
     flops = n * iters * 2 * T ** 3
-    kernel_ms = time_ms(lambda: _build.check(lib.tpumon_mxu_burn(
+    raw = lambda: _build.check(lib.tpumon_mxu_burn(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), n, iters, stream),
-        "mxu_burn"), 50)
+        "mxu_burn")
+    kernel_ms = time_ms(raw, 50)
     return {
         "shape": [n, T, T],
         "iters": iters,
@@ -470,10 +536,12 @@ def mxu_case(K, lib) -> dict:
         "planted_fault_excess": fault,
         "ms": time_ms(lambda: K.mxu_burn(x, w, iters=iters), 50),
         "kernel_ms": kernel_ms,
+        "device_ms": device_ms(raw, 50, per_call=1),
         "tflops": flops / kernel_ms / 1e9,
         "plain_ms": time_ms(lambda: K.mxu_burn_plain(x, w, iters=iters), 5),
         **bound((2 * n + 1) * T * T * 2, flops),
         "library_ms": time_ms(library, 20),
+        "library_device_ms": device_ms(library, 20),
         "library_call": f"torch.matmul bf16 (n, T, T) @ (T, T), f32 "
                         f"accumulate, bf16 out: {iters} chained calls",
     }
@@ -572,6 +640,30 @@ def model_check(M) -> dict:
             "update_rel_err": rel}
 
 
+def pattern_table(rows, rates) -> dict:
+    """Each load pattern's self-monitored step (1 / steps/s) beside its
+    kernel's device time at the pattern's shape, and their ratio, the
+    card's busy share of a step (``mixed``: the mean of its two kernels;
+    ``conv`` runs cuDNN, no kernel of the port).  A share well below 1
+    means the host sets the pace, and the step is the host's time."""
+
+    kernel = {
+        "mxu": rows["mxu_burn"]["device_ms"],
+        "hbm": rows["hbm_stream"]["device_ms"],
+        "mixed": (rows["mxu_burn"]["device_ms"]
+                  + rows["hbm_stream"]["device_ms"]) / 2,
+        "flash": rows["flash_fwd"]["at_flash_pattern"]["device_ms"],
+        "conv": None,
+    }
+    table = {}
+    for path, ms in kernel.items():
+        step = 1e3 / rates[path]
+        table[path] = {"steps_per_sec": rates[path], "step_ms": step,
+                       "kernel_device_ms": ms,
+                       "busy_share": ms / step if ms is not None else None}
+    return table
+
+
 def drive_path(K, R, fields, path: str) -> tuple:
     """One main path in-process, self-monitored: the bench train run for
     ``train``, else ``--pattern <path>``.  The launch counts are set to 0
@@ -633,8 +725,12 @@ def semantics_check(K, fields) -> dict:
 
         b.warmup_probes(0)
         read(UTIL)
-        time.sleep(0.3)
-        idle_util = read(UTIL)
+        # the least of three reads, as after the load: one read can catch
+        # a host stall, which the latency probe counts as queueing
+        idle = []
+        for _ in range(3):
+            time.sleep(0.3)
+            idle.append(read(UTIL))
 
         step, state = K.make_pattern("mxu", device="cuda")
         step(state).reshape(-1)[0].item()  # built and launched once first
@@ -677,7 +773,7 @@ def semantics_check(K, fields) -> dict:
             decay.append(read(UTIL))
     finally:
         b.close()
-    m = {"idle_util": idle_util, "busy_utils": busy,
+    m = {"idle_util": min(idle), "idle_utils": idle, "busy_utils": busy,
          "busy_util": max(busy), "idle_after": min(decay),
          "hbm_before": before, "hbm_after": after,
          "not_idle_at_busy": not_idle_at_busy}
@@ -724,7 +820,11 @@ def main() -> int:
             print("  " + line.strip()[:160])
 
     rows = kernel_cases(K, lib)
-    rows["flash_fwd"]["at_flash_pattern"] = flash_pattern_case(K, lib)
+    fwd = rows["flash_fwd"]
+    fwd["at_flash_pattern"] = flash_pattern_case(K, lib, K.FLASH_SHAPE["cuda"])
+    if tuple(K.FLASH_SHAPE["cuda"]) != FLASH_SHAPE_REFERENCE:
+        fwd["at_reference_flash_shape"] = flash_pattern_case(
+            K, lib, FLASH_SHAPE_REFERENCE)
     rows.update(load_kernel_cases(K, lib))
     print("attention check, excess: " + json.dumps(attention_check(K)))
     print("model check: " + json.dumps(model_check(M)))
@@ -732,12 +832,15 @@ def main() -> int:
     for name, _, _ in KERNELS:
         rows[name]["launches"] = 0
         rows[name]["launches_by_path"] = {}
+    rates = {}
     for path in PATHS:
         result, launches = drive_path(K, R, fields, path)
         print(f"main path {path}: " + json.dumps(result))
+        rates[path] = result["steps_per_sec"]
         for name in PATHS[path]:
             rows[name]["launches"] += launches[name]
             rows[name]["launches_by_path"][path] = launches[name]
+    print("patterns: " + json.dumps(pattern_table(rows, rates)))
 
     print("semantics check: " + json.dumps(semantics_check(K, fields)))
 

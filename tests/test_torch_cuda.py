@@ -36,6 +36,17 @@ from tpumon_torch.loadgen import kernels as K
 TILE = 64  # the kernels' tile, rows and keys
 
 
+@pytest.fixture(autouse=True)
+def _two_torch_threads():
+    """The CPU cases run bench-shape plain versions; two threads keep them
+    from crowding the suite's other workers."""
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -62,7 +73,12 @@ def _close(got, want):
 
 
 # (BH, S, D, causal, block_q, block_k): the bench shape, padded causal
-# tails, D=64, a ragged kernel tile (S not a multiple of 64), non-causal
+# tails, D=64, a ragged kernel tile (S not a multiple of 64), non-causal;
+# the flash pattern's reference shape (4 heads of 1024: 64 q tiles, a
+# grid shorter than the SMs), causal and not; one head (B*H=1), a ragged
+# last tile after a long loop (S=1000), D=64 at the bench length, D=64
+# over 16 long non-causal loops, a ragged D=64 tile in a lone non-causal
+# tile
 CASES = [
     (64, 256, 128, True, 128, 128),
     (64, 256, 128, False, 128, 128),
@@ -70,6 +86,15 @@ CASES = [
     (6, 96, 64, False, 32, 32),
     (4, 192, 64, True, 64, 64),
     (3, 40, 128, True, 8, 8),
+    (4, 1024, 128, True, 128, 128),
+    (4, 1024, 128, False, 128, 128),
+    (1, 256, 128, True, 128, 128),
+    (2, 1000, 128, True, 200, 200),
+    (2, 1000, 64, False, 200, 200),
+    (16, 256, 64, True, 128, 128),
+    (16, 256, 64, False, 128, 128),
+    (16, 1024, 64, False, 128, 128),
+    (3, 100, 64, False, 100, 100),
 ]
 
 
@@ -229,6 +254,48 @@ FAULTS = [
 def test_tolerance_fails_planted_fault(device, output, fault):
     args, want, _ = _bench_case(device)
     assert K.plain_excess(fault(args), want[output]) > 1.0
+
+
+def _stale(x, j):
+    """``x`` with the rows of tile j replaced by those of tile j - 1: what
+    a kernel reads when a two-stage ring hands out a stage before its copy
+    of tile j has landed (tile j - 2 for a ring that was never refilled
+    is the same fault one stage further back)."""
+
+    y = x.clone()
+    y[:, j * TILE:(j + 1) * TILE] = x[:, (j - 1) * TILE:j * TILE]
+    return y
+
+
+def _stale_forward(args, j):
+    q, k, v = args[:3]
+    return K.flash_fwd_plain(q, _stale(k, j), _stale(v, j), True, 128,
+                             128)[0]
+
+
+def _stale_backward(args, j):
+    q, k, v, do, lse, delta = args
+    return K.flash_bwd_dkv_plain(_stale(q, j), k, v, _stale(do, j),
+                                 _stale(lse, j), _stale(delta, j), True,
+                                 128, 128)
+
+
+# (output, fault): key tile j of O's loop, or q tile j of dK/dV's loop,
+# read from a stale ring stage; j=2 is the first tile that reuses a stage
+STALE_FAULTS = [
+    pytest.param("o", lambda a, j: _stale_forward(a, j), id="fwd-stale-k"),
+    pytest.param("dk", lambda a, j: _stale_backward(a, j)[0],
+                 id="dk-stale-q"),
+    pytest.param("dv", lambda a, j: _stale_backward(a, j)[1],
+                 id="dv-stale-q"),
+]
+
+
+@pytest.mark.parametrize("j", [2, 3])
+@pytest.mark.parametrize("output,fault", STALE_FAULTS)
+def test_tolerance_fails_stale_ring_stage(device, output, fault, j):
+    args, want, _ = _bench_case(device)
+    assert K.plain_excess(fault(args, j), want[output]) > 1.0
 
 
 # ---- the load-shaping kernels -------------------------------------------------

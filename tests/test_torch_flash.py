@@ -19,6 +19,19 @@ from tpumon.loadgen import kernels as JK  # noqa: E402
 from tpumon_torch import _build  # noqa: E402
 from tpumon_torch.loadgen import kernels as TK  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def _two_torch_threads():
+    """The plain flash versions loop over tiles on every core torch is
+    given; two threads keep them from crowding the suite's other
+    workers."""
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 B, S, H, D = 2, 64, 2, 8
 
 # (causal, block_q, block_k, seq): causal and non-causal, uneven blocks
@@ -118,6 +131,22 @@ def test_mixed_devices_refused():
     meta = torch.zeros((1, 8, 64), device="meta")
     with pytest.raises(ValueError):
         TK.flash_fwd(t, t, meta, True, 8, 8)
+
+
+@pytest.mark.parametrize("edited", ["flash_attn.cu", "mma.cuh"])
+def test_library_name_covers_source_and_headers(tmp_path, edited):
+    """An edit to a source or to a header it includes names a new
+    library: a stale build is never loaded."""
+
+    for name in ("flash_attn.cu", "mma.cuh"):
+        (tmp_path / name).write_bytes(
+            (_build.PKG_DIR / "csrc" / name).read_bytes())
+    src = tmp_path / "flash_attn.cu"
+    before = _build.source_digest(src)
+    assert _build.source_digest(src) == before
+    with open(tmp_path / edited, "a") as f:
+        f.write("\n// edited\n")
+    assert _build.source_digest(src) != before
 
 
 def test_failed_build_raises(monkeypatch, tmp_path):

@@ -28,6 +28,19 @@ import jax.numpy as jnp  # noqa: E402
 from tpumon.loadgen import model as JM  # noqa: E402
 from tpumon_torch.loadgen import model as TM  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def _two_torch_threads():
+    """The model's forward and train steps run on every core torch is
+    given; two threads keep them from crowding the suite's other
+    workers."""
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 ATTN = [pytest.param(False, id="dense"), pytest.param(True, id="flash")]
 
 

@@ -28,6 +28,18 @@ F = TF.F
 CPU = torch.device("cpu")
 
 
+@pytest.fixture(autouse=True)
+def _two_torch_threads():
+    """The runner and the probes' workloads run on every core torch is
+    given; two threads keep them from crowding the suite's other
+    workers."""
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 # ---- probes (mirror of tests/test_probes.py:22-123) -------------------------
 
 def test_probe_engine_idle_reads_zero_and_caches():

@@ -3,7 +3,8 @@
 One ``nvcc`` run per source file compiles each of ``csrc/*.cu`` for
 ``sm_90a`` into a shared library with a plain C interface under
 ``build/tpumon_torch/`` at the repository root, named by a hash of the
-source and the flags so an edited source never loads a stale library.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header never loads a stale library.
 The runs start together, one thread each.  The libraries are loaded with
 :mod:`ctypes` and their entry points gathered into one namespace;
 nothing includes PyTorch's headers, which keeps a cold build to seconds.
@@ -72,12 +73,22 @@ def nvcc() -> str:
                        "the port's CUDA kernels cannot be built")
 
 
+def source_digest(src: Path) -> str:
+    """Hash of ``src``, every header beside it (``csrc/*.cuh``, which any
+    source may include) and the flags: the name of its library."""
+
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def _compile(src: Path) -> Path:
     """One nvcc run: ``src`` -> ``build/tpumon_torch/<stem>_<hash>.so``,
     with ptxas's register/shared-memory report kept beside it."""
 
-    digest = hashlib.sha256(src.read_bytes() +
-                            " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = source_digest(src)
     out = BUILD_DIR / f"lib{src.stem}_{digest}.so"
     if out.exists():
         return out

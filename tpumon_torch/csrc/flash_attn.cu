@@ -12,32 +12,65 @@
 // past S are zero-filled on load, masked out of the softmax and never
 // stored).
 //
-// Design.  The Pallas grid runs its last axis in order and carries the
-// online-softmax state (m, l, acc) or the dQ/dK/dV sums in VMEM scratch
+// Shared design.  The Pallas grid runs its last axis in order and carries
+// the online-softmax state (m, l, acc) or the dQ/dK/dV sums in VMEM scratch
 // from one grid step to the next.  Hopper blocks run in no order, so each
 // block here owns one output tile and walks the other sequence axis in a
-// loop of its own, with the carries in registers and shared memory: one
-// block per (bh, 64-row q tile) for the forward pass and dQ, one per (bh,
-// 64-row k tile) for dK/dV.  No atomics.  The kernels' 64x64 tile is their
-// own choice, independent of the block sizes the Python contract takes.
-// Four warps each own 16 rows of the tile; tile products run on the tensor
-// cores through WMMA (16x16x16 bf16 mma.sync, f32 accumulate) out of shared
-// memory; the softmax and the dS arithmetic are f32 on the CUDA cores.
-// Causal tiles wholly in the future are skipped (the Pallas rule
-// (i+1)*bq-1 >= j*bk); dK/dV start their q loop at the first live q tile.
-// A row whose running max is still -inf keeps it there without forming
-// exp(-inf - -inf); the backward pass rebuilds p = exp(s - lse) and masks
-// p to 0 wherever the forward pass masked s.
+// loop of its own: one block per (bh, 64-row q tile) for the forward pass
+// and dQ, one per (bh, 64-key tile) for dK/dV.  Each output element is
+// summed in a fixed order by one thread: no atomics, deterministic.
+// 64-row tiles on both axes, so the Pallas causal skip rule
+// (i+1)*bq-1 >= j*bk keeps key tile j for q tile i iff j <= i.  A row
+// whose running max is still -inf
+// never forms exp(-inf - -inf); the backward pass rebuilds p = exp(s - lse)
+// and masks p to 0 wherever the forward pass masked s.
+//
+// flash_fwd_kernel.  One warpgroup (four warps) owns 64 q rows.  Q and the
+// K/V tiles sit in shared memory in the 128-byte-swizzle layout that the
+// warpgroup products read: S = Q K^T is wgmma m64n64k16 with both operands
+// from shared memory, straight into registers; the online softmax runs on
+// that accumulator (each warp holds its 16 rows as mma.sync C fragments:
+// one FFMA and one ex2 an element, a row's max and sum over the four lanes
+// that share it, two shuffles each); P is packed to bf16 straight from the
+// accumulator into the A registers of O += P V, wgmma m64n{D}k16 with V
+// read transposed from shared memory; O (64 x D f32) is rescaled and summed
+// in registers.  K/V tiles stream through a two-stage ring with cp.async
+// (16 bytes a thread, zero fill past S; a proxy fence hands them to the
+// tensor cores): tile j+1 is in flight while tile j's products run, one
+// barrier a tile.  The epilogue stages O as bf16 in the Q tile and writes
+// 16-byte stores.  82 KiB of shared memory at D=128: two blocks an SM.
+// Blocks run in order of work, the q tiles with the most live key tiles
+// first, except that the second round of blocks (one an SM) runs lightest
+// first, so that the two blocks an SM holds balance each other.
+//
+// flash_bwd_dkv_kernel.  Each block owns one 64-key tile, K and V resident
+// in shared memory; four warps each own 16 keys and hold their dK and dV
+// (16 x D f32) in registers.  For each live q tile a warp forms the
+// transposed tiles S^T = K Q^T and dP^T = V dO^T directly (keys as rows: A
+// fragments from its own K/V rows, B fragments from Q/dO rows), then
+// p = exp(s*scale - lse) and dS = p (dP - delta) scale in registers, with
+// lse and delta per column.  With keys as rows, P^T and dS^T are
+// accumulator fragments that pack straight into the A fragments of
+// dV += P^T dO and dK += dS^T Q (B fragments through ldmatrix.trans): no
+// score tile goes through shared memory.  At D=128 a pass covers 32 q
+// columns, so that its S^T and dP^T fit in registers beside dK and dV
+// without spilling.  Q, dO, lse and delta stream through a two-stage
+// cp.async ring; the epilogue stages dK and dV in the warp's own K and V
+// rows for 16-byte stores.  103 KiB of shared memory at D=128: two blocks
+// an SM.  Key tiles with the most live q tiles go first.
+//
+// flash_bwd_dq_kernel (the first port's design, unchanged): four warps each
+// own 16 rows; tile products run through WMMA (16x16x16 bf16 mma.sync, f32
+// accumulate) out of shared memory, with S, dP and dQ in f32 shared tiles
+// and synchronous tile loads; the dS arithmetic is f32 on the CUDA cores.
 //
 // Bound.  At the bench shapes (BH=64, S=256, D=128) the three kernels must
 // move about 16, 20 and 24 MiB (each input read once, each output written
 // once) and do 1.1, 1.6 and 2.2 GFLOP of tile products, so all three are
-// bound by device memory, not by the tensor cores.  This design reads each
-// K/V (or Q/dO) tile once per block that needs it: a q tile re-reads the
-// K/V tiles at or before it, so device traffic is up to twice the bound's
-// bytes at S=256, mostly served from the 50 MB L2.  What it does not do
-// yet: TMA loads, wgmma, and overlapping the next tile's load with this
-// tile's products.
+// bound by device memory, not by the tensor cores.  Each block re-reads the
+// K/V (or Q/dO) tiles it needs, mostly from the 50 MB L2.  What they do not
+// do: wgmma in the two backward kernels, overlap of the softmax with the
+// next tile's products, TMA tile loads, a persistent grid.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -45,10 +78,12 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
 
+#include "mma.cuh"
+
 using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
 
 namespace {
 
@@ -58,29 +93,536 @@ constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int PAD_H = 8;  // bf16 row padding: 16-byte rows, shifted banks
 constexpr int PAD_F = 4;  // f32 row padding
+constexpr float LOG2E = 1.4426950408889634f;
 
 static_assert(BM == NWARPS * 16, "one warp per 16 rows of a tile");
 static_assert(BM == BN, "causal skip rules assume square tiles");
 
-// Shared-memory geometry for head dim D.  Every region is a multiple of
-// 128 bytes, so regions laid end to end keep WMMA's 32-byte alignment.
+// ---- helpers of the forward and dK/dV kernels --------------------------------
+
+// A (64 x D) bf16 tile in shared memory, rows padded by 16 bytes: the eight
+// row addresses of an ldmatrix land in eight distinct bank groups.
+template <int D>
+struct Tile {
+  static constexpr int LD = D + PAD_H;
+  static constexpr int ELEMS = BM * LD;
+  static constexpr size_t BYTES = size_t(ELEMS) * sizeof(bf16);
+  static_assert(BYTES % 128 == 0, "tiles laid end to end keep 128-byte alignment");
+};
+
+// Rows [row0, row0 + 64) of one (S, D) head into a padded tile with
+// cp.async, 16 bytes a thread over THREADS threads; rows at or past S read
+// as zeros.  The caller commits.
+template <int D, int THREADS>
+__device__ __forceinline__ void tile_async(bf16* dst, const bf16* head, int row0, int S,
+                                           int tid) {
+  constexpr int CH = D / 8;  // 16-byte chunks of a row
+  static_assert((BM * CH) % THREADS == 0, "whole chunks per thread");
+#pragma unroll
+  for (int n = 0; n < BM * CH / THREADS; ++n) {
+    const int i = tid + n * THREADS;
+    const int r = i / CH;
+    const int c = (i % CH) * 8;
+    const bool ok = row0 + r < S;
+    cp_async_16(dst + r * Tile<D>::LD + c, ok ? head + size_t(row0 + r) * D + c : head, ok);
+  }
+}
+
+// A warp's 16 rows of f32 accumulator fragments (D/8 n8 tiles; rows g and
+// g+8 scaled by mul[0] and mul[1]) as bf16 through `stage`, the warp's own
+// 16 rows of a padded shared tile, then to rows [row0, row0 + 16) of the
+// output head with 16-byte stores; rows at or past S are not stored.
+template <int D>
+__device__ __forceinline__ void store_frags(bf16* out, const float (&acc)[D / 8][4],
+                                            const float (&mul)[2], bf16* stage, int row0, int S,
+                                            int lane) {
+  constexpr int LD = Tile<D>::LD;
+  constexpr int CH = D / 8;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  __syncwarp();  // the warp's last ldmatrix reads of `stage` are done
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    *reinterpret_cast<uint32_t*>(stage + g * LD + j * 8 + 2 * t) =
+        pack_bf16(acc[j][0] * mul[0], acc[j][1] * mul[0]);
+    *reinterpret_cast<uint32_t*>(stage + (g + 8) * LD + j * 8 + 2 * t) =
+        pack_bf16(acc[j][2] * mul[1], acc[j][3] * mul[1]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int n = 0; n < 16 * CH / 32; ++n) {
+    const int i = lane + n * 32;
+    const int r = i / CH;
+    const int c = (i % CH) * 8;
+    if (row0 + r < S) {
+      *reinterpret_cast<uint4*>(out + size_t(row0 + r) * D + c) =
+          *reinterpret_cast<const uint4*>(stage + r * LD + c);
+    }
+  }
+}
+
+// max and sum over the four lanes that share a row of an accumulator
+// fragment
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+// 2^x on the special-function unit (subnormal results flush to 0; 2^-inf
+// is 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// ---- the forward kernel on warpgroup products (wgmma) -------------------------
+
+// A (ROWS x D) bf16 tile in the layout wgmma reads with 128-byte swizzle:
+// D/64 column blocks of ROWS rows of 128 bytes each, the 16-byte chunk j of
+// row r stored at chunk j ^ (r % 8).  Offset in elements of (r, c).
+template <int ROWS>
+__device__ __forceinline__ int sw_off(int r, int c) {
+  return (c / 64) * ROWS * 64 + r * 64 + ((((c % 64) / 8) ^ (r & 7)) * 8) + (c % 8);
+}
+
+// Rows [row0, row0 + ROWS) of one (S, D) head into a swizzled tile with
+// cp.async, 16 bytes a thread; rows at or past S read as zeros.
+template <int D, int THREADS, int ROWS>
+__device__ __forceinline__ void sw_tile_async(bf16* dst, const bf16* head, int row0, int S,
+                                              int tid) {
+  constexpr int CH = D / 8;
+  static_assert((ROWS * CH) % THREADS == 0, "whole chunks per thread");
+#pragma unroll
+  for (int n = 0; n < ROWS * CH / THREADS; ++n) {
+    const int i = tid + n * THREADS;
+    const int r = i / CH;
+    const int c = (i % CH) * 8;
+    const bool ok = row0 + r < S;
+    cp_async_16(dst + sw_off<ROWS>(r, c), ok ? head + size_t(row0 + r) * D + c : head, ok);
+  }
+}
+
+// Geometry: Q, then a two-stage ring of (K, V) tiles, all swizzled, from a
+// 1024-byte aligned base.
+template <int D>
+struct Fwd {
+  static constexpr int TE = 64 * D;  // elements of a 64-row tile
+  static constexpr size_t TILE = size_t(TE) * sizeof(bf16);
+  static constexpr size_t SMEM = 1024 + TILE * 5;
+};
+
+// Forward: grid (BH * q tiles), one warpgroup.  O and lse for one 64-row q
+// tile.
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o,
+                     float* __restrict__ lse, int S, int causal, float scale, int BH,
+                     int wave) {
+  static_assert(NTHREADS == 128, "one warpgroup a block");
+  constexpr int TE = Fwd<D>::TE;
+  constexpr int KD = D / 16;  // k16 steps of Q K^T
+  constexpr int NO = D / 8;   // n8 tiles of O
+  constexpr int NS = BN / 8;  // n8 tiles of S
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int r0 = warp * 16;    // this warp's q rows [r0, r0 + 16)
+  bf16* ring = Qs + TE;        // stage s: K at 2s, V at 2s + 1
+
+  // blocks in order of work, heaviest q tiles first, except that the
+  // second round (wave = the SM count) goes lightest first
+  int r = blockIdx.x;
+  if (r >= wave && r < 2 * wave) {
+    r = wave + (min(int(gridDim.x), 2 * wave) - 1 - r);
+  }
+  const int qt = (S + BM - 1) / BM - 1 - r / BH;
+  const int bh = r % BH;
+  const int q0 = qt * BM;
+  const size_t head = size_t(bh) * S * D;
+  const bf16* kh = k + head;
+  const bf16* vh = v + head;
+  const int nk = (S + BN - 1) / BN;
+  const int kend = causal ? min(nk, qt + 1) : nk;  // at least 1
+
+  sw_tile_async<D, NTHREADS, 64>(Qs, q + head, q0, S, threadIdx.x);
+  sw_tile_async<D, NTHREADS, 64>(ring, kh, 0, S, threadIdx.x);
+  sw_tile_async<D, NTHREADS, 64>(ring + TE, vh, 0, S, threadIdx.x);
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();  // Q and the first tiles have landed for the whole block
+
+  float acc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+  float s[NS][4];
+#pragma unroll
+  for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.0f, 0.0f};
+  const float sl2 = scale * LOG2E;
+  const int row_lo = q0 + r0 + g;
+
+  for (int kt = 0; kt < kend; ++kt) {
+    const bf16* Ks = ring + (kt & 1) * 2 * TE;
+    const bf16* Vs = Ks + TE;
+    if (kt > 0) {
+      cp_async_wait<0>();
+      fence_proxy_async();
+      __syncthreads();  // tile kt has landed; every warp is done with tile kt - 1
+    }
+    if (kt + 1 < kend) {
+      bf16* nxt = ring + ((kt + 1) & 1) * 2 * TE;
+      sw_tile_async<D, NTHREADS, 64>(nxt, kh, (kt + 1) * BN, S, threadIdx.x);
+      sw_tile_async<D, NTHREADS, 64>(nxt + TE, vh, (kt + 1) * BN, S, threadIdx.x);
+      cp_async_commit();
+    }
+
+    // S = Q K^T, both operands K-major in shared memory: k16 step kk is 32
+    // bytes into column block kk / 4
+    wgmma_hold(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      const int off = (kk / 4) * 64 * 64 + (kk % 4) * 16;
+      wgmma_m64n64k16_ss(s, wgmma_desc(Qs + off, 16, 1024), wgmma_desc(Ks + off, 16, 1024),
+                         kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_hold(s);
+
+    // mask the causal diagonal tile and keys at or past S
+    const int k0 = kt * BN;
+    if ((causal && kt == qt) || k0 + BN > S) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + j * 8 + 2 * t + (e & 1);
+          const int row = row_lo + (e >> 1) * 8;
+          if (col >= S || (causal && col > row)) s[j][e] = -INFINITY;
+        }
+      }
+    }
+    float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+    }
+    float msc[2], corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m_new = quad_max(mx[h]);
+      msc[h] = (m_new == -INFINITY) ? 0.0f : m_new * sl2;
+      corr[h] = fast_exp2(fmaf(m_run[h], sl2, -msc[h]));
+      m_run[h] = m_new;
+    }
+    float psum[2] = {0.0f, 0.0f};
+    uint32_t pa[BN / 16][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = fast_exp2(fmaf(s[j][e], sl2, -msc[e >> 1]));
+        psum[e >> 1] += p[e];
+      }
+      pa[j / 2][(j % 2) * 2] = pack_bf16(p[0], p[1]);
+      pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l_run[h] = fmaf(l_run[h], corr[h], psum[h]);
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      acc[j][0] *= corr[0];
+      acc[j][1] *= corr[0];
+      acc[j][2] *= corr[1];
+      acc[j][3] *= corr[1];
+    }
+
+    // O += P V: P from registers, V (keys x D, D contiguous) read transposed;
+    // k16 step kk is 16 rows (2048 bytes) down the tile, column blocks 64
+    // rows (8192 bytes) apart
+    wgmma_hold(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const uint64_t dv = wgmma_desc(Vs + kk * 16 * 64, 64 * 64 * 2, 1024);
+      if constexpr (D == 128) {
+        wgmma_m64n128k16_rs(acc, pa[kk], dv);
+      } else {
+        wgmma_m64n64k16_rs(acc, pa[kk], dv);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_hold(acc);
+  }
+  float l_safe[2], inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l_safe[h] = fmaxf(quad_sum(l_run[h]), 1e-20f);
+    inv[h] = 1.0f / l_safe[h];
+  }
+  __syncthreads();  // the warpgroup's last reads of Q are done
+
+  // O rows as bf16 into this warp's rows of the swizzled Q tile, then
+  // 16-byte stores
+#pragma unroll
+  for (int j = 0; j < NO; ++j) {
+    const int c = j * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(Qs + sw_off<64>(r0 + g, c)) =
+        pack_bf16(acc[j][0] * inv[0], acc[j][1] * inv[0]);
+    *reinterpret_cast<uint32_t*>(Qs + sw_off<64>(r0 + g + 8, c)) =
+        pack_bf16(acc[j][2] * inv[1], acc[j][3] * inv[1]);
+  }
+  __syncwarp();
+  constexpr int CH = D / 8;
+#pragma unroll
+  for (int n = 0; n < 16 * CH / 32; ++n) {
+    const int i = lane + n * 32;
+    const int rr = r0 + i / CH;
+    const int c = (i % CH) * 8;
+    if (q0 + rr < S) {
+      *reinterpret_cast<uint4*>(o + head + size_t(q0 + rr) * D + c) =
+          *reinterpret_cast<const uint4*>(Qs + sw_off<64>(rr, c));
+    }
+  }
+  if (t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row_lo + 8 * h;
+      if (row < S) lse[size_t(bh) * S + row] = m_run[h] * scale + logf(l_safe[h]);
+    }
+  }
+}
+
+// Dynamic shared memory of the dK/dV kernel: K, V, then a two-stage ring of
+// (Q, dO, lse and delta rows).
+template <int D>
+struct DkvSmem {
+  static constexpr size_t VEC = 2 * BM * sizeof(float);  // lse, delta
+  static constexpr size_t STAGE = 2 * Tile<D>::BYTES + VEC;
+  static constexpr size_t BYTES = 2 * Tile<D>::BYTES + 2 * STAGE;
+  static_assert(VEC % 128 == 0, "stages keep 128-byte alignment");
+};
+
+// Q, dO, lse and delta of q tile `qt` into ring stage `st`, cp.async over the
+// block (one f32 of lse or delta a thread); the caller commits.
+template <int D>
+__device__ __forceinline__ void dkv_stage_async(unsigned char* st, const bf16* qh, const bf16* doh,
+                                                const float* lse_h, const float* delta_h, int qt,
+                                                int S) {
+  static_assert(NTHREADS == 2 * BM, "one thread per lse or delta element");
+  tile_async<D, NTHREADS>(reinterpret_cast<bf16*>(st), qh, qt * BM, S, threadIdx.x);
+  tile_async<D, NTHREADS>(reinterpret_cast<bf16*>(st + Tile<D>::BYTES), doh, qt * BM, S,
+                          threadIdx.x);
+  const float* src = threadIdx.x < BM ? lse_h : delta_h;
+  const int row = qt * BM + threadIdx.x % BM;
+  const bool ok = row < S;
+  cp_async_4(reinterpret_cast<float*>(st + 2 * Tile<D>::BYTES) + threadIdx.x,
+             ok ? src + row : src, ok);
+}
+
+// dK/dV: grid (BH, key tiles).  dV_j = sum_i P_ij^T dO_i and dK_j = sum_i
+// dS_ij^T Q_i over the live q tiles, for one 64-key tile.
+template <int D>
+__global__ void __launch_bounds__(NTHREADS)
+    flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int causal,
+                         float scale) {
+  using G = DkvSmem<D>;
+  constexpr int LD = Tile<D>::LD;
+  constexpr int KD = D / 16;  // k16 steps of K Q^T and V dO^T
+  constexpr int ND = D / 8;   // n8 tiles of dK and dV
+  // q columns a pass: at D=128 the pass's S^T and dP^T fit in registers
+  // beside dK and dV (128 f32 a lane) only half a tile at a time
+  constexpr int QC = D == 128 ? 32 : 64;
+  constexpr int NQ = QC / 8;  // n8 tiles of a pass's transposed score tiles
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + Tile<D>::ELEMS;
+  unsigned char* ring = smem + 2 * Tile<D>::BYTES;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int bh = blockIdx.x;
+  const int kt = blockIdx.y;  // lowest key tiles (most live q tiles) first
+  const int k0 = kt * BN;
+  const size_t head = size_t(bh) * S * D;
+  const bf16* qh = q + head;
+  const bf16* doh = dout + head;
+  const float* lse_h = lse + size_t(bh) * S;
+  const float* delta_h = delta + size_t(bh) * S;
+  const int nq = (S + BM - 1) / BM;
+  const int qstart = causal ? kt : 0;  // first live q tile
+  const int n = nq - qstart;
+
+  tile_async<D, NTHREADS>(Ks, k + head, k0, S, threadIdx.x);
+  tile_async<D, NTHREADS>(Vs, v + head, k0, S, threadIdx.x);
+  dkv_stage_async<D>(ring, qh, doh, lse_h, delta_h, qstart, S);
+  cp_async_commit();
+
+  float dka[ND][4], dva[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.0f;
+  }
+  const float sl2 = scale * LOG2E;
+  const int key_lo = k0 + 16 * warp + g;  // this lane's keys: key_lo, key_lo + 8
+  const bf16* Kw = Ks + (16 * warp + lane % 16) * LD + (lane / 16) * 8;
+  const bf16* Vw = Vs + (16 * warp + lane % 16) * LD + (lane / 16) * 8;
+
+  for (int it = 0; it < n; ++it) {
+    const int qt = qstart + it;
+    const int q0 = qt * BM;
+    cp_async_wait<0>();
+    __syncthreads();  // tile `it` has landed; every warp is done with tile it - 1
+    if (it + 1 < n) {
+      dkv_stage_async<D>(ring + ((it + 1) & 1) * G::STAGE, qh, doh, lse_h, delta_h, qt + 1, S);
+      cp_async_commit();
+    }
+    const unsigned char* st = ring + (it & 1) * G::STAGE;
+    const bf16* Qs = reinterpret_cast<const bf16*>(st);
+    const bf16* dOs = reinterpret_cast<const bf16*>(st + Tile<D>::BYTES);
+    const float* lse_s = reinterpret_cast<const float*>(st + 2 * Tile<D>::BYTES);
+    const float* delta_s = lse_s + BM;
+
+    const bool edge = (causal && qt == kt) || q0 + BM > S;
+#pragma unroll 1
+    for (int c0 = 0; c0 < BM; c0 += QC) {
+      // S^T = K Q^T and dP^T = V dO^T over q columns [c0, c0 + QC), keys
+      // as rows: Q and dO rows are the col-major B fragments
+      float sp[NQ][4], dp[NQ][4];
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sp[j][e] = dp[j][e] = 0.0f;
+      }
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+        uint32_t a[4];
+        ldmatrix_x4(a, Kw + kd * 16);
+#pragma unroll
+        for (int j = 0; j < NQ; j += 2) {
+          uint32_t b[4];
+          ldmatrix_x4(b, Qs + (c0 + j * 8 + lane % 8 + (lane / 16) * 8) * LD + kd * 16 +
+                             ((lane / 8) % 2) * 8);
+          mma_bf16(sp[j], a, b[0], b[1]);
+          mma_bf16(sp[j + 1], a, b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+        uint32_t a[4];
+        ldmatrix_x4(a, Vw + kd * 16);
+#pragma unroll
+        for (int j = 0; j < NQ; j += 2) {
+          uint32_t b[4];
+          ldmatrix_x4(b, dOs + (c0 + j * 8 + lane % 8 + (lane / 16) * 8) * LD + kd * 16 +
+                             ((lane / 8) % 2) * 8);
+          mma_bf16(dp[j], a, b[0], b[1]);
+          mma_bf16(dp[j + 1], a, b[2], b[3]);
+        }
+      }
+
+      // p = exp(s*scale - lse) and dS = p (dP - delta) scale, lse and delta
+      // by column; mask the causal diagonal tile and q rows at or past S
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+        const int c = c0 + j * 8 + 2 * t;
+        const float2 L = *reinterpret_cast<const float2*>(lse_s + c);
+        const float2 Dl = *reinterpret_cast<const float2*>(delta_s + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float lse_c = (e & 1) ? L.y : L.x;
+          const float delta_c = (e & 1) ? Dl.y : Dl.x;
+          float p = fast_exp2(fmaf(sp[j][e], sl2, -lse_c * LOG2E));
+          if (edge) {
+            const int col = q0 + c + (e & 1);
+            const int key = key_lo + (e >> 1) * 8;
+            if (col >= S || (causal && key > col)) p = 0.0f;
+          }
+          sp[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - delta_c) * scale;
+        }
+      }
+
+      // dV += P^T dO, then dK += dS^T Q: two n8 tiles of P^T (dS^T) are
+      // one k16 A fragment; dO and Q rows through ldmatrix.trans are B
+#pragma unroll
+      for (int kk = 0; kk < NQ / 2; ++kk) {
+        const uint32_t a[4] = {pack_bf16(sp[2 * kk][0], sp[2 * kk][1]),
+                               pack_bf16(sp[2 * kk][2], sp[2 * kk][3]),
+                               pack_bf16(sp[2 * kk + 1][0], sp[2 * kk + 1][1]),
+                               pack_bf16(sp[2 * kk + 1][2], sp[2 * kk + 1][3])};
+#pragma unroll
+        for (int j = 0; j < ND; j += 2) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, dOs + (c0 + kk * 16 + lane % 16) * LD + j * 8 + (lane / 16) * 8);
+          mma_bf16(dva[j], a, b[0], b[1]);
+          mma_bf16(dva[j + 1], a, b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < NQ / 2; ++kk) {
+        const uint32_t a[4] = {pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
+                               pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
+                               pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+                               pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+#pragma unroll
+        for (int j = 0; j < ND; j += 2) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, Qs + (c0 + kk * 16 + lane % 16) * LD + j * 8 + (lane / 16) * 8);
+          mma_bf16(dka[j], a, b[0], b[1]);
+          mma_bf16(dka[j + 1], a, b[2], b[3]);
+        }
+      }
+    }
+  }
+
+  // this warp alone read its K and V rows, so they stage its dK and dV rows
+  const float one[2] = {1.0f, 1.0f};
+  store_frags<D>(dk + head, dka, one, Ks + 16 * warp * LD, k0 + 16 * warp, S, lane);
+  store_frags<D>(dv + head, dva, one, Vs + 16 * warp * LD, k0 + 16 * warp, S, lane);
+}
+
+// ---- the dQ kernel: WMMA out of shared memory --------------------------------
+
+// Shared-memory geometry of the dQ kernel for head dim D.  Every region is a
+// multiple of 128 bytes, so regions laid end to end keep WMMA's 32-byte
+// alignment.
 template <int D>
 struct Geo {
   static constexpr int LDH = D + PAD_H;   // bf16 (64 x D) tiles
   static constexpr int LDO = D + PAD_F;   // f32 (64 x D) accumulators
   static constexpr int LDS = BN + PAD_F;  // f32 (64 x 64) score tiles
-  static constexpr int LDP = BN + PAD_H;  // bf16 (64 x 64) p / dS tiles
+  static constexpr int LDP = BN + PAD_H;  // bf16 (64 x 64) dS tiles
   static constexpr size_t TILE_H = size_t(BM) * LDH * sizeof(bf16);
   static constexpr size_t ACC_F = size_t(BM) * LDO * sizeof(float);
   static constexpr size_t SCORE_F = size_t(BM) * LDS * sizeof(float);
   static constexpr size_t PROB_H = size_t(BM) * LDP * sizeof(bf16);
   static constexpr size_t ROW_F = size_t(BM) * sizeof(float);
-  // forward: Q K V | S | P | O
-  static constexpr size_t FWD = 3 * TILE_H + SCORE_F + PROB_H + ACC_F;
-  // dQ: Q dO K V | S dP | dS | dQ | lse delta
+  // Q dO K V | S dP | dS | dQ | lse delta
   static constexpr size_t DQ = 4 * TILE_H + 2 * SCORE_F + PROB_H + ACC_F + 2 * ROW_F;
-  // dK/dV: K V Q dO | S dP | P dS | dK dV | lse delta
-  static constexpr size_t DKV = 4 * TILE_H + 2 * SCORE_F + 2 * PROB_H + 2 * ACC_F + 2 * ROW_F;
   static_assert(TILE_H % 128 == 0 && ACC_F % 128 == 0 && SCORE_F % 128 == 0 &&
                     PROB_H % 128 == 0 && ROW_F % 128 == 0,
                 "regions must keep 128-byte alignment");
@@ -152,20 +694,8 @@ __device__ __forceinline__ void zero_f32(float* dst, int n) {
   for (int i = threadIdx.x; i < n; i += NTHREADS) dst[i] = 0.0f;
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// Rows [r0, r0+16) of a (64 x D) f32 shared tile, times `mul`, to bf16 rows
-// of the output head; rows at or past S are not stored.
+// Rows [r0, r0+16) of a (64 x D) f32 shared tile to bf16 rows of the output
+// head; rows at or past S are not stored.
 template <int D>
 __device__ __forceinline__ void store_rows(bf16* dst, const float* acc, int row0, int r0,
                                            int S, int lane) {
@@ -177,113 +707,12 @@ __device__ __forceinline__ void store_rows(bf16* dst, const float* acc, int row0
   }
 }
 
-// Forward: grid (q tiles, BH).  O and lse for one 64-row q tile.
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-    flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o,
-                     float* __restrict__ lse, int S, int causal, float scale) {
-  using G = Geo<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + BM * G::LDH;
-  bf16* Vs = Ks + BN * G::LDH;
-  float* Ss = reinterpret_cast<float*>(Vs + BN * G::LDH);
-  bf16* Ps = reinterpret_cast<bf16*>(Ss + BM * G::LDS);
-  float* Os = reinterpret_cast<float*>(Ps + BM * G::LDP);
-
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BM;
-  const size_t head = size_t(bh) * S * D;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int r0 = warp * 16;
-
-  load_rows<D>(Qs, q + head, q0, S);
-  zero_f32(Os, BM * G::LDO);
-
-  // online-softmax carries of this warp's 16 rows; every lane holds all
-  // 16 (the values are warp-reduced, so the lanes agree)
-  float m_run[16], l_run[16];
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    m_run[r] = -INFINITY;
-    l_run[r] = 0.0f;
-  }
-
-  const int nk = (S + BN - 1) / BN;
-  const int kend = causal ? min(nk, (q0 + BM - 1) / BN + 1) : nk;
-  for (int kt = 0; kt < kend; ++kt) {
-    const int k0 = kt * BN;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_rows<D>(Ks, k + head, k0, S);
-    load_rows<D>(Vs, v + head, k0, S);
-    __syncthreads();
-
-    warp_gemm<wmma::row_major, wmma::col_major, BN / 16, D / 16, false>(
-        Ss + r0 * G::LDS, G::LDS, Qs + r0 * G::LDH, G::LDH, Ks, G::LDH);
-    __syncwarp();
-
-#pragma unroll
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = r0 + rr;
-      const int gi = q0 + r;
-      float s[2];
-      bool ok[2];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int c = lane + 32 * h;
-        const int gj = k0 + c;
-        ok[h] = gj < S && (!causal || gj <= gi);
-        s[h] = ok[h] ? Ss[r * G::LDS + c] * scale : -INFINITY;
-        mx = fmaxf(mx, s[h]);
-      }
-      mx = warp_max(mx);
-      const float m_old = m_run[rr];
-      const float m_new = fmaxf(m_old, mx);
-      const float m_safe = (m_new == -INFINITY) ? 0.0f : m_new;
-      float psum = 0.0f;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float p = ok[h] ? expf(s[h] - m_safe) : 0.0f;
-        Ps[r * G::LDP + lane + 32 * h] = __float2bfloat16(p);
-        psum += p;
-      }
-      psum = warp_sum(psum);
-      const float corr = (m_old == -INFINITY) ? 0.0f : expf(m_old - m_safe);
-      for (int c = lane; c < D; c += 32) Os[r * G::LDO + c] *= corr;
-      m_run[rr] = m_new;
-      l_run[rr] = l_run[rr] * corr + psum;
-    }
-    __syncwarp();
-
-    warp_gemm<wmma::row_major, wmma::row_major, D / 16, BN / 16, true>(
-        Os + r0 * G::LDO, G::LDO, Ps + r0 * G::LDP, G::LDP, Vs, G::LDH);
-  }
-  __syncwarp();
-
-#pragma unroll
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = r0 + rr;
-    const int gi = q0 + r;
-    if (gi < S) {
-      const float l_safe = fmaxf(l_run[rr], 1e-20f);
-      for (int c = lane; c < D; c += 32) {
-        o[head + size_t(gi) * D + c] = __float2bfloat16(Os[r * G::LDO + c] / l_safe);
-      }
-      if (lane == 0) lse[size_t(bh) * S + gi] = m_run[rr] + logf(l_safe);
-    }
-  }
-}
-
-// p and dS of one 64x64 tile from the raw scores S = Q K^T and dP = dO V^T
-// (rows [r0, r0+16) of the shared tiles), both stored as bf16.
+// dS of one 64x64 tile from the raw scores S = Q K^T and dP = dO V^T (rows
+// [r0, r0+16) of the shared tiles), stored as bf16.
 template <int D>
 __device__ __forceinline__ void rebuild_rows(const float* Ss, const float* dPs, const float* lse_s,
-                                             const float* delta_s, bf16* Ps, bf16* dSs, int q0,
-                                             int k0, int r0, int S, int causal, float scale,
-                                             int lane) {
+                                             const float* delta_s, bf16* dSs, int q0, int k0,
+                                             int r0, int S, int causal, float scale, int lane) {
   using G = Geo<D>;
   for (int r = r0; r < r0 + 16; ++r) {
     const int gi = q0 + r;
@@ -296,7 +725,6 @@ __device__ __forceinline__ void rebuild_rows(const float* Ss, const float* dPs, 
       const bool ok = gi < S && gj < S && (!causal || gj <= gi);
       const float p = ok ? expf(Ss[r * G::LDS + c] * scale - lse_r) : 0.0f;
       const float ds = p * (dPs[r * G::LDS + c] - delta_r) * scale;
-      if (Ps != nullptr) Ps[r * G::LDP + c] = __float2bfloat16(p);
       dSs[r * G::LDP + c] = __float2bfloat16(ds);
     }
   }
@@ -349,7 +777,7 @@ __global__ void __launch_bounds__(NTHREADS)
     warp_gemm<wmma::row_major, wmma::col_major, BN / 16, D / 16, false>(
         dPs + r0 * G::LDS, G::LDS, dOs + r0 * G::LDH, G::LDH, Vs, G::LDH);
     __syncwarp();
-    rebuild_rows<D>(Ss, dPs, lse_s, delta_s, nullptr, dSs, q0, k0, r0, S, causal, scale, lane);
+    rebuild_rows<D>(Ss, dPs, lse_s, delta_s, dSs, q0, k0, r0, S, causal, scale, lane);
     __syncwarp();
     warp_gemm<wmma::row_major, wmma::row_major, D / 16, BN / 16, true>(
         dQs + r0 * G::LDO, G::LDO, dSs + r0 * G::LDP, G::LDP, Ks, G::LDH);
@@ -358,80 +786,54 @@ __global__ void __launch_bounds__(NTHREADS)
   store_rows<D>(dq + head, dQs, q0, r0, S, lane);
 }
 
-// dK/dV: grid (k tiles, BH).  dV_j = sum_i P_ij^T dO_i, dK_j = sum_i dS_ij^T Q_i
-// over the live q tiles.
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-    flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int causal,
-                         float scale) {
-  using G = Geo<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + BN * G::LDH;
-  bf16* Qs = Vs + BN * G::LDH;
-  bf16* dOs = Qs + BM * G::LDH;
-  float* Ss = reinterpret_cast<float*>(dOs + BM * G::LDH);
-  float* dPs = Ss + BM * G::LDS;
-  bf16* Ps = reinterpret_cast<bf16*>(dPs + BM * G::LDS);
-  bf16* dSs = Ps + BM * G::LDP;
-  float* dKs = reinterpret_cast<float*>(dSs + BM * G::LDP);
-  float* dVs = dKs + BN * G::LDO;
-  float* lse_s = dVs + BN * G::LDO;
-  float* delta_s = lse_s + BM;
+// ---- launch -------------------------------------------------------------------
 
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * BN;
-  const size_t head = size_t(bh) * S * D;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int r0 = warp * 16;
+constexpr int MAX_DEVICES = 64;
+// per device: its SM count once every kernel's shared-memory limit is set
+std::atomic<int> g_sms[MAX_DEVICES];
 
-  load_rows<D>(Ks, k + head, k0, S);
-  load_rows<D>(Vs, v + head, k0, S);
-  zero_f32(dKs, BN * G::LDO);
-  zero_f32(dVs, BN * G::LDO);
+template <typename... KArgs>
+cudaError_t allow_smem(void (*kern)(KArgs...), size_t bytes) {
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+}
 
-  const int nq = (S + BM - 1) / BM;
-  // first q tile with a row at or past k0: (i+1)*BM-1 >= k0
-  const int qstart = causal ? k0 / BM : 0;
-  for (int qt = qstart; qt < nq; ++qt) {
-    const int q0 = qt * BM;
-    __syncthreads();  // every warp is done with the previous Q/dO tile
-    load_rows<D>(Qs, q + head, q0, S);
-    load_rows<D>(dOs, dout + head, q0, S);
-    load_row_vec(lse_s, lse + size_t(bh) * S, q0, S, INFINITY);
-    load_row_vec(delta_s, delta + size_t(bh) * S, q0, S, 0.0f);
-    __syncthreads();
-
-    // this warp's 16 q rows against the block's 64 keys
-    warp_gemm<wmma::row_major, wmma::col_major, BN / 16, D / 16, false>(
-        Ss + r0 * G::LDS, G::LDS, Qs + r0 * G::LDH, G::LDH, Ks, G::LDH);
-    warp_gemm<wmma::row_major, wmma::col_major, BN / 16, D / 16, false>(
-        dPs + r0 * G::LDS, G::LDS, dOs + r0 * G::LDH, G::LDH, Vs, G::LDH);
-    __syncwarp();
-    rebuild_rows<D>(Ss, dPs, lse_s, delta_s, Ps, dSs, q0, k0, r0, S, causal, scale, lane);
-    __syncthreads();  // the transposed products read every warp's rows
-
-    // this warp's 16 keys: P^T and dS^T are the column-major views of P, dS
-    warp_gemm<wmma::col_major, wmma::row_major, D / 16, BM / 16, true>(
-        dVs + r0 * G::LDO, G::LDO, Ps + r0, G::LDP, dOs, G::LDH);
-    warp_gemm<wmma::col_major, wmma::row_major, D / 16, BM / 16, true>(
-        dKs + r0 * G::LDO, G::LDO, dSs + r0, G::LDP, Qs, G::LDH);
+// The current device's SM count; on a device's first call, also raise
+// every kernel's dynamic shared-memory limit, once per kernel
+// instantiation, not at every launch.
+cudaError_t device_sms(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  int n = g_sms[dev].load(std::memory_order_acquire);
+  if (n > 0) {
+    *sms = n;
+    return cudaSuccess;
   }
-  __syncwarp();
-  store_rows<D>(dk + head, dKs, k0, r0, S, lane);
-  store_rows<D>(dv + head, dVs, k0, r0, S, lane);
+  const cudaError_t errs[] = {
+      allow_smem(flash_fwd_kernel<64>, Fwd<64>::SMEM),
+      allow_smem(flash_fwd_kernel<128>, Fwd<128>::SMEM),
+      allow_smem(flash_bwd_dq_kernel<64>, Geo<64>::DQ),
+      allow_smem(flash_bwd_dq_kernel<128>, Geo<128>::DQ),
+      allow_smem(flash_bwd_dkv_kernel<64>, DkvSmem<64>::BYTES),
+      allow_smem(flash_bwd_dkv_kernel<128>, DkvSmem<128>::BYTES),
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev),
+  };
+  for (cudaError_t e : errs) {
+    if (e != cudaSuccess) return e;
+  }
+  g_sms[dev].store(n, std::memory_order_release);
+  *sms = n;
+  return cudaSuccess;
 }
 
 template <typename... KArgs, typename... Args>
-int launch(void (*kern)(KArgs...), size_t smem, dim3 grid, cudaStream_t stream, Args... args) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+int launch(void (*kern)(KArgs...), size_t smem, dim3 grid, int threads, cudaStream_t stream,
+           Args... args) {
+  int sms = 0;
+  const cudaError_t err = device_sms(&sms);
   if (err != cudaSuccess) return int(err);
-  kern<<<grid, NTHREADS, smem, stream>>>(args...);
+  kern<<<grid, threads, smem, stream>>>(args...);
   return int(cudaGetLastError());
 }
 
@@ -441,7 +843,10 @@ extern "C" {
 
 int tpumon_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH,
                      int S, int D, int causal, float scale, void* stream) {
-  const dim3 grid((S + BM - 1) / BM, BH);
+  int sms = 0;  // the wave of the block order
+  const cudaError_t err = device_sms(&sms);
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid(BH * ((S + BM - 1) / BM));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* Q = static_cast<const bf16*>(q);
   const bf16* K = static_cast<const bf16*>(k);
@@ -450,10 +855,11 @@ int tpumon_flash_fwd(const void* q, const void* k, const void* v, void* o, void*
   float* L = static_cast<float*>(lse);
   switch (D) {
     case 64:
-      return launch(flash_fwd_kernel<64>, Geo<64>::FWD, grid, st, Q, K, V, O, L, S, causal, scale);
+      return launch(flash_fwd_kernel<64>, Fwd<64>::SMEM, grid, NTHREADS, st, Q, K, V, O, L, S,
+                    causal, scale, BH, sms);
     case 128:
-      return launch(flash_fwd_kernel<128>, Geo<128>::FWD, grid, st, Q, K, V, O, L, S, causal,
-                    scale);
+      return launch(flash_fwd_kernel<128>, Fwd<128>::SMEM, grid, NTHREADS, st, Q, K, V, O, L, S,
+                    causal, scale, BH, sms);
     default:
       return int(cudaErrorInvalidValue);
   }
@@ -473,11 +879,11 @@ int tpumon_flash_bwd_dq(const void* q, const void* k, const void* v, const void*
   bf16* dQ = static_cast<bf16*>(dq);
   switch (D) {
     case 64:
-      return launch(flash_bwd_dq_kernel<64>, Geo<64>::DQ, grid, st, Q, K, V, dO, L, Dl, dQ, S,
-                    causal, scale);
+      return launch(flash_bwd_dq_kernel<64>, Geo<64>::DQ, grid, NTHREADS, st, Q, K, V, dO, L, Dl,
+                    dQ, S, causal, scale);
     case 128:
-      return launch(flash_bwd_dq_kernel<128>, Geo<128>::DQ, grid, st, Q, K, V, dO, L, Dl, dQ, S,
-                    causal, scale);
+      return launch(flash_bwd_dq_kernel<128>, Geo<128>::DQ, grid, NTHREADS, st, Q, K, V, dO, L,
+                    Dl, dQ, S, causal, scale);
     default:
       return int(cudaErrorInvalidValue);
   }
@@ -486,7 +892,7 @@ int tpumon_flash_bwd_dq(const void* q, const void* k, const void* v, const void*
 int tpumon_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                          const void* lse, const void* delta, void* dk, void* dv, int BH, int S,
                          int D, int causal, float scale, void* stream) {
-  const dim3 grid((S + BN - 1) / BN, BH);
+  const dim3 grid(BH, (S + BN - 1) / BN);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* Q = static_cast<const bf16*>(q);
   const bf16* K = static_cast<const bf16*>(k);
@@ -498,11 +904,11 @@ int tpumon_flash_bwd_dkv(const void* q, const void* k, const void* v, const void
   bf16* dV = static_cast<bf16*>(dv);
   switch (D) {
     case 64:
-      return launch(flash_bwd_dkv_kernel<64>, Geo<64>::DKV, grid, st, Q, K, V, dO, L, Dl, dK, dV,
-                    S, causal, scale);
+      return launch(flash_bwd_dkv_kernel<64>, DkvSmem<64>::BYTES, grid, NTHREADS, st, Q, K, V, dO,
+                    L, Dl, dK, dV, S, causal, scale);
     case 128:
-      return launch(flash_bwd_dkv_kernel<128>, Geo<128>::DKV, grid, st, Q, K, V, dO, L, Dl, dK,
-                    dV, S, causal, scale);
+      return launch(flash_bwd_dkv_kernel<128>, DkvSmem<128>::BYTES, grid, NTHREADS, st, Q, K, V,
+                    dO, L, Dl, dK, dV, S, causal, scale);
     default:
       return int(cudaErrorInvalidValue);
   }

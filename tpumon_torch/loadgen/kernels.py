@@ -511,9 +511,12 @@ PATTERNS = ("mxu", "hbm", "mixed", "flash", "conv")
 #: ``hbm`` pattern shape: the reference's (2048, 4096) f32 on the CPU; on
 #: a card a size that device memory, not the 50 MB L2, has to serve
 HBM_SHAPE = {"cpu": (2048, 4096), "cuda": (16384, 4096)}
-#: ``flash`` (B, S, H, D) and ``conv`` (B, HW, C): the reference's chip
-#: sizes on a card, its interpret sizes on the CPU
-FLASH_SHAPE = {"cpu": (1, 64, 2, 8), "cuda": (1, 1024, 4, 128)}
+#: ``flash`` (B, S, H, D) and ``conv`` (B, HW, C): the reference's
+#: interpret sizes on the CPU; on a card the reference's chip sizes, but
+#: for ``flash`` 192 heads where the reference has 4: at 4 the forward
+#: kernel takes a fifth of the host's time per step, at 192 over twice it,
+#: so the card, not the host, sets the pace (on an H100; PERF.md, Findings)
+FLASH_SHAPE = {"cpu": (1, 64, 2, 8), "cuda": (1, 1024, 192, 128)}
 CONV_SHAPE = {"cpu": (1, 16, 8), "cuda": (8, 128, 128)}
 
 
