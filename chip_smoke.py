@@ -18,7 +18,9 @@
    (forward, and backward for the two gradient kernels) as the library
    yardstick, which the port never calls.  The forward kernel's wrapper is
    held and timed again at the ``flash`` pattern's card shape and at the
-   reference's (B*H=4, S=1024, causal).
+   reference's (B*H=4, S=1024, causal); the dQ and dK/dV kernels at
+   (B*H=64, S=1024, D=128, causal), whose loops run up to 16 tiles where
+   the bench shape's run 4, beside SDPA's backward there.
 3. Holds the load-shaping kernels against their plain versions at the
    patterns' shapes: ``hbm_stream`` bit for bit (f32, and a planted
    (256, 1024) block left unwritten must fail), at the card's ``hbm``
@@ -51,9 +53,12 @@
    under load, utilization after the load <= 25.  Only the ordering is
    asserted: the probes are queue-delay estimators.
 7. Prints each load pattern's busy share (its kernel's device time over
-   its self-monitored step), then one ``{"kernels": [...]}`` line, a row
-   for each kernel: ``ms`` is one call through the port's wrapper as the
-   main path makes it and ``kernel_ms`` the kernel's C entry called
+   its self-monitored step), then one ``{"kernels": [...], "backward":
+   {...}}`` line.  ``backward`` is the port's whole backward pass, the dQ
+   and dK/dV kernels' device times summed, beside SDPA's backward (dQ, dK
+   and dV in one call) at the bench shape and at S=1024.  ``kernels`` has
+   a row for each kernel: ``ms`` is one call through the port's wrapper
+   as the main path makes it and ``kernel_ms`` the kernel's C entry called
    directly (CUDA events over back-to-back calls, so the wrapper's host
    work shows in ``ms`` only where it outlasts the kernel); ``device_ms``
    and ``library_device_ms`` are the sums of the device kernels that the
@@ -70,6 +75,7 @@ available, or when the ``tpumon_torch`` package is not beside it.
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import math
@@ -92,6 +98,10 @@ PEAK_HBM_BYTES = 3.35e12
 #: key tile moved the k projection's update by 18%, and a dQ whose last
 #: 64 rows were scaled by 0.9 moved the q projection's by 5%.
 UPDATE_RTOL = 3e-2
+#: profiler captures a device time may take: CUPTI has dropped one kernel
+#: record of 200 short back-to-back launches, which the launch count
+#: catches
+PROFILE_CAPTURES = 3
 
 BH, HEADS, D = 64, 8, 128
 FLASH_KERNELS = (
@@ -142,11 +152,12 @@ def device_ms(fn, iters: int, per_call=None, names=None) -> float:
     """Mean device time of one call of ``fn``: the sum of the device
     kernels it launches, as torch.profiler (CUPTI) records them, over
     ``iters`` calls after one warm-up call.  Unlike :func:`time_ms`, the
-    host's pace between launches does not count.  Fails unless the
-    profiler kept every launch: ``per_call`` kernels a call where it is
-    given (the port's C entries launch one), else the same number in
-    every call.  The kernels' names are appended to ``names`` when it is
-    given."""
+    host's pace between launches does not count.  Only a profiler
+    capture that kept every launch counts: ``per_call`` kernels a call
+    where it is given (the port's C entries launch one), else the same
+    number in every call.  A capture that lost a record is taken again,
+    up to PROFILE_CAPTURES in all, and then this fails.  The kernels' names
+    are appended to ``names`` when it is given."""
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -154,24 +165,26 @@ def device_ms(fn, iters: int, per_call=None, names=None) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and device_us(e) > 0]
-    if names is not None:
-        names.extend(e.key for e in events)
-    us = sum(device_us(e) for e in events)
-    n = sum(e.count for e in events)
-    if not us > 0:
-        raise AssertionError("the profiler recorded no device time")
-    if n % iters or (per_call is not None and n != per_call * iters):
-        raise AssertionError(f"the profiler kept {n} device kernels over "
-                             f"{iters} calls"
-                             + (f" of {per_call}" if per_call else ""))
-    return us / 1e3 / iters
+    for _ in range(PROFILE_CAPTURES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and device_us(e) > 0]
+        us = sum(device_us(e) for e in events)
+        n = sum(e.count for e in events)
+        if not us > 0:
+            raise AssertionError("the profiler recorded no device time")
+        if not (n % iters or (per_call is not None and n != per_call * iters)):
+            if names is not None:
+                names.extend(e.key for e in events)
+            return us / 1e3 / iters
+    raise AssertionError(f"the profiler kept {n} device kernels over "
+                         f"{iters} calls"
+                         + (f" of {per_call}" if per_call else "")
+                         + f" in each of {PROFILE_CAPTURES} captures")
 
 
 def max_err(got, want) -> float:
@@ -324,18 +337,7 @@ def kernel_cases(K, lib):
         lib_dev = {n: device_ms(fn, 200, names=lib_kernels[n])
                    for n, fn in lib_calls.items()}
 
-        # roofline bound from this run's inputs: bytes each input read
-        # once and each output written once; tensor-core FLOPs over the
-        # (i, j) pairs the causal mask keeps
-        half = BH * S * D * 2
-        rowvec = BH * S * 4
-        pairs = BH * S * (S + 1) // 2
-        work = {
-            "flash_fwd": (3 * half + half + rowvec, 2 * 2 * D * pairs),
-            "flash_bwd_dq": (4 * half + 2 * rowvec + half, 3 * 2 * D * pairs),
-            "flash_bwd_dkv": (4 * half + 2 * rowvec + 2 * half,
-                              4 * 2 * D * pairs),
-        }
+        work = flash_work(BH, S, D)
         for name, tpu_kernel, replaces in FLASH_KERNELS:
             lib_key = "fwd" if name == "flash_fwd" else "bwd"
             rows[name] = {
@@ -359,6 +361,110 @@ def kernel_cases(K, lib):
                                  "(dQ, dK and dV together)"),
             }
     return rows
+
+
+def flash_work(bh: int, S: int, Dh: int) -> dict:
+    """(bytes, FLOPs) of each flash kernel, causal, on this shape: each
+    input read once and each output written once; tensor-core FLOPs over
+    the (i, j) pairs the causal mask keeps."""
+
+    half = bh * S * Dh * 2
+    rowvec = bh * S * 4
+    pairs = bh * S * (S + 1) // 2
+    return {
+        "flash_fwd": (3 * half + half + rowvec, 2 * 2 * Dh * pairs),
+        "flash_bwd_dq": (4 * half + 2 * rowvec + half, 3 * 2 * Dh * pairs),
+        "flash_bwd_dkv": (4 * half + 2 * rowvec + 2 * half,
+                          4 * 2 * Dh * pairs),
+    }
+
+
+#: a longer causal sequence for the two backward kernels: up to 16 tiles
+#: a loop, where the bench shape's 4 hardly exercise the ring
+LONG_BWD_SHAPE = (64, 1024, 128)
+
+
+def long_backward_case(K, lib) -> dict:
+    """The dQ and dK/dV kernels at LONG_BWD_SHAPE, causal, through their
+    wrappers against their plain versions with the kernels' tolerance,
+    then timed from their C entries beside their bounds and SDPA's
+    backward on the same data.  Returns a row for each kernel."""
+
+    import torch
+    import torch.nn.functional as F
+    from tpumon_torch import _build
+
+    bh, S, Dh = LONG_BWD_SHAPE
+    g = torch.Generator("cuda").manual_seed(12)
+    q, k, v, do = (torch.randn((bh, S, Dh), generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    o_p, lse = K.flash_fwd_plain(q, k, v, True, 128, 128)
+    delta = (do.float() * o_p.float()).sum(-1)
+    dq = K.flash_bwd_dq(q, k, v, do, lse, delta, True, 128, 128)
+    dk, dv = K.flash_bwd_dkv(q, k, v, do, lse, delta, True, 128, 128)
+    torch.cuda.synchronize()
+    dq_p = K.flash_bwd_dq_plain(q, k, v, do, lse, delta, True, 128, 128)
+    dk_p, dv_p = K.flash_bwd_dkv_plain(q, k, v, do, lse, delta, True, 128,
+                                       128)
+    pairs = {"flash_bwd_dq": [(dq, dq_p)],
+             "flash_bwd_dkv": [(dk, dk_p), (dv, dv_p)]}
+    ptr = [t.data_ptr() for t in (q, k, v, do, lse, delta)]
+    out = [torch.empty_like(q) for _ in range(3)]
+    scale = Dh ** -0.5
+    stream = torch.cuda.current_stream().cuda_stream
+    raw = {
+        "flash_bwd_dq": lambda: _build.check(lib.tpumon_flash_bwd_dq(
+            *ptr, out[0].data_ptr(), bh, S, Dh, 1, scale, stream),
+            "flash_bwd_dq"),
+        "flash_bwd_dkv": lambda: _build.check(lib.tpumon_flash_bwd_dkv(
+            *ptr, out[1].data_ptr(), out[2].data_ptr(), bh, S, Dh, 1, scale,
+            stream), "flash_bwd_dkv"),
+    }
+    work = flash_work(bh, S, Dh)
+    rows = {}
+    for name, outs in pairs.items():
+        rows[name] = {
+            "shape": list(LONG_BWD_SHAPE),
+            "max_abs_err": max(max_err(a, b) for a, b in outs),
+            "tol_excess": max(check_close(K, f"{name} at {[bh, S, Dh]}", a, b)
+                              for a, b in outs),
+            "kernel_ms": time_ms(raw[name], 100),
+            "device_ms": device_ms(raw[name], 100, per_call=1),
+            **bound(*work[name]),
+        }
+    q4, k4, v4, do4 = (t.reshape(bh // HEADS, HEADS, S, Dh)
+                       for t in (q, k, v, do))
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
+    out4 = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    sdpa_bwd = lambda: torch.autograd.grad(out4, (qg, kg, vg), do4,
+                                           retain_graph=True)
+    lib_times = {"library_ms": time_ms(sdpa_bwd, 100),
+                 "library_device_ms": device_ms(sdpa_bwd, 100)}
+    for row in rows.values():
+        row.update(lib_times)
+    return rows
+
+
+def backward_table(rows) -> dict:
+    """The port's whole backward pass, the dQ and dK/dV kernels' device
+    times summed, beside SDPA's backward (one call for dQ, dK and dV), at
+    the bench shape and at LONG_BWD_SHAPE."""
+
+    dq, dkv = rows["flash_bwd_dq"], rows["flash_bwd_dkv"]
+
+    def entry(a, b, lib_device_ms, shape):
+        port = a["device_ms"] + b["device_ms"]
+        return {"shape": shape, "dq_device_ms": a["device_ms"],
+                "dkv_device_ms": b["device_ms"], "device_ms": port,
+                "library_device_ms": lib_device_ms,
+                "vs_library": port / lib_device_ms}
+
+    return {"bench": entry(dq, dkv, dq["library_device_ms"], [BH, 256, D]),
+            "long": entry(dq["at_long_sequence"], dkv["at_long_sequence"],
+                          dq["at_long_sequence"]["library_device_ms"],
+                          list(LONG_BWD_SHAPE)),
+            "library_call": "scaled_dot_product_attention backward "
+                            "(dQ, dK and dV together)"}
 
 
 def bound(nbytes: float, flops: float) -> dict:
@@ -760,6 +866,10 @@ def semantics_check(K, fields) -> dict:
         if t.is_alive() or errors:
             raise AssertionError(f"mxu load thread failed: {errors}")
 
+        # HBM used is the allocator's live bytes: free the earlier phases'
+        # cyclic garbage first, or a collection during the allocation
+        # below offsets it
+        gc.collect()
         before = read(HBM_USED)
         buf = torch.ones((256, 1024, 1024), device="cuda")  # 1 GiB
         torch.cuda.synchronize()
@@ -816,7 +926,8 @@ def main() -> int:
     lib = _build.load()
     print(f"build: {time.monotonic() - t0:.1f} s")
     for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+        if any(w in line for w in ("registers", "spill", "Compiling entry",
+                                   "wgmma", "warning")):
             print("  " + line.strip()[:160])
 
     rows = kernel_cases(K, lib)
@@ -825,6 +936,9 @@ def main() -> int:
     if tuple(K.FLASH_SHAPE["cuda"]) != FLASH_SHAPE_REFERENCE:
         fwd["at_reference_flash_shape"] = flash_pattern_case(
             K, lib, FLASH_SHAPE_REFERENCE)
+    for name, row in long_backward_case(K, lib).items():
+        rows[name]["at_long_sequence"] = row
+    backward = backward_table(rows)
     rows.update(load_kernel_cases(K, lib))
     print("attention check, excess: " + json.dumps(attention_check(K)))
     print("model check: " + json.dumps(model_check(M)))
@@ -844,7 +958,8 @@ def main() -> int:
 
     print("semantics check: " + json.dumps(semantics_check(K, fields)))
 
-    print(json.dumps({"kernels": [rows[n] for n, _, _ in KERNELS]}))
+    print(json.dumps({"kernels": [rows[n] for n, _, _ in KERNELS],
+                      "backward": backward}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -78,7 +78,8 @@ def _close(got, want):
 # grid shorter than the SMs), causal and not; one head (B*H=1), a ragged
 # last tile after a long loop (S=1000), D=64 at the bench length, D=64
 # over 16 long non-causal loops, a ragged D=64 tile in a lone non-causal
-# tile
+# tile; 768 q tiles, more than two waves of two blocks an SM, so the
+# block order's remap of the second wave meets every q tile
 CASES = [
     (64, 256, 128, True, 128, 128),
     (64, 256, 128, False, 128, 128),
@@ -95,6 +96,7 @@ CASES = [
     (16, 256, 64, False, 128, 128),
     (16, 1024, 64, False, 128, 128),
     (3, 100, 64, False, 100, 100),
+    (192, 256, 128, True, 128, 128),
 ]
 
 
@@ -142,10 +144,16 @@ def test_kernel_refuses_unbuilt_head_dim(cuda):
 
 # ---- the tolerance against planted faults ------------------------------------
 
-def _scores(q, k):
+def _scores(q, k, *, unmask_diagonal=False):
+    """Causal scores; ``unmask_diagonal``: the future keys of each
+    diagonal 64-tile are kept too."""
+
     S = q.shape[1]
     s = q.float() @ k.float().mT * q.shape[-1] ** -0.5
     keep = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    if unmask_diagonal:
+        tile = torch.arange(S, device=q.device) // TILE
+        keep |= tile[:, None] == tile[None, :]
     return s.masked_fill(~keep, float("-inf"))
 
 
@@ -174,12 +182,14 @@ def _forward(q, k, v, *, round_p=False, rescale=True, k_stop=None):
 
 
 def _backward(q, k, v, do, lse, delta, *, round_p=False, q_stop=None,
-              k_stop=None):
+              k_stop=None, unmask_diagonal=False):
     """Causal dQ, dK, dV from p = exp(s - lse), over the rows before
     ``q_stop`` and the keys before ``k_stop``.  ``round_p``: p and dS
-    rounded to bf16 before their second products."""
+    rounded to bf16 before their second products; ``unmask_diagonal``: p
+    left unmasked on the diagonal tiles."""
 
-    p = torch.exp(_scores(q, k) - lse[..., None])
+    p = torch.exp(_scores(q, k, unmask_diagonal=unmask_diagonal)
+                  - lse[..., None])
     if q_stop is not None:
         p[:, q_stop:] = 0.0
     if k_stop is not None:
@@ -227,7 +237,8 @@ def test_tolerance_passes_kernel_numerics(device):
 
 LAST = 256 - TILE
 # (output, fault): a kernel that skips its last k tile (or part of it),
-# never rescales its running sums, or ends its dK/dV q loop one tile early
+# never rescales its running sums, ends its dK/dV q loop one tile early,
+# or leaves p unmasked on dQ's causal diagonal tile
 FAULTS = [
     pytest.param("o", lambda a: _forward(*a[:3], k_stop=LAST),
                  id="fwd-last-k-tile"),
@@ -247,6 +258,8 @@ FAULTS = [
                  id="dk-last-q-tile"),
     pytest.param("dv", lambda a: _backward(*a, q_stop=LAST)[2],
                  id="dv-last-q-tile"),
+    pytest.param("dq", lambda a: _backward(*a, unmask_diagonal=True)[0],
+                 id="dq-unmasked-diagonal"),
 ]
 
 
@@ -273,6 +286,12 @@ def _stale_forward(args, j):
                              128)[0]
 
 
+def _stale_dq(args, j):
+    q, k, v, do, lse, delta = args
+    return K.flash_bwd_dq_plain(q, _stale(k, j), _stale(v, j), do, lse,
+                                delta, True, 128, 128)
+
+
 def _stale_backward(args, j):
     q, k, v, do, lse, delta = args
     return K.flash_bwd_dkv_plain(_stale(q, j), k, v, _stale(do, j),
@@ -280,10 +299,12 @@ def _stale_backward(args, j):
                                  128, 128)
 
 
-# (output, fault): key tile j of O's loop, or q tile j of dK/dV's loop,
-# read from a stale ring stage; j=2 is the first tile that reuses a stage
+# (output, fault): key tile j of O's or dQ's loop, or q tile j of dK/dV's
+# loop, read from a stale ring stage; j=2 is the first tile that reuses a
+# stage
 STALE_FAULTS = [
     pytest.param("o", lambda a, j: _stale_forward(a, j), id="fwd-stale-k"),
+    pytest.param("dq", lambda a, j: _stale_dq(a, j), id="dq-stale-k"),
     pytest.param("dk", lambda a, j: _stale_backward(a, j)[0],
                  id="dk-stale-q"),
     pytest.param("dv", lambda a, j: _stale_backward(a, j)[1],

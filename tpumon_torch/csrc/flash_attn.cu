@@ -43,6 +43,22 @@
 // first, except that the second round of blocks (one an SM) runs lightest
 // first, so that the two blocks an SM holds balance each other.
 //
+// flash_bwd_dq_kernel.  The forward kernel's machinery on other tiles: one
+// warpgroup owns 64 q rows, with Q and dO resident in shared memory in the
+// same swizzled layout, and each thread keeps the lse (in log2 units) and
+// delta of its two rows in registers, loaded once.  For each live key tile,
+// S = Q K^T and dP = dO V^T are two groups of wgmma m64n64k16 from shared
+// memory, committed apart, so p = exp2(s*scale*log2e - lse*log2e) runs on
+// S's accumulator while dP's product finishes.  dS = p (dP - delta) scale is
+// formed on the accumulators and packed to bf16 straight into the A
+// registers of dQ += dS K, wgmma m64n{D}k16 with K read transposed, as the
+// forward pass reads V.  dQ (64 x D f32) stays in registers for the whole
+// loop.  K and V stream through the forward pass's two-stage ring; its one
+// barrier a tile also keeps a stage from being refilled before every warp's
+// dQ product has read its K.  Block order and epilogue (dQ staged as bf16 in
+// the Q tile, 16-byte stores) are the forward pass's.  97 KiB of shared
+// memory at D=128: two blocks an SM.
+//
 // flash_bwd_dkv_kernel.  Each block owns one 64-key tile, K and V resident
 // in shared memory; four warps each own 16 keys and hold their dK and dV
 // (16 x D f32) in registers.  For each live q tile a warp forms the
@@ -59,31 +75,25 @@
 // rows for 16-byte stores.  103 KiB of shared memory at D=128: two blocks
 // an SM.  Key tiles with the most live q tiles go first.
 //
-// flash_bwd_dq_kernel (the first port's design, unchanged): four warps each
-// own 16 rows; tile products run through WMMA (16x16x16 bf16 mma.sync, f32
-// accumulate) out of shared memory, with S, dP and dQ in f32 shared tiles
-// and synchronous tile loads; the dS arithmetic is f32 on the CUDA cores.
-//
 // Bound.  At the bench shapes (BH=64, S=256, D=128) the three kernels must
 // move about 16, 20 and 24 MiB (each input read once, each output written
-// once) and do 1.1, 1.6 and 2.2 GFLOP of tile products, so all three are
-// bound by device memory, not by the tensor cores.  Each block re-reads the
-// K/V (or Q/dO) tiles it needs, mostly from the 50 MB L2.  What they do not
-// do: wgmma in the two backward kernels, overlap of the softmax with the
-// next tile's products, TMA tile loads, a persistent grid.
+// once: for dQ, Q, K, V and dO read and dQ written, 4 MiB each) and do 1.1,
+// 1.6 and 2.2 GFLOP of tile products, so all three are bound by device
+// memory, not by the tensor cores.  What they do about it: no score tile,
+// probability or partial sum ever leaves the SM, so device memory sees the
+// inputs and outputs only, plus the K/V (or Q/dO) tiles that each block
+// re-reads, mostly from the 50 MB L2.  What they do not do: wgmma in the
+// dK/dV kernel, overlap of the forward pass's softmax with the next tile's
+// products, TMA tile loads, a persistent grid.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <atomic>
-#include <type_traits>
 
 #include "mma.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
@@ -92,13 +102,12 @@ constexpr int BN = 64;  // key rows per tile (equal to BM: the skip rules assume
 constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int PAD_H = 8;  // bf16 row padding: 16-byte rows, shifted banks
-constexpr int PAD_F = 4;  // f32 row padding
 constexpr float LOG2E = 1.4426950408889634f;
 
 static_assert(BM == NWARPS * 16, "one warp per 16 rows of a tile");
 static_assert(BM == BN, "causal skip rules assume square tiles");
 
-// ---- helpers of the forward and dK/dV kernels --------------------------------
+// ---- padded tiles (dK/dV kernel) and fragment helpers ------------------------
 
 // A (64 x D) bf16 tile in shared memory, rows padded by 16 bytes: the eight
 // row addresses of an ldmatrix land in eight distinct bank groups.
@@ -181,7 +190,7 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// ---- the forward kernel on warpgroup products (wgmma) -------------------------
+// ---- the forward and dQ kernels on warpgroup products (wgmma) -----------------
 
 // A (ROWS x D) bf16 tile in the layout wgmma reads with 128-byte swizzle:
 // D/64 column blocks of ROWS rows of 128 bytes each, the 16-byte chunk j of
@@ -208,14 +217,139 @@ __device__ __forceinline__ void sw_tile_async(bf16* dst, const bf16* head, int r
   }
 }
 
-// Geometry: Q, then a two-stage ring of (K, V) tiles, all swizzled, from a
-// 1024-byte aligned base.
+// Geometry: Q (and dO for the dQ kernel), then a two-stage ring of (K, V)
+// tiles, all swizzled, from a 1024-byte aligned base.
 template <int D>
-struct Fwd {
+struct Sw {
   static constexpr int TE = 64 * D;  // elements of a 64-row tile
   static constexpr size_t TILE = size_t(TE) * sizeof(bf16);
-  static constexpr size_t SMEM = 1024 + TILE * 5;
+  static constexpr size_t FWD = 1024 + TILE * 5;
+  static constexpr size_t DQ = 1024 + TILE * 6;
 };
+
+// The first 1024-byte aligned address of dynamic shared memory: the
+// swizzle pattern repeats every 1024 bytes.
+__device__ __forceinline__ bf16* sw_base(unsigned char* raw) {
+  return reinterpret_cast<bf16*>(raw + ((1024 - (smem_addr(raw) & 1023)) & 1023));
+}
+
+// This block's q tile and head on a 1-D grid of (q tiles x BH): blocks in
+// order of work, heaviest q tiles first, except that the second round
+// (wave = the SM count) goes lightest first.
+__device__ __forceinline__ void block_tile(int S, int BH, int wave, int& qt, int& bh) {
+  int r = blockIdx.x;
+  if (r >= wave && r < 2 * wave) {
+    r = wave + (min(int(gridDim.x), 2 * wave) - 1 - r);
+  }
+  qt = (S + BM - 1) / BM - 1 - r / BH;
+  bh = r % BH;
+}
+
+// Top of key tile kt of the two-stage (K, V) ring: from kt = 1 on, wait for
+// tile kt's copies, hand them to the async proxy, and pass a barrier, after
+// which no warp reads tile kt - 1 any more; then start tile kt + 1 into that
+// stage.  Returns tile kt's K (its V follows at + TE).
+template <int D>
+__device__ __forceinline__ const bf16* ring_step(bf16* ring, const bf16* kh, const bf16* vh,
+                                                 int kt, int kend, int S) {
+  constexpr int TE = Sw<D>::TE;
+  if (kt > 0) {
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();  // tile kt has landed; every warp is done with tile kt - 1
+  }
+  if (kt + 1 < kend) {
+    bf16* nxt = ring + ((kt + 1) & 1) * 2 * TE;
+    sw_tile_async<D, NTHREADS, 64>(nxt, kh, (kt + 1) * BN, S, threadIdx.x);
+    sw_tile_async<D, NTHREADS, 64>(nxt + TE, vh, (kt + 1) * BN, S, threadIdx.x);
+    cp_async_commit();
+  }
+  return ring + (kt & 1) * 2 * TE;
+}
+
+// d (64 x 64) = A B^T over D, A and B swizzled (64 x D) tiles, both K-major
+// in shared memory: k16 step kk is 32 bytes into column block kk / 4.
+// Emits the k16 steps; the caller fences before and commits after.
+template <int D>
+__device__ __forceinline__ void wgmma_abt(float (&d)[BN / 8][4], const bf16* A, const bf16* B) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int off = (kk / 4) * 64 * 64 + (kk % 4) * 16;
+    wgmma_m64n64k16_ss(d, wgmma_desc(A + off, 16, 1024), wgmma_desc(B + off, 16, 1024), kk > 0);
+  }
+}
+
+// acc (64 x D) += P B, P (64 x 64) bf16 in A registers (k16 step kk in
+// pa[kk]), B a swizzled (64 x D) tile of keys x D, D contiguous, read
+// transposed: k16 step kk is 16 rows (2048 bytes) down the tile, column
+// blocks 64 rows (8192 bytes) apart.  Emits the k16 steps; the caller
+// fences and commits.
+template <int D>
+__device__ __forceinline__ void wgmma_pb(float (&acc)[D / 8][4], const uint32_t (&pa)[BN / 16][4],
+                                         const bf16* B) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    const uint64_t db = wgmma_desc(B + kk * 16 * 64, 64 * 64 * 2, 1024);
+    if constexpr (D == 128) {
+      wgmma_m64n128k16_rs(acc, pa[kk], db);
+    } else {
+      wgmma_m64n64k16_rs(acc, pa[kk], db);
+    }
+  }
+}
+
+// Score tile kt of q tile qt to -inf wherever the forward pass masks it:
+// the causal diagonal tile and keys at or past S, edge tiles only.
+// row_lo: this lane's first row (its second is row_lo + 8).
+__device__ __forceinline__ void mask_scores(float (&s)[BN / 8][4], int kt, int qt, int row_lo,
+                                            int S, int causal) {
+  const int k0 = kt * BN;
+  if (!((causal && kt == qt) || k0 + BN > S)) return;
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = k0 + j * 8 + 2 * t + (e & 1);
+      const int row = row_lo + (e >> 1) * 8;
+      if (col >= S || (causal && col > row)) s[j][e] = -INFINITY;
+    }
+  }
+}
+
+// Epilogue: this warp's 16 rows of acc (64 x D f32, rows g and g+8 scaled
+// by mul[0] and mul[1]) as bf16 into its rows of the swizzled tile `stage`,
+// then 16-byte stores to rows [q0, q0 + 64) of the output head; rows at or
+// past S are not stored.  The caller has passed a barrier after the
+// block's last read of `stage`.
+template <int D>
+__device__ __forceinline__ void store_sw(bf16* out, const float (&acc)[D / 8][4],
+                                         const float (&mul)[2], bf16* stage, int q0, int S) {
+  constexpr int CH = D / 8;
+  const int lane = threadIdx.x % 32;
+  const int r0 = (threadIdx.x / 32) * 16;
+  const int g = lane / 4;
+  const int t = lane % 4;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = j * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(stage + sw_off<64>(r0 + g, c)) =
+        pack_bf16(acc[j][0] * mul[0], acc[j][1] * mul[0]);
+    *reinterpret_cast<uint32_t*>(stage + sw_off<64>(r0 + g + 8, c)) =
+        pack_bf16(acc[j][2] * mul[1], acc[j][3] * mul[1]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int n = 0; n < 16 * CH / 32; ++n) {
+    const int i = lane + n * 32;
+    const int rr = r0 + i / CH;
+    const int c = (i % CH) * 8;
+    if (q0 + rr < S) {
+      *reinterpret_cast<uint4*>(out + size_t(q0 + rr) * D + c) =
+          *reinterpret_cast<const uint4*>(stage + sw_off<64>(rr, c));
+    }
+  }
+}
 
 // Forward: grid (BH * q tiles), one warpgroup.  O and lse for one 64-row q
 // tile.
@@ -226,28 +360,18 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                      float* __restrict__ lse, int S, int causal, float scale, int BH,
                      int wave) {
   static_assert(NTHREADS == 128, "one warpgroup a block");
-  constexpr int TE = Fwd<D>::TE;
-  constexpr int KD = D / 16;  // k16 steps of Q K^T
+  constexpr int TE = Sw<D>::TE;
   constexpr int NO = D / 8;   // n8 tiles of O
   constexpr int NS = BN / 8;  // n8 tiles of S
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
+  bf16* Qs = sw_base(smem_raw);
+  bf16* ring = Qs + TE;  // stage s: K at 2s, V at 2s + 1
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;
-  const int t = lane % 4;
-  const int r0 = warp * 16;    // this warp's q rows [r0, r0 + 16)
-  bf16* ring = Qs + TE;        // stage s: K at 2s, V at 2s + 1
-
-  // blocks in order of work, heaviest q tiles first, except that the
-  // second round (wave = the SM count) goes lightest first
-  int r = blockIdx.x;
-  if (r >= wave && r < 2 * wave) {
-    r = wave + (min(int(gridDim.x), 2 * wave) - 1 - r);
-  }
-  const int qt = (S + BM - 1) / BM - 1 - r / BH;
-  const int bh = r % BH;
+  int qt, bh;
+  block_tile(S, BH, wave, qt, bh);
   const int q0 = qt * BM;
   const size_t head = size_t(bh) * S * D;
   const bf16* kh = k + head;
@@ -272,50 +396,20 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.0f, 0.0f};
   const float sl2 = scale * LOG2E;
-  const int row_lo = q0 + r0 + g;
+  const int row_lo = q0 + warp * 16 + g;
 
   for (int kt = 0; kt < kend; ++kt) {
-    const bf16* Ks = ring + (kt & 1) * 2 * TE;
+    const bf16* Ks = ring_step<D>(ring, kh, vh, kt, kend, S);
     const bf16* Vs = Ks + TE;
-    if (kt > 0) {
-      cp_async_wait<0>();
-      fence_proxy_async();
-      __syncthreads();  // tile kt has landed; every warp is done with tile kt - 1
-    }
-    if (kt + 1 < kend) {
-      bf16* nxt = ring + ((kt + 1) & 1) * 2 * TE;
-      sw_tile_async<D, NTHREADS, 64>(nxt, kh, (kt + 1) * BN, S, threadIdx.x);
-      sw_tile_async<D, NTHREADS, 64>(nxt + TE, vh, (kt + 1) * BN, S, threadIdx.x);
-      cp_async_commit();
-    }
 
-    // S = Q K^T, both operands K-major in shared memory: k16 step kk is 32
-    // bytes into column block kk / 4
     wgmma_hold(s);
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      const int off = (kk / 4) * 64 * 64 + (kk % 4) * 16;
-      wgmma_m64n64k16_ss(s, wgmma_desc(Qs + off, 16, 1024), wgmma_desc(Ks + off, 16, 1024),
-                         kk > 0);
-    }
+    wgmma_abt<D>(s, Qs, Ks);
     wgmma_commit();
     wgmma_wait<0>();
     wgmma_hold(s);
 
-    // mask the causal diagonal tile and keys at or past S
-    const int k0 = kt * BN;
-    if ((causal && kt == qt) || k0 + BN > S) {
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + j * 8 + 2 * t + (e & 1);
-          const int row = row_lo + (e >> 1) * 8;
-          if (col >= S || (causal && col > row)) s[j][e] = -INFINITY;
-        }
-      }
-    }
+    mask_scores(s, kt, qt, row_lo, S, causal);
     float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
     for (int j = 0; j < NS; ++j) {
@@ -353,20 +447,10 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       acc[j][3] *= corr[1];
     }
 
-    // O += P V: P from registers, V (keys x D, D contiguous) read transposed;
-    // k16 step kk is 16 rows (2048 bytes) down the tile, column blocks 64
-    // rows (8192 bytes) apart
+    // O += P V: P from registers, V read transposed
     wgmma_hold(acc);
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint64_t dv = wgmma_desc(Vs + kk * 16 * 64, 64 * 64 * 2, 1024);
-      if constexpr (D == 128) {
-        wgmma_m64n128k16_rs(acc, pa[kk], dv);
-      } else {
-        wgmma_m64n64k16_rs(acc, pa[kk], dv);
-      }
-    }
+    wgmma_pb<D>(acc, pa, Vs);
     wgmma_commit();
     wgmma_wait<0>();
     wgmma_hold(acc);
@@ -378,36 +462,121 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     inv[h] = 1.0f / l_safe[h];
   }
   __syncthreads();  // the warpgroup's last reads of Q are done
-
-  // O rows as bf16 into this warp's rows of the swizzled Q tile, then
-  // 16-byte stores
-#pragma unroll
-  for (int j = 0; j < NO; ++j) {
-    const int c = j * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(Qs + sw_off<64>(r0 + g, c)) =
-        pack_bf16(acc[j][0] * inv[0], acc[j][1] * inv[0]);
-    *reinterpret_cast<uint32_t*>(Qs + sw_off<64>(r0 + g + 8, c)) =
-        pack_bf16(acc[j][2] * inv[1], acc[j][3] * inv[1]);
-  }
-  __syncwarp();
-  constexpr int CH = D / 8;
-#pragma unroll
-  for (int n = 0; n < 16 * CH / 32; ++n) {
-    const int i = lane + n * 32;
-    const int rr = r0 + i / CH;
-    const int c = (i % CH) * 8;
-    if (q0 + rr < S) {
-      *reinterpret_cast<uint4*>(o + head + size_t(q0 + rr) * D + c) =
-          *reinterpret_cast<const uint4*>(Qs + sw_off<64>(rr, c));
-    }
-  }
-  if (t == 0) {
+  store_sw<D>(o + head, acc, inv, Qs, q0, S);
+  if (lane % 4 == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = row_lo + 8 * h;
       if (row < S) lse[size_t(bh) * S + row] = m_run[h] * scale + logf(l_safe[h]);
     }
   }
+}
+
+// dQ: grid (BH * q tiles), one warpgroup.  dQ_i = sum_j dS_ij K_j over the
+// live key tiles, for one 64-row q tile.
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        bf16* __restrict__ dq, int S, int causal, float scale, int BH,
+                        int wave) {
+  static_assert(NTHREADS == 128, "one warpgroup a block");
+  constexpr int TE = Sw<D>::TE;
+  constexpr int NQ = D / 8;   // n8 tiles of dQ
+  constexpr int NS = BN / 8;  // n8 tiles of S and dP
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Qs = sw_base(smem_raw);
+  bf16* dOs = Qs + TE;
+  bf16* ring = dOs + TE;  // stage s: K at 2s, V at 2s + 1
+
+  const int lane = threadIdx.x % 32;
+  int qt, bh;
+  block_tile(S, BH, wave, qt, bh);
+  const int q0 = qt * BM;
+  const size_t head = size_t(bh) * S * D;
+  const bf16* kh = k + head;
+  const bf16* vh = v + head;
+  const int nk = (S + BN - 1) / BN;
+  const int kend = causal ? min(nk, qt + 1) : nk;  // at least 1
+
+  sw_tile_async<D, NTHREADS, 64>(Qs, q + head, q0, S, threadIdx.x);
+  sw_tile_async<D, NTHREADS, 64>(dOs, dout + head, q0, S, threadIdx.x);
+  sw_tile_async<D, NTHREADS, 64>(ring, kh, 0, S, threadIdx.x);
+  sw_tile_async<D, NTHREADS, 64>(ring + TE, vh, 0, S, threadIdx.x);
+  cp_async_commit();
+
+  // this lane's rows: -lse in log2 units and delta * scale; a row at or
+  // past S takes lse = +inf, so its p is 0
+  const int row_lo = q0 + (threadIdx.x / 32) * 16 + lane / 4;
+  float nlse[2], dsc[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row_lo + 8 * h;
+    const bool ok = row < S;
+    nlse[h] = ok ? -lse[size_t(bh) * S + row] * LOG2E : -INFINITY;
+    dsc[h] = ok ? delta[size_t(bh) * S + row] * scale : 0.0f;
+  }
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();  // Q, dO and the first tiles have landed for the whole block
+
+  float acc[NQ][4];
+#pragma unroll
+  for (int j = 0; j < NQ; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+  float s[NS][4], dp[NS][4];
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+  }
+  const float sl2 = scale * LOG2E;
+
+  for (int kt = 0; kt < kend; ++kt) {
+    const bf16* Ks = ring_step<D>(ring, kh, vh, kt, kend, S);
+    const bf16* Vs = Ks + TE;
+
+    // S = Q K^T and dP = dO V^T, two groups in flight: p is formed on S
+    // while dP's product runs
+    wgmma_hold(s);
+    wgmma_hold(dp);
+    wgmma_fence();
+    wgmma_abt<D>(s, Qs, Ks);
+    wgmma_commit();
+    wgmma_abt<D>(dp, dOs, Vs);
+    wgmma_commit();
+    wgmma_wait<1>();
+    wgmma_hold(s);
+
+    mask_scores(s, kt, qt, row_lo, S, causal);
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = fast_exp2(fmaf(s[j][e], sl2, nlse[e >> 1]));
+    }
+    wgmma_wait<0>();
+    wgmma_hold(dp);
+
+    // dS = p (dP - delta) scale, packed into the A registers of dQ += dS K
+    uint32_t da[BN / 16][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      float d[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[e] = s[j][e] * fmaf(dp[j][e], scale, -dsc[e >> 1]);
+      da[j / 2][(j % 2) * 2] = pack_bf16(d[0], d[1]);
+      da[j / 2][(j % 2) * 2 + 1] = pack_bf16(d[2], d[3]);
+    }
+    wgmma_hold(acc);
+    wgmma_fence();
+    wgmma_pb<D>(acc, da, Ks);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_hold(acc);
+  }
+  __syncthreads();  // the warpgroup's last reads of Q are done
+  const float one[2] = {1.0f, 1.0f};
+  store_sw<D>(dq + head, acc, one, Qs, q0, S);
 }
 
 // Dynamic shared memory of the dK/dV kernel: K, V, then a two-stage ring of
@@ -605,187 +774,6 @@ __global__ void __launch_bounds__(NTHREADS)
   store_frags<D>(dv + head, dva, one, Vs + 16 * warp * LD, k0 + 16 * warp, S, lane);
 }
 
-// ---- the dQ kernel: WMMA out of shared memory --------------------------------
-
-// Shared-memory geometry of the dQ kernel for head dim D.  Every region is a
-// multiple of 128 bytes, so regions laid end to end keep WMMA's 32-byte
-// alignment.
-template <int D>
-struct Geo {
-  static constexpr int LDH = D + PAD_H;   // bf16 (64 x D) tiles
-  static constexpr int LDO = D + PAD_F;   // f32 (64 x D) accumulators
-  static constexpr int LDS = BN + PAD_F;  // f32 (64 x 64) score tiles
-  static constexpr int LDP = BN + PAD_H;  // bf16 (64 x 64) dS tiles
-  static constexpr size_t TILE_H = size_t(BM) * LDH * sizeof(bf16);
-  static constexpr size_t ACC_F = size_t(BM) * LDO * sizeof(float);
-  static constexpr size_t SCORE_F = size_t(BM) * LDS * sizeof(float);
-  static constexpr size_t PROB_H = size_t(BM) * LDP * sizeof(bf16);
-  static constexpr size_t ROW_F = size_t(BM) * sizeof(float);
-  // Q dO K V | S dP | dS | dQ | lse delta
-  static constexpr size_t DQ = 4 * TILE_H + 2 * SCORE_F + PROB_H + ACC_F + 2 * ROW_F;
-  static_assert(TILE_H % 128 == 0 && ACC_F % 128 == 0 && SCORE_F % 128 == 0 &&
-                    PROB_H % 128 == 0 && ROW_F % 128 == 0,
-                "regions must keep 128-byte alignment");
-};
-
-// C (16 x 16*NT, f32, shared, row-major) = or += A (16 x 16*KT) * B (16*KT x 16*NT).
-// A(m, k) is A[m*lda + k] when LA is row_major, A[k*lda + m] when col_major;
-// B(k, n) is B[k*ldb + n] when LB is row_major, B[n*ldb + k] when col_major.
-template <typename LA, typename LB, int NT, int KT, bool ACC>
-__device__ __forceinline__ void warp_gemm(float* C, int ldc, const bf16* A, int lda,
-                                          const bf16* B, int ldb) {
-#pragma unroll 1
-  for (int n = 0; n < NT; ++n) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-    if constexpr (ACC) {
-      wmma::load_matrix_sync(c, C + n * 16, ldc, wmma::mem_row_major);
-    } else {
-      wmma::fill_fragment(c, 0.0f);
-    }
-#pragma unroll
-    for (int k = 0; k < KT; ++k) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> b;
-      const bf16* pa;
-      const bf16* pb;
-      if constexpr (std::is_same<LA, wmma::row_major>::value) {
-        pa = A + k * 16;
-      } else {
-        pa = A + k * 16 * lda;
-      }
-      if constexpr (std::is_same<LB, wmma::row_major>::value) {
-        pb = B + k * 16 * ldb + n * 16;
-      } else {
-        pb = B + n * 16 * ldb + k * 16;
-      }
-      wmma::load_matrix_sync(a, pa, lda);
-      wmma::load_matrix_sync(b, pb, ldb);
-      wmma::mma_sync(c, a, b, c);
-    }
-    wmma::store_matrix_sync(C + n * 16, c, ldc, wmma::mem_row_major);
-  }
-}
-
-// Rows [row0, row0 + 64) of one (S, D) head into a padded shared tile, 16
-// bytes a thread; rows at or past S read as zeros.
-template <int D>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int row0, int S) {
-  constexpr int VEC = 8;
-  constexpr int PER_ROW = D / VEC;
-  for (int i = threadIdx.x; i < BM * PER_ROW; i += NTHREADS) {
-    const int r = i / PER_ROW;
-    const int c = (i % PER_ROW) * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S) {
-      val = *reinterpret_cast<const uint4*>(src + size_t(row0 + r) * D + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * Geo<D>::LDH + c) = val;
-  }
-}
-
-__device__ __forceinline__ void load_row_vec(float* dst, const float* src, int row0, int S,
-                                             float fill) {
-  for (int i = threadIdx.x; i < BM; i += NTHREADS) {
-    dst[i] = (row0 + i < S) ? src[row0 + i] : fill;
-  }
-}
-
-__device__ __forceinline__ void zero_f32(float* dst, int n) {
-  for (int i = threadIdx.x; i < n; i += NTHREADS) dst[i] = 0.0f;
-}
-
-// Rows [r0, r0+16) of a (64 x D) f32 shared tile to bf16 rows of the output
-// head; rows at or past S are not stored.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst, const float* acc, int row0, int r0,
-                                           int S, int lane) {
-  for (int r = r0; r < r0 + 16; ++r) {
-    if (row0 + r >= S) break;
-    for (int c = lane; c < D; c += 32) {
-      dst[size_t(row0 + r) * D + c] = __float2bfloat16(acc[r * Geo<D>::LDO + c]);
-    }
-  }
-}
-
-// dS of one 64x64 tile from the raw scores S = Q K^T and dP = dO V^T (rows
-// [r0, r0+16) of the shared tiles), stored as bf16.
-template <int D>
-__device__ __forceinline__ void rebuild_rows(const float* Ss, const float* dPs, const float* lse_s,
-                                             const float* delta_s, bf16* dSs, int q0, int k0,
-                                             int r0, int S, int causal, float scale, int lane) {
-  using G = Geo<D>;
-  for (int r = r0; r < r0 + 16; ++r) {
-    const int gi = q0 + r;
-    const float lse_r = lse_s[r];
-    const float delta_r = delta_s[r];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = lane + 32 * h;
-      const int gj = k0 + c;
-      const bool ok = gi < S && gj < S && (!causal || gj <= gi);
-      const float p = ok ? expf(Ss[r * G::LDS + c] * scale - lse_r) : 0.0f;
-      const float ds = p * (dPs[r * G::LDS + c] - delta_r) * scale;
-      dSs[r * G::LDP + c] = __float2bfloat16(ds);
-    }
-  }
-}
-
-// dQ: grid (q tiles, BH).  dQ_i = sum_j dS_ij K_j over the live k tiles.
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-    flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        bf16* __restrict__ dq, int S, int causal, float scale) {
-  using G = Geo<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + BM * G::LDH;
-  bf16* Ks = dOs + BM * G::LDH;
-  bf16* Vs = Ks + BN * G::LDH;
-  float* Ss = reinterpret_cast<float*>(Vs + BN * G::LDH);
-  float* dPs = Ss + BM * G::LDS;
-  bf16* dSs = reinterpret_cast<bf16*>(dPs + BM * G::LDS);
-  float* dQs = reinterpret_cast<float*>(dSs + BM * G::LDP);
-  float* lse_s = dQs + BM * G::LDO;
-  float* delta_s = lse_s + BM;
-
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BM;
-  const size_t head = size_t(bh) * S * D;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int r0 = warp * 16;
-
-  load_rows<D>(Qs, q + head, q0, S);
-  load_rows<D>(dOs, dout + head, q0, S);
-  load_row_vec(lse_s, lse + size_t(bh) * S, q0, S, INFINITY);
-  load_row_vec(delta_s, delta + size_t(bh) * S, q0, S, 0.0f);
-  zero_f32(dQs, BM * G::LDO);
-
-  const int nk = (S + BN - 1) / BN;
-  const int kend = causal ? min(nk, (q0 + BM - 1) / BN + 1) : nk;
-  for (int kt = 0; kt < kend; ++kt) {
-    const int k0 = kt * BN;
-    __syncthreads();
-    load_rows<D>(Ks, k + head, k0, S);
-    load_rows<D>(Vs, v + head, k0, S);
-    __syncthreads();
-
-    warp_gemm<wmma::row_major, wmma::col_major, BN / 16, D / 16, false>(
-        Ss + r0 * G::LDS, G::LDS, Qs + r0 * G::LDH, G::LDH, Ks, G::LDH);
-    warp_gemm<wmma::row_major, wmma::col_major, BN / 16, D / 16, false>(
-        dPs + r0 * G::LDS, G::LDS, dOs + r0 * G::LDH, G::LDH, Vs, G::LDH);
-    __syncwarp();
-    rebuild_rows<D>(Ss, dPs, lse_s, delta_s, dSs, q0, k0, r0, S, causal, scale, lane);
-    __syncwarp();
-    warp_gemm<wmma::row_major, wmma::row_major, D / 16, BN / 16, true>(
-        dQs + r0 * G::LDO, G::LDO, dSs + r0 * G::LDP, G::LDP, Ks, G::LDH);
-  }
-  __syncwarp();
-  store_rows<D>(dq + head, dQs, q0, r0, S, lane);
-}
-
 // ---- launch -------------------------------------------------------------------
 
 constexpr int MAX_DEVICES = 64;
@@ -811,10 +799,10 @@ cudaError_t device_sms(int* sms) {
     return cudaSuccess;
   }
   const cudaError_t errs[] = {
-      allow_smem(flash_fwd_kernel<64>, Fwd<64>::SMEM),
-      allow_smem(flash_fwd_kernel<128>, Fwd<128>::SMEM),
-      allow_smem(flash_bwd_dq_kernel<64>, Geo<64>::DQ),
-      allow_smem(flash_bwd_dq_kernel<128>, Geo<128>::DQ),
+      allow_smem(flash_fwd_kernel<64>, Sw<64>::FWD),
+      allow_smem(flash_fwd_kernel<128>, Sw<128>::FWD),
+      allow_smem(flash_bwd_dq_kernel<64>, Sw<64>::DQ),
+      allow_smem(flash_bwd_dq_kernel<128>, Sw<128>::DQ),
       allow_smem(flash_bwd_dkv_kernel<64>, DkvSmem<64>::BYTES),
       allow_smem(flash_bwd_dkv_kernel<128>, DkvSmem<128>::BYTES),
       cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev),
@@ -855,10 +843,10 @@ int tpumon_flash_fwd(const void* q, const void* k, const void* v, void* o, void*
   float* L = static_cast<float*>(lse);
   switch (D) {
     case 64:
-      return launch(flash_fwd_kernel<64>, Fwd<64>::SMEM, grid, NTHREADS, st, Q, K, V, O, L, S,
+      return launch(flash_fwd_kernel<64>, Sw<64>::FWD, grid, NTHREADS, st, Q, K, V, O, L, S,
                     causal, scale, BH, sms);
     case 128:
-      return launch(flash_fwd_kernel<128>, Fwd<128>::SMEM, grid, NTHREADS, st, Q, K, V, O, L, S,
+      return launch(flash_fwd_kernel<128>, Sw<128>::FWD, grid, NTHREADS, st, Q, K, V, O, L, S,
                     causal, scale, BH, sms);
     default:
       return int(cudaErrorInvalidValue);
@@ -868,7 +856,10 @@ int tpumon_flash_fwd(const void* q, const void* k, const void* v, void* o, void*
 int tpumon_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                         const void* lse, const void* delta, void* dq, int BH, int S, int D,
                         int causal, float scale, void* stream) {
-  const dim3 grid((S + BM - 1) / BM, BH);
+  int sms = 0;  // the wave of the block order
+  const cudaError_t err = device_sms(&sms);
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid(BH * ((S + BM - 1) / BM));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* Q = static_cast<const bf16*>(q);
   const bf16* K = static_cast<const bf16*>(k);
@@ -879,11 +870,11 @@ int tpumon_flash_bwd_dq(const void* q, const void* k, const void* v, const void*
   bf16* dQ = static_cast<bf16*>(dq);
   switch (D) {
     case 64:
-      return launch(flash_bwd_dq_kernel<64>, Geo<64>::DQ, grid, NTHREADS, st, Q, K, V, dO, L, Dl,
-                    dQ, S, causal, scale);
+      return launch(flash_bwd_dq_kernel<64>, Sw<64>::DQ, grid, NTHREADS, st, Q, K, V, dO, L, Dl,
+                    dQ, S, causal, scale, BH, sms);
     case 128:
-      return launch(flash_bwd_dq_kernel<128>, Geo<128>::DQ, grid, NTHREADS, st, Q, K, V, dO, L,
-                    Dl, dQ, S, causal, scale);
+      return launch(flash_bwd_dq_kernel<128>, Sw<128>::DQ, grid, NTHREADS, st, Q, K, V, dO, L,
+                    Dl, dQ, S, causal, scale, BH, sms);
     default:
       return int(cudaErrorInvalidValue);
   }
