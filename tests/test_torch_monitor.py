@@ -184,12 +184,13 @@ class _Props:
     multi_processor_count = 4
 
 
-def _stub_cuda(sample_kw=None, probes=True):
+def _stub_cuda(sample_kw=None, probes=True, trace=False):
     b = CudaBackend()
     b._devices = [0]
     b._opened = True
     b._props = {0: _Props()}
     b._probes_enabled = probes
+    b._trace_enabled = trace
     b._hbm_stats = lambda idx: {"used": USED, "peak": PEAK, "total": TOTAL}
     if probes:
         sample = ProbeSample(**sample_kw) if sample_kw else None
@@ -272,6 +273,199 @@ def test_no_trace_engine_hooks():
     assert b.trace_cost_stats() is None
     assert b.attribution_stats() is None
     assert b.trace_capture_spans() == []
+
+
+# ---- the backend's trace half against PjrtBackend's --------------------------
+
+TRACE = dict(window_s=0.25, duty=0.8, busy_s=0.2, mxu_frac=0.6,
+             vector_frac=0.15, data_frac=0.02, infeed_stall=0.04,
+             outfeed_stall=0.01, collective_stall=0.0, achieved_tflops=412.5,
+             mxu_tflops=400.0, peak_tflops=989.0, peak_hbm_gbps=3350.0,
+             n_ops=31, exact_categories=True)
+
+
+def _trace_pair(trace_kw, sample_kw, probes=True):
+    """(CudaBackend, PjrtBackend) serving the same trace sample (each its
+    own package's TraceSample) and the same probe sample."""
+
+    from tpumon import xplane as X
+    from tpumon_torch import trace as T
+
+    ours = _stub_cuda(sample_kw, probes=probes, trace=trace_kw is not None)
+    ref = _stub_pjrt(sample_kw, probes=probes)
+    ref._trace_enabled = trace_kw is not None
+    if trace_kw is not None:
+        now = time.monotonic()
+        ours._trace_sample = lambda idx: T.TraceSample(ts=now, **trace_kw)
+        ours._trace_schedule = lambda idx: None
+        ref._trace_sample = lambda idx: X.TraceSample(ts=now, **trace_kw)
+    return ours, ref
+
+
+BUSY_PROBE = dict(SAMPLE, duty_est=0.9, mxu_active_est=0.7)
+IDLE_PROBE = dict(SAMPLE, duty_est=0.0, mxu_active_est=0.0)
+
+
+@pytest.mark.parametrize("trace_kw,sample_kw,probes", [
+    (TRACE, SAMPLE, True),
+    (TRACE, None, False),
+    (dict(TRACE, exact_categories=False, mxu_frac=0.2), SAMPLE, True),
+    (dict(TRACE, exact_categories=False, mxu_frac=0.2), BUSY_PROBE, True),
+    (dict(TRACE, duty=0.0, busy_s=0.0, mxu_frac=0.0, vector_frac=0.0,
+          data_frac=0.0, infeed_stall=0.0, outfeed_stall=0.0,
+          achieved_tflops=None, mxu_tflops=None, n_ops=0,
+          exact_categories=False), BUSY_PROBE, True),
+    (dict(TRACE, duty=0.0, busy_s=0.0, mxu_frac=0.0, vector_frac=0.0,
+          data_frac=0.0, infeed_stall=0.0, outfeed_stall=0.0,
+          achieved_tflops=None, mxu_tflops=None, n_ops=0,
+          exact_categories=False), IDLE_PROBE, True),
+    (dict(TRACE, achieved_tflops=None, mxu_tflops=None), SAMPLE, True),
+    (dict(TRACE, mxu_frac=0.005), None, False),
+    (None, SAMPLE, True),
+], ids=["exact", "exact-no-probes", "inexact", "tighter-mxu-bound",
+        "empty-trace-busy-probe", "empty-trace-idle-probe", "no-flops",
+        "mxu-below-occupancy-floor", "engine-off"])
+def test_read_fields_maps_like_pjrt_with_trace(trace_kw, sample_kw, probes):
+    """The source rules of ``pjrt.py:531-707`` on one stubbed sample: the
+    same value for every field the exporter asks for (identity aside).
+    The trace has no HBM rates, as the port's never does, so the HBM
+    families stay on the probes."""
+
+    ident = {int(F.CHIP_UUID), int(F.CHIP_NAME)}
+    fids = [f for f in ALL_FIELDS if f not in ident]
+    ours, ref = _trace_pair(trace_kw, sample_kw, probes)
+    got = ours.read_fields(0, fids)
+    want = ref.read_fields(0, fids)
+    assert got == want
+    if trace_kw is TRACE:
+        assert got[int(F.PROF_DUTY_CYCLE_1S)] == 0.8      # trace beats probe
+        assert got[int(F.PROF_MFU)] == pytest.approx(412.5 / 989.0)
+        assert got[int(F.PROF_VECTOR_ACTIVE)] == 0.15
+
+
+def test_exact_trace_skips_the_probe_unless_a_field_needs_it():
+    calls = []
+    b = _stub_cuda(SAMPLE, trace=True)
+    from tpumon_torch import trace as T
+    b._trace_sample = lambda idx: T.TraceSample(ts=time.monotonic(), **TRACE)
+    b._trace_schedule = lambda idx: None
+    b._probe_sample = lambda idx: calls.append(idx)
+    b.note_step()
+    b.note_step()
+    b.read_fields(0, [int(F.PROF_DUTY_CYCLE_1S), int(F.PROF_STEP_TIME),
+                      int(F.PROF_MXU_ACTIVE)])
+    assert calls == []
+    b.read_fields(0, [int(F.PROF_DUTY_CYCLE_1S), int(F.PROF_HBM_ACTIVE)])
+    assert calls == [0]       # the profiler counts no bytes
+
+
+def test_probe_runs_outside_the_engines_session():
+    """A sweep closes an elapsed session, reads the cached sample, probes,
+    and only then opens the next session: never a probe under the
+    profiler's recording."""
+
+    order = []
+
+    class Engine:
+        def peek(self, index):
+            order.append("peek")
+            return None
+
+        def sample(self, index, wait=False):
+            order.append("open")
+            return None
+
+    b = _stub_cuda(SAMPLE, trace=True)
+    b._trace = Engine()
+    b._probe_sample = lambda idx: order.append("probe")
+    b.read_fields(0, [int(F.TENSORCORE_UTIL)])
+    assert order == ["peek", "probe", "open"]
+    order.clear()
+    b.read_fields(0, [int(F.HBM_USED)])     # no utilization field asked
+    assert order == []
+
+
+class _StubEngine:
+    """The parts of a trace engine the backends' hooks read."""
+
+    def __init__(self, stats=None):
+        self._stats = stats or {}
+        self.polls = 0
+        self.quiesced = False
+
+    def stats(self):
+        return dict(self._stats)
+
+    def poll(self):
+        self.polls += 1
+
+    def quiesce(self, timeout_s=5.0):
+        self.quiesced = True
+        return True
+
+    def capture_spans(self):
+        return [(1.0, 2.0)]
+
+
+STATS = {"captures_ok": 7.0, "captures_failed": 2.0,
+         "capture_wall_s": 1.25, "capture_parse_s": 0.5,
+         "capture_cost_ewma_s": 0.375, "capture_window_ms": 137.5,
+         "effective_interval_s": 18.75, "capturing": 1.0, "disabled": 0.0,
+         "sample_age_s": 3.5, "attribution_suspect": 0.0,
+         "attribution_consistency": -1.0}
+
+
+def test_self_metric_lines_byte_identical_to_reference():
+    from tpumon.backends.pjrt import PjrtBackend
+
+    ours, ref = _stub_cuda(), PjrtBackend()
+    assert ours.self_metric_lines() == [] == ref.self_metric_lines()
+    ours._trace, ref._trace = _StubEngine(STATS), _StubEngine(STATS)
+    for label in ('host="h1"', ""):
+        got = ours.self_metric_lines(label)
+        assert got == ref.self_metric_lines(label)
+        assert len(got) == 21
+    assert ours.trace_cost_stats() == ref.trace_cost_stats()
+    assert ours.trace_capture_spans() == ref.trace_capture_spans()
+    assert ours.attribution_stats() is None
+
+
+def test_failed_capture_shows_on_the_scrape(monkeypatch):
+    """Without CUDA the engine's capture fails; it is counted, never
+    carried on on the CPU, and the fields fall back to the probes."""
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    b = _stub_cuda(SAMPLE, trace=True)
+    vals = b.read_fields(0, [int(F.PROF_DUTY_CYCLE_1S),
+                             int(F.PROF_VECTOR_ACTIVE)])
+    assert vals[int(F.PROF_DUTY_CYCLE_1S)] == 0.8   # the probe's
+    assert vals[int(F.PROF_VECTOR_ACTIVE)] is None
+    assert b._trace.quiesce(5.0)
+    text = "\n".join(b.self_metric_lines('host="h"'))
+    assert 'tpumon_trace_capture_failures_total{host="h"} 1.000' in text
+    assert 'tpumon_trace_captures_total{host="h"} 0.000' in text
+
+
+def test_trace_switch_is_the_environment(monkeypatch):
+    monkeypatch.delenv("TPUMON_CUDA_TRACE", raising=False)
+    assert CudaBackend()._trace_enabled is True
+    monkeypatch.setenv("TPUMON_CUDA_TRACE", "0")
+    b = CudaBackend()
+    assert b._trace_enabled is False
+    b._devices, b._opened = [0], True
+    assert b._trace_sample(0) is None
+    assert b.force_trace_capture() is False
+    assert b._trace is None
+
+
+def test_note_step_and_close_drive_the_engine():
+    b = _stub_cuda()
+    eng = b._trace = _StubEngine()
+    b.note_step()
+    b.note_step()
+    assert eng.polls == 2
+    b.close()
+    assert eng.quiesced and b._trace is None
 
 
 # ---- renderer and exporter ----------------------------------------------------
@@ -392,6 +586,55 @@ def test_exporter_refuses_unported_planes(tmp_path):
             call()
     exp.sweep()
     assert (tmp_path / "x.prom").read_text().startswith("# HELP")
+
+
+def test_monitor_cost_matches_reference_arithmetic():
+    """The runner's ``monitor_cost`` on scripted cost counters and capture
+    spans, against the arithmetic of ``tpumon/loadgen/run.py:345-388``."""
+
+    from tpumon.loadgen.run import capture_step_cost as ref_cost
+    from tpumon_torch.loadgen.run import monitor_cost
+
+    blocks = [(i * 0.5, (i + 1) * 0.5, 12 + (i % 4)) for i in range(40)]
+    spans = [(2.0, 4.5), (9.1, 12.0), (30.0, 31.0)]
+    cases = [({}, {}),
+             (dict(STATS, captures_ok=2.0, captures_failed=0.0,
+                   capture_wall_s=0.25, capture_parse_s=0.125,
+                   capturing=0.0), STATS),
+             (dict(STATS, capturing=1.0), dict(STATS, capture_cost_ewma_s=-1.0,
+                                               capture_window_ms=0.0))]
+    for cost0, cost1 in cases:
+        sweep_s, elapsed, t0 = 0.4321, 20.0, 0.0
+        got = monitor_cost(cost0, cost1, sweep_s, elapsed, blocks, spans, t0)
+        want = {
+            "sweep_s": round(sweep_s, 3),
+            "sweep_pct_of_window": round(100.0 * sweep_s /
+                                         max(elapsed, 1e-9), 2),
+            "captures_in_window": int(
+                cost1.get("captures_ok", 0.0) + cost1.get(
+                    "captures_failed", 0.0) -
+                cost0.get("captures_ok", 0.0) - cost0.get(
+                    "captures_failed", 0.0)),
+            "capture_wall_s": round(
+                cost1.get("capture_wall_s", 0.0) -
+                cost0.get("capture_wall_s", 0.0), 3),
+            "capture_parse_s": round(
+                cost1.get("capture_parse_s", 0.0) -
+                cost0.get("capture_parse_s", 0.0), 3),
+            "steady_capture_duty_pct": (round(
+                100.0 * cost1["capture_cost_ewma_s"] /
+                cost1["effective_interval_s"], 2)
+                if cost1.get("capture_cost_ewma_s", -1.0) > 0 and
+                cost1.get("effective_interval_s", 0.0) > 0 else None),
+            "capture_window_ms": round(
+                cost1.get("capture_window_ms", 0.0), 1) or None,
+            "capture_inflight_at_window_start":
+                bool(cost0.get("capturing")),
+        }
+        want["capture_step_cost_pct"], want["capture_overlap_s"] = ref_cost(
+            blocks, spans, t0, t0 + elapsed)
+        assert got == want
+    assert got["capture_step_cost_pct"] is not None
 
 
 def test_capture_step_cost_matches_reference():

@@ -11,16 +11,24 @@ Sources, per field:
   counterpart of PJRT's ``bytes_in_use``) and peak
   (``max_memory_allocated``); the device's total from
   ``mem_get_info``.
+* periodic profiler traces (:mod:`tpumon_torch.trace`) — MEASURED device
+  timelines from short ``torch.profiler`` captures: duty cycle, the
+  mxu/vector/data/infeed/outfeed/collective split, achieved TFLOP/s and
+  MFU.  The preferred source wherever it has a value; off with
+  ``TPUMON_CUDA_TRACE=0``.
 * active probes (:mod:`.probes`) — measured queue-delay / matmul /
-  memory-stream estimators for the utilization fields, at most once a
-  second.
+  memory-stream estimators, at most once a second: the fallback where no
+  trace sample is fresh, and the only source of the HBM-activity
+  families (the profiler counts no bytes).
+* the capability table (:func:`tpumon_torch.types.gpu_caps`) — the peak
+  TFLOP/s behind MFU and MXU occupancy, and HBM total where
+  ``mem_get_info`` fails.
 * ``note_step()`` — the workload feeds its own step boundaries; then
-  ``PROF_STEP_TIME`` is the real step-time EWMA.
+  ``PROF_STEP_TIME`` is the real step-time EWMA, and the trace engine
+  closes a capture the stepping thread holds as soon as its window ends.
 
-The profiler-trace engine is not ported yet: the trace-only fields
-(vector/infeed/outfeed/collective stalls, achieved TFLOP/s, MFU, HBM
-read/write rates, ICI/DCN traffic) stay blank under the nil convention,
-as the reference does with ``TPUMON_PJRT_XPLANE=0``.
+The ICI/DCN traffic and HBM read/write families stay blank under the nil
+convention until the NCCL attribution is ported.
 
 ``torch`` is imported lazily at ``open()``.
 """
@@ -36,7 +44,7 @@ from typing import Dict, List, Optional, Sequence
 from .. import fields as FF
 from ..types import (
     ChipArch, ChipCoords, ChipInfo, ClockInfo, HbmInfo,
-    P2PLink, P2PLinkType, PciInfo, TopologyInfo, VersionInfo,
+    P2PLink, P2PLinkType, PciInfo, TopologyInfo, VersionInfo, gpu_caps,
 )
 from .base import Backend, ChipNotFound, FieldValue, LibraryNotFound
 
@@ -67,7 +75,7 @@ class _StepTracker:
             self._last_ts = now
 
 
-#: fields served from the probes (and, in the reference, the trace)
+#: fields served from the trace and the probes
 _UTIL_FIELDS = frozenset(int(f) for f in (
     F.TENSORCORE_UTIL, F.HBM_BW_UTIL, F.NOT_IDLE_TIME, F.INFEED_UTIL,
     F.OUTFEED_UTIL, F.PROF_TENSORCORE_ACTIVE, F.PROF_MXU_ACTIVE,
@@ -99,6 +107,9 @@ class CudaBackend(Backend):
         self._probes_enabled = True
         self._steps = _StepTracker()
         self._last_not_idle: Dict[int, float] = {}
+        self._trace_enabled = os.environ.get("TPUMON_CUDA_TRACE", "1") != "0"
+        self._trace = None
+        self._trace_lock = threading.Lock()
 
     def open(self) -> None:
         if self._opened:
@@ -120,6 +131,12 @@ class CudaBackend(Backend):
             if eng is not None:
                 eng.abandon()
         self._probes = {}
+        # no profiler session may outlive the backend (it would end under
+        # the next one the process opens): close a session this thread
+        # holds and wait out the capture in flight
+        if self._trace is not None:
+            self._trace.quiesce()
+            self._trace = None
         self._opened = False
 
     def _dev(self, index: int) -> int:
@@ -144,9 +161,12 @@ class CudaBackend(Backend):
     # -- workload self-instrumentation ----------------------------------------
 
     def note_step(self) -> None:
-        """Record a workload step boundary; feeds PROF_STEP_TIME."""
+        """Record a workload step boundary; feeds PROF_STEP_TIME and closes
+        a trace capture this thread holds once its window has elapsed."""
 
         self._steps.note()
+        if self._trace is not None:
+            self._trace.poll()
 
     # -- inventory ------------------------------------------------------------
 
@@ -242,22 +262,122 @@ class CudaBackend(Backend):
                            "device probe failed: %r", sys.exc_info()[1])
             return None
 
-    # -- trace hooks (no trace engine yet) -------------------------------------
+    # -- profiler traces -------------------------------------------------------
 
-    def force_trace_capture(self, timeout_s: float = 30.0) -> bool:
-        """No profiler-trace engine in this backend yet: never captures."""
+    def _engine(self):
+        if self._trace is None:
+            # locked: two concurrent sweeps must not create two engines
+            with self._trace_lock:
+                if self._trace is None:
+                    from ..trace import TraceEngine
+                    self._trace = TraceEngine()
+        return self._trace
 
-        del timeout_s
-        return False
+    def _trace_sample(self, index: int):
+        """Latest measured :class:`tpumon_torch.trace.TraceSample` for a
+        device, or None (engine off / no capture yet / stale).  Closes an
+        elapsed session this thread holds; opens none (see
+        :meth:`_trace_schedule`)."""
+
+        if not self._trace_enabled:
+            return None
+        try:
+            return self._engine().peek(index)
+        except Exception:
+            from .. import log
+            log.warn_every("cuda.trace", 60.0,
+                           "trace sampling failed: %r", sys.exc_info()[1])
+            return None
+
+    def _trace_schedule(self, index: int) -> None:
+        """Open the engine's next capture on this thread when one is due.
+        A sweep calls it after its probe: inside a session the probe's
+        launches and readbacks run under the profiler's recording, slower
+        than at calibration, so that an idle card reads busy; and the
+        capture would record the probe's kernels."""
+
+        if not self._trace_enabled:
+            return
+        try:
+            self._engine().sample(index, wait=False)
+        except Exception:
+            from .. import log
+            log.warn_every("cuda.trace", 60.0,
+                           "trace sampling failed: %r", sys.exc_info()[1])
+
+    def force_trace_capture(self, timeout_s: float = 30.0,
+                            step=None) -> bool:
+        """Run one capture now on the calling thread, ``step`` called in a
+        loop inside its window (bench/report path: a deterministic family
+        count needs a fresh sample).  False when tracing is off or the
+        capture did not land."""
+
+        if not self._trace_enabled:
+            return False
+        return self._engine().capture_now(timeout_s, step=step)
 
     def trace_cost_stats(self) -> Optional[Dict[str, float]]:
-        return None
+        """Capture-cost counters for overhead attribution, or None before
+        the engine exists."""
+
+        if self._trace is None:
+            return None
+        st = self._trace.stats()
+        return {k: st[k] for k in ("captures_ok", "captures_failed",
+                                   "capture_wall_s", "capture_parse_s",
+                                   "capture_cost_ewma_s",
+                                   "capture_window_ms",
+                                   "effective_interval_s", "capturing")}
 
     def trace_capture_spans(self):
-        return []
+        """Recent capture (open→done) monotonic intervals, or []."""
+
+        if self._trace is None:
+            return []
+        return self._trace.capture_spans()
 
     def attribution_stats(self) -> Optional[Dict[str, object]]:
+        """The wire-byte attribution's cross-check: None until the NCCL
+        attribution is ported."""
+
         return None
+
+    def self_metric_lines(self, label: str = "") -> List[str]:
+        """Exporter hook: trace-engine health as scrape families (the
+        reference's ``tpumon_trace_*``): when captures stop landing, the
+        utilization families fall back to the probes, visibly."""
+
+        if self._trace is None:
+            return []
+        from ..exporter.promtext import render_family
+
+        st = self._trace.stats()
+        out: List[str] = []
+        for key, fam, ptype, help_txt in (
+                ("captures_ok", "tpumon_trace_captures_total", "counter",
+                 "Successful profiler captures since start."),
+                ("captures_failed", "tpumon_trace_capture_failures_total",
+                 "counter", "Failed profiler captures since start."),
+                ("disabled", "tpumon_trace_disabled", "gauge",
+                 "1 while capture backoff is active (probe fallback)."),
+                ("sample_age_s", "tpumon_trace_sample_age_seconds", "gauge",
+                 "Age of the freshest trace sample (-1 = none yet)."),
+                ("capture_window_ms", "tpumon_trace_capture_window_ms",
+                 "gauge",
+                 "Adaptive trace-window length: shrinks below the "
+                 "configured ceiling when a capture's measured cost "
+                 "(transfer + parse) exceeds its target."),
+                ("attribution_suspect", "tpumon_trace_attribution_suspect",
+                 "gauge",
+                 "1 when the ICI/DCN wire-byte attribution failed its "
+                 "physics-ceiling or timeline consistency gate."),
+                ("attribution_consistency",
+                 "tpumon_trace_attribution_consistency", "gauge",
+                 "Implied wire-seconds over observed collective-op "
+                 "seconds, worst device (<=1 self-consistent; -1 "
+                 "unknown).")):
+            out += render_family(fam, ptype, help_txt, label, st[key])
+        return out
 
     # -- metrics --------------------------------------------------------------
 
@@ -269,16 +389,44 @@ class CudaBackend(Backend):
         stats = self._hbm_stats(index)
         used_b = stats.get("used")
         total_b = stats.get("total") or 0
-        total_mib = total_b // MIB if total_b else None
+        caps = gpu_caps(self._properties(index).name)
+        total_mib = total_b // MIB if total_b else \
+            (caps.hbm_mib if caps else None)
         # the allocator keeps its own high-water mark, so unlike PJRT no
         # monitor-side peak tracking is needed
         peak_b = stats.get("peak")
 
         want_util = bool(_UTIL_FIELDS & set(field_ids))
-        sample = self._probe_sample(index) if want_util else None
+        # measured trace sample (preferred source) — None until the first
+        # capture lands; the probes then carry the fields
+        tr = self._trace_sample(index) if want_util else None
+        # with a fresh, non-empty, exact trace sample the probe dispatch
+        # (device work competing with the workload) is skipped, unless a
+        # requested field has no other source: step time for a workload
+        # that never note_step()s, and the HBM activity families (the
+        # profiler counts no bytes)
+        tr_full = tr is not None and tr.exact_categories and tr.n_ops > 0
+        probe_only_wanted = (
+            (int(F.PROF_STEP_TIME) in field_ids and
+             self._steps.ewma_us is None) or
+            int(F.PROF_HBM_ACTIVE) in field_ids or
+            int(F.HBM_BW_UTIL) in field_ids)
+        need_probe = want_util and (not tr_full or probe_only_wanted)
+        sample = self._probe_sample(index) if need_probe else None
+        if want_util:
+            self._trace_schedule(index)
+        # a capture that saw no device work while the probe reads busy
+        # missed it: distrust the trace for this sweep, never report idle
+        if (tr is not None and tr.n_ops == 0 and sample is not None
+                and sample.duty_est > self.NOT_IDLE_THRESHOLD):
+            tr = None
         mono = time.monotonic()
-        if sample is not None and sample.duty_est > self.NOT_IDLE_THRESHOLD:
+        if ((sample is not None and
+             sample.duty_est > self.NOT_IDLE_THRESHOLD) or
+                (tr is not None and tr.duty > self.NOT_IDLE_THRESHOLD)):
             self._last_not_idle[index] = mono
+        peak_tf = ((tr.peak_tflops if tr is not None and tr.peak_tflops
+                    else None) or (caps.bf16_tflops if caps else None))
 
         out: Dict[int, FieldValue] = {}
         for fid in field_ids:
@@ -295,22 +443,61 @@ class CudaBackend(Backend):
                 v = self._uuid(index)
             elif fid == int(F.CHIP_NAME):
                 v = self._properties(index).name
-            elif sample is None:
-                pass  # every field below is probe-served
             elif fid in _DUTY_FIELDS:
-                duty = sample.duty_est
-                v = (int(round(duty * 100))
-                     if fid == int(F.TENSORCORE_UTIL) else duty)
+                # measured trace duty beats the queue-delay estimate
+                duty = (tr.duty if tr is not None
+                        else sample.duty_est if sample is not None else None)
+                if duty is not None:
+                    v = (int(round(duty * 100))
+                         if fid == int(F.TENSORCORE_UTIL) else duty)
             elif fid == int(F.PROF_MXU_ACTIVE):
-                v = sample.mxu_active_est
-            elif fid == int(F.PROF_HBM_ACTIVE):
+                if tr is not None and tr.exact_categories:
+                    v = tr.mxu_frac
+                else:
+                    # both are lower bounds: the probe's dead-banded
+                    # headroom estimate, and a trace whose kernels were
+                    # named, not linked to their ops — take the tighter
+                    cands = [x for x in
+                             ((sample.mxu_active_est if sample is not None
+                               else None),
+                              (tr.mxu_frac if tr is not None else None))
+                             if x is not None]
+                    v = max(cands) if cands else None
+            elif fid == int(F.PROF_MXU_OCCUPANCY):
+                # achieved MXU FLOP rate over peak, per unit of MXU time
+                # (exact categories only: a lower-bound mxu_frac inflates it)
+                if (tr is not None and tr.exact_categories and
+                        tr.mxu_tflops is not None and peak_tf and
+                        tr.mxu_frac > 0.01):
+                    v = min(1.0, (tr.mxu_tflops / peak_tf) / tr.mxu_frac)
+            elif fid == int(F.PROF_ACHIEVED_TFLOPS):
+                if tr is not None and tr.achieved_tflops is not None:
+                    v = tr.achieved_tflops
+            elif fid == int(F.PROF_MFU):
+                if (tr is not None and tr.achieved_tflops is not None
+                        and peak_tf):
+                    v = min(1.0, tr.achieved_tflops / peak_tf)
+            elif fid == int(F.PROF_VECTOR_ACTIVE) and tr is not None:
+                v = tr.vector_frac       # trace-only: probes can't see it
+            elif fid == int(F.PROF_INFEED_STALL) and tr is not None:
+                v = tr.infeed_stall
+            elif fid == int(F.PROF_OUTFEED_STALL) and tr is not None:
+                v = tr.outfeed_stall
+            elif fid == int(F.INFEED_UTIL) and tr is not None:
+                v = int(round(tr.infeed_stall * 100))
+            elif fid == int(F.OUTFEED_UTIL) and tr is not None:
+                v = int(round(tr.outfeed_stall * 100))
+            elif fid == int(F.PROF_COLLECTIVE_STALL) and tr is not None:
+                v = tr.collective_stall
+            elif fid == int(F.PROF_HBM_ACTIVE) and sample is not None:
                 v = sample.hbm_active_est
-            elif fid == int(F.HBM_BW_UTIL):
+            elif fid == int(F.HBM_BW_UTIL) and sample is not None:
                 v = int(round(sample.hbm_active_est * 100))
             elif fid == int(F.NOT_IDLE_TIME):
-                last = self._last_not_idle.get(index)
-                v = int(mono - last) if last is not None else None
-            if fid == int(F.PROF_STEP_TIME):
+                if sample is not None or tr is not None:
+                    last = self._last_not_idle.get(index)
+                    v = int(mono - last) if last is not None else None
+            elif fid == int(F.PROF_STEP_TIME):
                 # real workload steps beat the probe latency
                 if self._steps.ewma_us is not None:
                     v = self._steps.ewma_us

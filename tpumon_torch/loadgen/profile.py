@@ -57,6 +57,7 @@ def main(argv=None) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from ..trace import profiler_session
     from . import model as M
     from .run import DEFAULT_BATCH, resolve_device, workload
 
@@ -71,7 +72,8 @@ def main(argv=None) -> int:
         params, loss = M.train_step(cfg, params, tokens)
     loss.item()
     wall_s = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profiler_session(), \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
             params, loss = M.train_step(cfg, params, tokens)

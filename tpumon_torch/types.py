@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import enum
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 
 class ChipArch(enum.Enum):
@@ -35,49 +35,29 @@ class ChipArch(enum.Enum):
     UNKNOWN = "unknown"
 
 
-#: public per-generation capability numbers:
-#: (HBM MiB, HBM GB/s, peak bf16 TFLOP/s).  Single source of truth for
-#: every backend (pjrt fallback caps, fake waveform scaling) — two
-#: hand-maintained copies silently drift.
-ARCH_CAPS: Dict["ChipArch", Tuple[int, float, float]] = {
-    ChipArch.V4: (32 * 1024, 1228.0, 275.0),
-    ChipArch.V5E: (16 * 1024, 819.0, 197.0),
-    ChipArch.V5P: (95 * 1024, 2765.0, 459.0),
-    ChipArch.V6E: (32 * 1024, 1638.0, 918.0),
-}
+class GpuCaps(NamedTuple):
+    """Public capability figures of one GPU model (the counterpart of the
+    reference's per-generation ``ARCH_CAPS`` entry)."""
 
-#: public per-generation ICI capability: (links per chip, per-chip
-#: aggregate interconnect bandwidth GB/s) — from the published
-#: interchip-interconnect figures (v4 2400 / v5e 1600 / v5p 4800 /
-#: v6e 3584 Gbps per chip).  The aggregate is the PHYSICS CEILING the
-#: trace-attributed ICI rate is sanity-checked against: an attribution
-#: that claims more bytes/s than every link flat-out can carry is a
-#: bug, not a measurement (the reference's NVLink bandwidth counters
-#: are physical and need no such proof; a modeled bound does).
-ARCH_ICI_CAPS: Dict["ChipArch", Tuple[int, float]] = {
-    ChipArch.V4: (6, 300.0),
-    ChipArch.V5E: (4, 200.0),
-    ChipArch.V5P: (6, 600.0),
-    ChipArch.V6E: (4, 448.0),
-}
+    hbm_mib: int
+    hbm_gbps: float
+    #: dense bf16 tensor-core peak (no sparsity)
+    bf16_tflops: float
 
-#: device-kind substrings -> generation (shared by the pjrt backend and
-#: the trace analyzer; profiler planes carry ``device_type_string`` in
-#: the same vocabulary as PJRT's ``device_kind``)
-_ARCH_BY_KIND = {
-    "v4": ChipArch.V4,
-    "v5 lite": ChipArch.V5E, "v5e": ChipArch.V5E, "v5litepod": ChipArch.V5E,
-    "v5p": ChipArch.V5P, "v5": ChipArch.V5P,
-    "v6 lite": ChipArch.V6E, "v6e": ChipArch.V6E,
+
+#: NVIDIA's public H100 data sheet, keyed on the name CUDA reports
+#: (``torch.cuda.get_device_name``).  A profiler trace carries no
+#: capability stats, so the trace engine's peaks come from here; an
+#: unknown card gets None and the fields needing a peak stay blank.
+GPU_CAPS: Dict[str, GpuCaps] = {
+    "NVIDIA H100 80GB HBM3": GpuCaps(80 * 1024, 3350.0, 989.0),  # SXM5
+    "NVIDIA H100 PCIe": GpuCaps(80 * 1024, 2000.0, 756.0),
+    "NVIDIA H100 NVL": GpuCaps(94 * 1024, 3900.0, 835.0),
 }
 
 
-def arch_from_kind(kind: str) -> "ChipArch":
-    k = kind.lower()
-    for key, arch in _ARCH_BY_KIND.items():
-        if key in k:
-            return arch
-    return ChipArch.UNKNOWN
+def gpu_caps(name: str) -> Optional[GpuCaps]:
+    return GPU_CAPS.get(name)
 
 
 @dataclass(frozen=True)
