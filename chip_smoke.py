@@ -6,6 +6,21 @@
 1. Prints the card's name and power limit (``nvidia-smi``) and builds the
    port's CUDA kernels from ``tpumon_torch/csrc`` (one ``nvcc`` per source,
    all started together, at first use).
+   Then the out-of-band NVML source (``tpumon_torch.backends.nvml``), one
+   line each: ``nvml abi`` compiles the backend's ABI probe against the
+   toolkit's ``nvml.h`` and holds every mirrored struct's size and field
+   offsets and every constant to the ctypes mirrors'; ``nvml check``
+   opens the backend on the device torch calls ``cuda:0`` (matched by
+   UUID) and holds it to one ``nvidia-smi -i <uuid>`` row (strings equal,
+   power limit within 1 W, temperature within 2 C, clocks within 5%,
+   memory total equal and used within 64 MiB, power draw within
+   max(15 W, 10%)), and counts the exporter's families one sweep fills
+   (at least 20); ``nvml cost`` sweeps the exporter's field list at 1 Hz
+   for 30 s on the idle card (each sweep's wall ms, the process's CPU
+   share); ``nvml load`` reads utilization under the ``mxu`` pattern
+   (>= 50, and <= 20 idle) beside the trace engine's duty, a 1 GiB
+   allocation in HBM used (>= 900 MiB more) and the energy counter's
+   mean power against the power reads' mean (within 15%).
 2. Holds each flash-attention kernel (forward, dQ, dK/dV) against its
    plain PyTorch version at the bench shapes (B*H=64, D=128, bf16): causal
    at S=255 padded to 256, as the model's loss runs it, and non-causal at
@@ -30,8 +45,9 @@
    (every element within one bf16 ulp of itself plus 8 * sqrt(iters) bf16
    unit roundoffs of the output's RMS: the two chains sum in different
    orders and part by rounding flips that later steps carry), which the
-   chain run one step short must fail.  Library yardsticks: ``copy_`` of
-   the same bytes, and the chained bf16 ``torch.matmul``.
+   chain run one step short must fail.  Library yardsticks: one call of
+   the stream's function, ``torch.add(c, x, alpha=1.0001)`` (``copy_`` of
+   the same bytes beside it), and the chained bf16 ``torch.matmul``.
 4. Holds ``flash_attention`` forward and backward, the model's entry to
    the kernels, against dense f32 attention at the bench shape (same
    tolerance), and one bench train step with flash against one of the
@@ -573,7 +589,10 @@ def stream_case(K, lib, shape) -> dict:
     """``hbm_stream`` at ``shape`` (f32): the kernel bit for bit equal to
     its plain version, a planted unwritten (256, 1024) block rejected, and
     its times; ``gbps`` is the bytes the pass must move over the kernel's
-    time, ``step_ms`` the chained pattern step on the host clock."""
+    time, ``step_ms`` the chained pattern step on the host clock.  The
+    library yardstick is one call of the same function,
+    ``torch.add(c, x, alpha=1.0001)`` with ``c`` a 0-dim device tensor of
+    0.25; ``copy_`` of the same bytes is timed beside it."""
 
     import torch
     from tpumon_torch import _build
@@ -595,6 +614,8 @@ def stream_case(K, lib, shape) -> dict:
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream().cuda_stream
     nbytes = 2 * x.numel() * 4
+    c = torch.tensor(0.25, device="cuda")
+    same = lambda: torch.add(c, x, alpha=1.0001)
     raw = lambda: _build.check(lib.tpumon_hbm_stream(
         x.data_ptr(), out.data_ptr(), x.numel(), stream), "hbm_stream")
     kernel_ms = time_ms(raw, 200)
@@ -609,9 +630,13 @@ def stream_case(K, lib, shape) -> dict:
         "step_ms": step_ms(K.hbm_stream, x, 500),
         "plain_ms": time_ms(lambda: K.hbm_stream_plain(x), 200),
         **bound(nbytes, 0),
-        "library_ms": time_ms(lambda: out.copy_(x), 200),
-        "library_device_ms": device_ms(lambda: out.copy_(x), 200),
-        "library_call": "torch.Tensor.copy_ of the same bytes",
+        "library_ms": time_ms(same, 200),
+        "library_device_ms": device_ms(same, 200),
+        "library_max_abs_err": max_err(same(), want),
+        "library_call": "torch.add(c, x, alpha=1.0001), c a 0-dim device "
+                        "tensor of 0.25",
+        "copy_ms": time_ms(lambda: out.copy_(x), 200),
+        "copy_device_ms": device_ms(lambda: out.copy_(x), 200),
     }
 
 
@@ -1103,6 +1128,307 @@ def trace_check(K, M, R, train_result) -> dict:
     return out
 
 
+# -- the out-of-band NVML source ---------------------------------------------
+
+#: where the CUDA toolkit's headers are (nvml.h ships with it)
+CUDA_INCLUDE = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                            "include")
+#: what ``nvml check`` queries, in this order
+SMI_QUERY = ("name,uuid,pci.bus_id,driver_version,power.limit,power.draw,"
+             "temperature.gpu,clocks.sm,clocks.mem,memory.used,memory.total")
+#: symbol groups each NVML phase reads through
+NVML_GROUPS = ("identity", "pci", "clocks", "power", "memory", "thermal",
+               "utilization", "field_values")
+
+
+def exporter_fields(fields) -> list:
+    """The exporter's families (``fields.EXPORTER_*``), one id each."""
+
+    return sorted({int(f) for f in (fields.EXPORTER_BASE_FIELDS
+                                    + fields.EXPORTER_PROFILING_FIELDS
+                                    + fields.EXPORTER_DCN_FIELDS)})
+
+
+def nvml_abi() -> dict:
+    """``nvml abi``: compile the port's ABI probe
+    (``backends.nvml.abi_probe_source``) against the toolkit's ``nvml.h``
+    with ``cc`` (``nvcc`` where there is none) into ``build/``, run it,
+    and hold every ``sizeof``, field offset and constant it prints to the
+    ctypes mirrors'."""
+
+    import shutil
+    from tpumon_torch.backends import nvml as N
+
+    header = os.path.join(CUDA_INCLUDE, "nvml.h")
+    if not os.path.exists(header):
+        raise AssertionError(f"no nvml.h at {header}")
+    out_dir = os.path.join(HERE, "build", "nvml_abi")
+    os.makedirs(out_dir, exist_ok=True)
+    src = os.path.join(out_dir, "nvml_abi.c")
+    exe = os.path.join(out_dir, "nvml_abi")
+    with open(src, "w") as f:
+        f.write(N.abi_probe_source())
+    cc = shutil.which("cc") or shutil.which("gcc") or "nvcc"
+    subprocess.run([cc, "-I", CUDA_INCLUDE, "-o", exe, src], check=True,
+                   capture_output=True, text=True, timeout=120)
+    got = N.parse_abi_probe(subprocess.run(
+        [exe], check=True, capture_output=True, text=True,
+        timeout=60).stdout)
+    want = N.abi_expected()
+    diff = {k: (got.get(k), v) for k, v in want.items() if got.get(k) != v}
+    if diff:
+        raise AssertionError(f"nvml.h (got) and the ctypes mirrors (want) "
+                             f"differ: {diff}")
+    return {"header": header, "compiler": os.path.basename(cc),
+            "checked": len(want)}
+
+
+def nvml_open(fields):
+    """The NVML backend, and the NVML index of the device torch calls
+    ``cuda:0``, matched by UUID (NVML orders by PCI bus and ignores
+    ``CUDA_VISIBLE_DEVICES``)."""
+
+    import torch
+    from tpumon_torch.backends.nvml import NvmlBackend
+
+    uuid = "GPU-" + str(torch.cuda.get_device_properties(0).uuid)
+    b = NvmlBackend()
+    b.open()
+    try:
+        missing = [g for g in NVML_GROUPS if g not in b.capabilities()]
+        if missing:
+            raise AssertionError(f"NVML symbol groups unresolved: {missing}")
+        for i in range(b.chip_count()):
+            if b.chip_info(i).uuid.lower() == uuid.lower():
+                return b, i
+        raise AssertionError(f"no NVML device has torch's cuda:0 UUID {uuid}")
+    except BaseException:
+        b.close()
+        raise
+
+
+def smi(uuid: str) -> dict:
+    """One ``nvidia-smi -i <uuid> --query-gpu=SMI_QUERY`` row; a value it
+    does not show ("[N/A]", "[Not Supported]") is None."""
+
+    row = subprocess.run(
+        ["nvidia-smi", "-i", uuid, f"--query-gpu={SMI_QUERY}",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    vals = [v.strip() for v in row.split(",")]
+    return {k: (None if v.startswith("[") else v)
+            for k, v in zip(SMI_QUERY.split(","), vals)}
+
+
+def nvml_check(fields, b, i) -> dict:
+    """``nvml check``: the NVML backend against one ``nvidia-smi`` row of
+    the same device, read between two NVML reads of the dynamic fields
+    (each value must agree with one of them): strings equal, power limit
+    within 1 W, temperature within 2 C, clocks within 5%, memory total
+    equal and used within 64 MiB, power draw within max(15 W, 10%).  A
+    value nvidia-smi does not show is not compared.  Also one sweep over
+    the whole catalog: ``families_nonblank`` counts the exporter's
+    families with a value (at least 20)."""
+
+    F = fields.F
+    info = b.chip_info(i)
+    dyn = [int(F.POWER_USAGE), int(F.CORE_TEMP), int(F.TENSORCORE_CLOCK),
+           int(F.HBM_CLOCK), int(F.HBM_USED), int(F.HBM_TOTAL)]
+    before = b.read_fields(i, dyn)
+    row = smi(info.uuid)
+    after = b.read_fields(i, dyn)
+
+    def near(key, fid, tol):
+        if row[key] is None:
+            return True
+        want = float(row[key])
+        reads = [r[fid] for r in (before, after)]
+        return any(v is not None and abs(v - want) <= tol(want)
+                   for v in reads)
+
+    checks = {
+        "name": row["name"] is None or row["name"] == info.name,
+        "uuid": row["uuid"] is None or row["uuid"] == info.uuid,
+        "pci.bus_id": (row["pci.bus_id"] is None or
+                       row["pci.bus_id"].lower() == info.pci.bus_id.lower()),
+        "driver_version": (row["driver_version"] is None or
+                           row["driver_version"] == b.versions().driver),
+        "power.limit": (row["power.limit"] is None or (
+            info.power_limit_w is not None and
+            abs(float(row["power.limit"]) - info.power_limit_w) <= 1.0)),
+        "temperature.gpu": near("temperature.gpu", int(F.CORE_TEMP),
+                                lambda w: 2.0),
+        "clocks.sm": near("clocks.sm", int(F.TENSORCORE_CLOCK),
+                          lambda w: 0.05 * w),
+        "clocks.mem": near("clocks.mem", int(F.HBM_CLOCK),
+                           lambda w: 0.05 * w),
+        "memory.total": near("memory.total", int(F.HBM_TOTAL),
+                             lambda w: 0.0),
+        "memory.used": near("memory.used", int(F.HBM_USED),
+                            lambda w: 64.0),
+        "power.draw": near("power.draw", int(F.POWER_USAGE),
+                           lambda w: max(15.0, 0.1 * w)),
+    }
+    sweep = b.read_fields(i, sorted(f for f in fields.CATALOG
+                                    if f < fields.BURST_ID_BASE))
+    families = exporter_fields(fields)
+    nonblank = [fields.CATALOG[f].prom_name for f in families
+                if sweep.get(f) is not None]
+    out = {"nvml_index": i, "smi": row, "nvml_before": before,
+           "nvml_after": after, "checks": checks,
+           "capabilities": b.capabilities(),
+           "families_nonblank": len(nonblank), "families": nonblank,
+           "fields_nonblank": sum(v is not None for v in sweep.values()),
+           "sweep": sweep}
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed or len(nonblank) < 20:
+        raise AssertionError(f"nvml check failed {failed} (families "
+                             f"non-blank {len(nonblank)}): {out}")
+    return out
+
+
+def nvml_load(K, fields, b, i) -> dict:
+    """``nvml load``: under the ``mxu`` pattern on a worker thread, NVML's
+    utilization (203) reads >= 50, and <= 20 idle (the least of three
+    reads); a 1 GiB allocation raises HBM used (251) by >= 900 MiB; the
+    energy counter's (156) rise over a window, over the window, lies
+    within 15% of the mean of the power reads (155) in it; and the trace
+    engine's duty of a capture in the same window is printed beside
+    203."""
+
+    import torch
+    from tpumon_torch.trace import TraceEngine
+
+    F = fields.F
+    UTIL, USED, POWER, ENERGY = (int(F.TENSORCORE_UTIL), int(F.HBM_USED),
+                                 int(F.POWER_USAGE), int(F.TOTAL_ENERGY))
+
+    def read(fid):
+        v = b.read_fields(i, [fid])[fid]
+        if v is None:
+            raise AssertionError(f"NVML field {fid} blank")
+        return v
+
+    idle = []
+    for _ in range(3):
+        time.sleep(0.4)
+        idle.append(read(UTIL))
+    eng = TraceEngine(capture_ms=800.0, min_interval_s=0.0)
+    try:
+        with worker_load(K, "mxu"):
+            time.sleep(1.0)
+            t0, e0 = time.monotonic(), read(ENERGY)
+            power, busy = [], []
+            while time.monotonic() - t0 < 4.0:
+                power.append(read(POWER))
+                busy.append(read(UTIL))
+                time.sleep(0.1)
+            e1, t1 = read(ENERGY), time.monotonic()
+            if not eng.capture_now(timeout_s=120.0):
+                raise AssertionError(f"trace capture failed: "
+                                     f"{eng.last_error}")
+            duty = max(s.duty for s in eng.latest().values())
+    finally:
+        eng.quiesce()
+    gc.collect()
+    torch.cuda.empty_cache()  # the allocation below must reach the driver
+    torch.cuda.synchronize()
+    before = read(USED)
+    buf = torch.ones((256, 1024, 1024), device="cuda")  # 1 GiB
+    torch.cuda.synchronize()
+    after = read(USED)
+    del buf
+    torch.cuda.empty_cache()
+    energy_w = (e1 - e0) / 1000.0 / (t1 - t0)
+    mean_w = sum(power) / len(power)
+    m = {"idle_util": min(idle), "idle_utils": idle,
+         "busy_util": max(busy), "busy_utils": busy,
+         "trace_duty": duty, "hbm_used_before": before,
+         "hbm_used_after": after, "energy_w": energy_w,
+         "power_mean_w": mean_w, "power_reads": len(power),
+         "energy_over_power": energy_w / mean_w}
+    ok = (m["busy_util"] >= 50 and m["idle_util"] <= 20
+          and after - before >= 900
+          and abs(energy_w - mean_w) <= 0.15 * mean_w)
+    if not ok:
+        raise AssertionError(f"nvml load out of order: {m}")
+    return m
+
+
+#: ``nvml cost``: sweeps at 1 Hz for this many seconds
+COST_SECONDS = 30
+
+
+def nvml_cost(fields, b, i) -> dict:
+    """``nvml cost``: dmon-style sweeps of the exporter's field list (the
+    watch layer's ``update_all``, as ``tpumon_torch.cli.dmon`` runs it)
+    at 1 Hz for ``COST_SECONDS`` s on an otherwise idle card: each
+    sweep's wall ms and the process's CPU share over the run
+    (``time.process_time`` over wall time, every thread of the process
+    counted); ``call_ms``, the wall ms a sweep spends in each NVML entry
+    point and its calls per sweep (a clock read around each call: an
+    NVML call is an ioctl, and its wall time is the CPU it holds)."""
+
+    import tpumon_torch
+    from tpumon_torch.cli.common import ticker
+
+    spent, calls = {}, {}
+    fn = b._fn
+    originals = dict(fn)
+    for name, f in originals.items():
+        if f is None or name == "nvmlEventSetWait_v2":
+            continue
+
+        def timed(*args, _f=f, _name=name):
+            t = time.perf_counter()
+            try:
+                return _f(*args)
+            finally:
+                spent[_name] = spent.get(_name, 0.0) + \
+                    time.perf_counter() - t
+                calls[_name] = calls.get(_name, 0) + 1
+        fn[name] = timed
+    h = tpumon_torch.init(backend=b)
+    try:
+        fg = h.watches.create_field_group(exporter_fields(fields), "cost")
+        cg = h.watches.create_chip_group([i], "cost")
+        h.watches.watch_fields(cg, fg, update_freq_us=1_000_000)
+        wall_ms = []
+        c0, t0 = time.process_time(), time.monotonic()
+        for _ in ticker(1.0, COST_SECONDS):
+            s0 = time.monotonic()
+            h.watches.update_all(wait=True)
+            wall_ms.append((time.monotonic() - s0) * 1e3)
+        cpu_s, wall_s = time.process_time() - c0, time.monotonic() - t0
+        vals = h.watches.latest_values(i, fg.field_ids)
+    finally:
+        tpumon_torch.shutdown()
+        fn.update(originals)
+    n = len(wall_ms)
+    ranked = sorted(wall_ms)
+    return {"sweeps": len(wall_ms), "fields": len(fg.field_ids),
+            "nonblank": sum(v is not None for v in vals.values()),
+            "sweep_ms": wall_ms, "sweep_ms_median": ranked[len(ranked) // 2],
+            "sweep_ms_max": ranked[-1], "wall_s": wall_s, "cpu_s": cpu_s,
+            "cpu_share": cpu_s / wall_s,
+            "call_ms": {k: [round(v / n * 1e3, 3), calls[k] // n]
+                        for k, v in sorted(spent.items(),
+                                           key=lambda kv: -kv[1])}}
+
+
+def nvml_phases(K, fields) -> None:
+    """The four NVML phases, each printed on its own line."""
+
+    print("nvml abi: " + json.dumps(nvml_abi()))
+    b, i = nvml_open(fields)
+    try:
+        print("nvml check: " + json.dumps(nvml_check(fields, b, i)))
+        print("nvml cost: " + json.dumps(nvml_cost(fields, b, i)))
+        print("nvml load: " + json.dumps(nvml_load(K, fields, b, i)))
+    finally:
+        b.close()
+
+
 def main() -> int:
     import torch
 
@@ -1134,6 +1460,8 @@ def main() -> int:
         if any(w in line for w in ("registers", "spill", "Compiling entry",
                                    "wgmma", "warning")):
             print("  " + line.strip()[:160])
+
+    nvml_phases(K, fields)
 
     rows = kernel_cases(K, lib)
     fwd = rows["flash_fwd"]

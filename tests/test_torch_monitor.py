@@ -687,6 +687,12 @@ def _port_files():
 def test_port_imports_neither_jax_nor_tpumon():
     files = _port_files()
     assert len(files) > 15
+    # the out-of-band source and the host surfaces are among them
+    for mod in ("backends/nvml.py", "kmsg.py", "procscan.py", "evidence.py",
+                "device.py", "process_info.py", "cli/common.py",
+                "cli/dmon.py", "cli/deviceinfo.py", "cli/topology.py",
+                "cli/processinfo.py", "cli/diag.py"):
+        assert os.path.join(REPO, "tpumon_torch", mod) in files, mod
     bad = []
     for path in files:
         with open(path, encoding="utf-8") as fh:

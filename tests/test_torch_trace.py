@@ -23,8 +23,10 @@
 """
 
 import json
+import os
 import threading
 import time
+import types
 
 import numpy as np
 import pytest
@@ -1096,3 +1098,88 @@ def test_cli_unknown_card_still_rendered(tmp_path, capsys):
     assert "device GPU:0 (Some GPU)" in out
     assert "compute  peak n/a TFLOP/s  achieved n/a" in out
     assert "top kernels" not in out
+
+
+# ---- the close: CUPTI torn down, and settled before the next session --------
+
+class _Prof:
+    """A stand-in session: records the teardown switch as Kineto reads it."""
+
+    def __init__(self, activities):
+        self.activities = set(activities)
+        self.seen = "unread"
+        self.profiler = types.SimpleNamespace(kineto_results="result")
+
+    def stop(self):
+        self.seen = os.environ.get(T.TEARDOWN_ENV)
+
+
+@pytest.mark.parametrize("explicit,activities,seen,marked", [
+    (None, ("CPU", "CUDA"), "1", True),     # the engine's own close
+    (None, ("CUDA",), "1", True),
+    ("0", ("CPU", "CUDA"), "0", False),     # torch's CUDA-graph workaround
+    ("1", ("CPU", "CUDA"), "1", True),
+    (None, ("CPU",), "1", False),           # no CUDA activity, no CUPTI
+])
+def test_engine_close_tears_cupti_down_unless_told(monkeypatch, explicit,
+                                                   activities, seen, marked):
+    from torch.profiler import ProfilerActivity
+
+    monkeypatch.setattr(T, "_torn_at", None)
+    syncs = []
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: syncs.append(1))
+    if explicit is None:
+        monkeypatch.delenv(T.TEARDOWN_ENV, raising=False)
+    else:
+        monkeypatch.setenv(T.TEARDOWN_ENV, explicit)
+    prof = _Prof(getattr(ProfilerActivity, a) for a in activities)
+    assert T.TraceEngine._stop_profiler(prof) == "result"
+    assert prof.seen == seen
+    assert os.environ.get(T.TEARDOWN_ENV) == explicit  # restored
+    assert (T._torn_at is not None) == marked
+    # a torn-down close keeps calling into CUDA on its own thread for a
+    # moment: the finalize lands there
+    assert bool(syncs) == marked
+
+
+def test_settle_waits_out_the_arm_time_then_synchronizes(monkeypatch):
+    syncs = []
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda: syncs.append(time.monotonic()))
+    monkeypatch.setattr(T, "TEARDOWN_ARM_S", 0.08)
+    t0 = time.monotonic()
+    monkeypatch.setattr(T, "_torn_at", t0)
+    T.settle_teardown()
+    assert syncs and syncs[-1] - t0 >= 0.08  # the last call after arming
+    assert T._torn_at is None
+    n = len(syncs)
+    T.settle_teardown()                      # nothing torn down since
+    assert len(syncs) == n
+    # long after the close: one synchronize is the whole cost
+    monkeypatch.setattr(T, "_torn_at", time.monotonic() - 10.0)
+    T.settle_teardown()
+    assert len(syncs) == n + 1
+
+
+def test_settle_without_a_cuda_context_does_nothing(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: False)
+    monkeypatch.setattr(T, "_torn_at", time.monotonic())
+    T.settle_teardown()
+    assert T._torn_at is None
+
+
+def test_profiler_session_settles_before_and_marks_a_torn_close(
+        monkeypatch):
+    calls = []
+    monkeypatch.setattr(T, "settle_teardown", lambda: calls.append("settle"))
+    monkeypatch.setattr(T, "_torn_at", None)
+    monkeypatch.setenv(T.TEARDOWN_ENV, "1")
+    with T.profiler_session():
+        calls.append("session")
+    assert calls == ["settle", "session"] and T._torn_at is not None
+    monkeypatch.setattr(T, "_torn_at", None)
+    monkeypatch.delenv(T.TEARDOWN_ENV)
+    with T.profiler_session():
+        pass
+    assert T._torn_at is None  # Kineto's default keeps CUPTI up

@@ -11,18 +11,24 @@ tpumon_torch.loadgen.run``.
 
 This module is the trimmed façade: a refcounted :func:`init` /
 :func:`shutdown` pair guarding one process-wide :class:`Handle` that
-carries what the exporter and the runner use (backend, watches,
-inventory, topology, versions).
+carries what the exporter, the runner and the sample CLIs use (backend,
+watches, inventory, status, topology, versions, per-process accounting,
+introspection).  The default backend is ``auto``: the out-of-band NVML
+source (:mod:`.backends.nvml`).
 """
 
 from __future__ import annotations
 
 import threading
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 from .backends import (Backend, BackendError, ChipNotFound, LibraryNotFound,
                        make_backend)
-from .types import ChipInfo, TopologyInfo, VersionInfo
+from .device import Chip
+from .introspect import SelfMonitor
+from .process_info import WATCH_WARMUP_S, ProcessWatcher
+from .types import (ChipInfo, ChipStatus, EngineStatus, ProcessInfo,
+                    TopologyInfo, VersionInfo)
 from .watch import WatchManager
 
 __version__ = "0.1.0"
@@ -36,12 +42,48 @@ class Handle:
         self.backend = backend
         self._own_backend = own_backend
         self.watches = WatchManager(backend, clock=clock)
+        self._clock = clock
+        self._chips: Dict[int, Chip] = {}
+        self._processes: Optional[ProcessWatcher] = None
+        self.self_monitor = SelfMonitor()
+
+    def chip_count(self) -> int:
+        return self.backend.chip_count()
 
     def supported_chips(self) -> List[int]:
         return self.backend.supported_chips()
 
     def chip_info(self, index: int) -> ChipInfo:
         return self.backend.chip_info(index)
+
+    def chip_status(self, index: int) -> ChipStatus:
+        # one Chip per index, so its throttle state reads counter deltas
+        c = self._chips.get(index)
+        if c is None:
+            c = self._chips[index] = Chip(self.backend, index)
+        return c.status()
+
+    @property
+    def processes(self) -> ProcessWatcher:
+        if self._processes is None:
+            self._processes = ProcessWatcher(self.backend, self.watches,
+                                             clock=self._clock)
+        return self._processes
+
+    def watch_pid_fields(self, pids: Optional[List[int]] = None) -> None:
+        self.processes.watch_pid_fields(pids)
+
+    def get_process_info(self, pid: int) -> ProcessInfo:
+        return self.processes.get_process_info(pid)
+
+    def introspect(self) -> EngineStatus:
+        stats = self.watches.stats()
+        st = self.self_monitor.status()
+        sps = (stats.get("sweeps", 0.0) * len(self.supported_chips())
+               / max(st.uptime_s, 1e-9))
+        return EngineStatus(memory_kb=st.memory_kb,
+                            cpu_percent=st.cpu_percent, pid=st.pid,
+                            uptime_s=st.uptime_s, samples_per_second=sps)
 
     def versions(self) -> VersionInfo:
         return self.backend.versions()
@@ -101,7 +143,8 @@ def shutdown() -> None:
 
 
 __all__ = [
-    "__version__", "init", "shutdown", "Handle",
+    "__version__", "init", "shutdown", "Handle", "WATCH_WARMUP_S",
+    "ProcessInfo",
     "Backend", "BackendError", "ChipNotFound", "LibraryNotFound",
     "make_backend",
 ]

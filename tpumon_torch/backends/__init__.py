@@ -1,9 +1,14 @@
-"""Backend registry.
+"""Backend registry and auto-detection.
 
-Slice 1 of the port has one metrics source: the in-process CUDA backend
-(:class:`.cuda.CudaBackend`).  A missing CUDA runtime surfaces as
-:class:`~.base.LibraryNotFound`, the ``NVML_ERROR_LIBRARY_NOT_FOUND``
-analog.
+Two metrics sources: the out-of-band NVML backend
+(:class:`.nvml.NvmlBackend`, the counterpart of the reference's
+``libtpu``), and the in-process CUDA backend (:class:`.cuda.CudaBackend`,
+the counterpart of ``pjrt``) for a monitor embedded in the workload.
+``auto`` picks NVML, and never the in-process backend unless
+``TPUMON_ALLOW_INPROCESS=1``: it would initialize CUDA in the monitor's
+process.  A missing source surfaces as :class:`~.base.LibraryNotFound`,
+the ``NVML_ERROR_LIBRARY_NOT_FOUND`` analog, so a host without a GPU
+degrades cleanly.
 """
 
 from __future__ import annotations
@@ -20,11 +25,37 @@ __all__ = [
 
 
 def make_backend(name: Optional[str] = None, **kwargs) -> Backend:
-    """Construct a backend by name: ``cuda``, or None (= env
-    ``TPUMON_BACKEND``, default ``cuda``)."""
+    """Construct a backend by name: ``nvml``, ``cuda``, ``auto`` or None
+    (= env ``TPUMON_BACKEND``, default ``auto``).  ``auto`` returns an
+    opened backend."""
 
-    name = (name or os.environ.get("TPUMON_BACKEND") or "cuda").lower()
+    name = (name or os.environ.get("TPUMON_BACKEND") or "auto").lower()
+    if name == "nvml":
+        from .nvml import NvmlBackend
+        return NvmlBackend(**kwargs)
     if name == "cuda":
         from .cuda import CudaBackend
         return CudaBackend(**kwargs)
-    raise BackendError(f"unknown backend {name!r} (this port knows: cuda)")
+    if name == "auto":
+        candidates = ["nvml"]
+        if os.environ.get("TPUMON_ALLOW_INPROCESS") == "1":
+            candidates.append("cuda")
+        errors = []
+        for candidate in candidates:
+            try:
+                b = make_backend(candidate, **kwargs)
+                b.open()
+                if b.chip_count() == 0:
+                    # NVML initializes on a host with no GPU; auto wants a
+                    # usable source, so fall through (an explicit nvml
+                    # still serves the empty inventory)
+                    b.close()
+                    errors.append(f"{candidate}: opened with zero devices")
+                    continue
+                return b
+            except (LibraryNotFound, BackendError, ImportError) as e:
+                errors.append(f"{candidate}: {e}")
+        raise LibraryNotFound("no GPU metrics source found on this host; "
+                              "tried: " + "; ".join(errors))
+    raise BackendError(f"unknown backend {name!r} (this port knows: nvml, "
+                       f"cuda, auto)")

@@ -492,6 +492,61 @@ def analyze_kineto_file(path: str, window_s: float
 
 # -- periodic capture engine ---------------------------------------------------
 
+#: Kineto's switch: "1" tears CUPTI down when a session closes, "0" keeps
+#: it up (torch 2.11 on the card keeps it up unless told)
+TEARDOWN_ENV = "TEARDOWN_CUPTI"
+#: how long after a torn-down close Kineto's teardown thread may still be
+#: arming the finalize (a 50 ms wait was once too short on the card)
+TEARDOWN_ARM_S = 0.5
+#: how long the closing thread keeps making CUDA calls after a torn-down
+#: close, so that the finalize lands there, long before any next session
+CLOSE_SETTLE_S = 0.05
+#: monotonic time of the last close that tore CUPTI down and has not been
+#: settled (guarded by PROFILER_LOCK: every session opens and closes
+#: under it)
+_torn_at: Optional[float] = None
+
+
+def mark_teardown() -> None:
+    """Record a close that tore CUPTI down (caller holds PROFILER_LOCK)."""
+
+    global _torn_at
+    _torn_at = time.monotonic()
+
+
+def _synchronize_until(deadline: float) -> None:
+    """Synchronize the device at least once, and until ``deadline``."""
+
+    import torch
+
+    while True:
+        torch.cuda.synchronize()
+        if time.monotonic() >= deadline:
+            return
+        time.sleep(0.005)
+
+
+def settle_teardown() -> None:
+    """Let the last torn-down close land before a session opens (caller
+    holds PROFILER_LOCK).  Kineto tears CUPTI down on a thread of its own,
+    which arms a finalize that runs in the exit callback of the process's
+    next CUDA runtime or driver call; a session opened before that call
+    has its recording ended by the finalize and keeps no device records
+    (``python -m tpumon_torch.loadgen.capture_effect --teardown-pairs``).
+    So once ``TEARDOWN_ARM_S`` has passed since the close, one device
+    synchronize makes that call; a workload stepping in between has
+    made it long before, and then this costs one synchronize."""
+
+    global _torn_at
+    if _torn_at is None:
+        return
+    import torch
+
+    if torch.cuda.is_initialized():  # no CUDA context, no CUPTI
+        _synchronize_until(_torn_at + TEARDOWN_ARM_S)
+    _torn_at = None
+
+
 #: held by every profiler session the port opens: the engine's captures
 #: (never waiting: a capture that finds it taken fails and backs off) and
 #: any other session (:func:`profiler_session`)
@@ -507,7 +562,10 @@ def profiler_session(timeout_s: float = 60.0) -> Iterator[None]:
         raise RuntimeError("another profiler session of this process stayed "
                            f"open for {timeout_s} s")
     try:
+        settle_teardown()
         yield
+        if os.environ.get(TEARDOWN_ENV) == "1":
+            mark_teardown()
     finally:
         PROFILER_LOCK.release()
 
@@ -805,14 +863,32 @@ class TraceEngine:
     @staticmethod
     def _stop_profiler(prof):
         """Close a session on its thread (synchronizing the device, so the
-        window's kernels are all recorded) -> its Kineto result.  Kineto
-        leaves CUPTI up after it, its default.  Tearing CUPTI down
-        (``TEARDOWN_CUPTI=1``) spared the eager bench step the slowdown a
-        session leaves behind (``python -m
-        tpumon_torch.loadgen.capture_effect``), but a later session on an
-        H100 then recorded no device activity (PERF.md, Findings)."""
+        window's kernels are all recorded) -> its Kineto result.
 
-        prof.stop()
+        CUPTI is torn down at the close (:data:`TEARDOWN_ENV`), unless the
+        environment sets the switch itself (torch sets it to 0 when it
+        profiles CUDA graphs).  Left up, CUPTI costs the eager bench step
+        a tenth to a fifth of its rate for the rest of the process,
+        whatever the session recorded (``python -m
+        tpumon_torch.loadgen.capture_effect``); torn down, the next
+        session must not open before the teardown has landed
+        (:func:`settle_teardown`)."""
+
+        explicit = os.environ.get(TEARDOWN_ENV)
+        if explicit is None:
+            os.environ[TEARDOWN_ENV] = "1"
+        try:
+            prof.stop()
+        finally:
+            if explicit is None:
+                os.environ.pop(TEARDOWN_ENV, None)
+        from torch.profiler import ProfilerActivity
+
+        # a session without the CUDA activity never brought CUPTI up
+        if ((explicit or "1") == "1" and
+                ProfilerActivity.CUDA in prof.activities):
+            mark_teardown()
+            _synchronize_until(time.monotonic() + CLOSE_SETTLE_S)
         return prof.profiler.kineto_results
 
     def _collect(self, result, window_s: float) -> Dict[int, TraceSample]:
@@ -853,6 +929,7 @@ class TraceEngine:
                 raise RuntimeError("profiler busy: another session of this "
                                    "process is open")
             try:
+                settle_teardown()
                 prof = self._start_profiler()
             except BaseException:
                 PROFILER_LOCK.release()
