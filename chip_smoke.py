@@ -15,9 +15,10 @@
    power limit within 1 W, temperature within 2 C, clocks within 5%,
    memory total equal and used within 64 MiB, power draw within
    max(15 W, 10%)), and counts the exporter's families one sweep fills
-   (at least 20); ``nvml cost`` sweeps the exporter's field list at 1 Hz
-   for 30 s on the idle card (each sweep's wall ms, the process's CPU
-   share); ``nvml load`` reads utilization under the ``mxu`` pattern
+   (at least 20); ``nvml cost`` is ``loadgen.bench_gpu``'s 1 Hz tier: the
+   exporter's field list swept at 1 Hz for 20 s on the idle card (each
+   sweep's wall ms, the process's CPU share, the wall ms a sweep spends
+   in each NVML entry point); ``nvml load`` reads utilization under the ``mxu`` pattern
    (>= 50, and <= 20 idle) beside the trace engine's duty, a 1 GiB
    allocation in HBM used (>= 900 MiB more) and the energy counter's
    mean power against the power reads' mean (within 15%).
@@ -53,11 +54,16 @@
    tolerance), and one bench train step with flash against one of the
    dense model: the q, k, v and o projections' updates (relative
    Frobenius error at most ``UPDATE_RTOL``) and the loss (rtol 2e-2, the
-   JAX package's own check).
+   JAX package's own check).  ``graph check``: the bench train step as a
+   CUDA graph (``loadgen.graph.GraphStep``, what the runner steps on the
+   card) against the eager step from the same parameters, 5 steps each
+   after the graph's warm-up: every loss within rtol 2e-2, the q, k, v
+   and o updates within ``UPDATE_RTOL``, no growth of allocated memory
+   over the replays; each step's wall ms beside the other's.
 5. Drives each main path in-process with the launch counts set to 0 just
    before it and read just after: ``tpumon_torch.loadgen.run --size bench
-   --self-monitor --seconds 10`` (fails unless the loss is finite) and
-   ``--pattern P --self-monitor --seconds 3`` for each of mxu, hbm, mixed,
+   --self-monitor --seconds 3`` (the graph step; fails unless the loss is
+   finite) and ``--pattern P --self-monitor --seconds 2`` for each of mxu, hbm, mixed,
    flash and conv.  Each fails unless steps ran, the HBM families (used
    and total) were non-blank, the path's kernels launched and the
    runner's forced trace capture landed; the train run also unless the
@@ -80,14 +86,18 @@
    mxu share >= 0.9 of it, records counted and the capability table's
    peak; under ``hbm`` duty >= 0.8 and an mxu share <= 0.1, at least 0.5
    below the ``mxu`` one; under ``conv`` (stepped on the session's
-   thread) duty > 0.15 and mxu above vector; the bench train step
-   stepped on the session's thread with exact categories and its
-   measured mxu-category FLOPs per step within [0.5, 1.6] of
-   ``train_step_dot_flops`` (the attention products run in the port's
-   kernels, which count no FLOPs: about 0.95); 0 failed captures.  The
-   reference's bar of an mxu share above 0.05 of the train window is
-   printed and not asserted: the eager step is host-bound (its device is
-   busy about 7% of a profiled step).
+   thread) duty > 0.15 and mxu above vector; the bench train step's
+   graph replayed on the session's thread (its program recorded by
+   ``GraphStep.describe``) with exact categories, an mxu share above 0.05
+   of the window (the reference's bar) and its measured mxu-category
+   FLOPs per step within [0.5, 1.6] of ``train_step_dot_flops`` (the
+   attention products run in the port's kernels, which count no FLOPs:
+   about 0.95); 0 failed captures; then 10 captures of 100 ms over the
+   replays, each by a new engine, each closed with CUPTI torn down: every
+   one must land and read the replays exactly.  ``bench gpu``: the paired
+   protocol (``loadgen.bench_gpu``), 4 pairs on the train cell (2 s
+   windows) and on the ``mxu`` pattern (1 s): the verdict records, with
+   every ``OVERHEAD_RECORD_KEYS`` key.
 8. Prints each load pattern's busy share (its kernel's device time over
    its self-monitored step), then one ``{"kernels": [...], "backward":
    {...}}`` line.  ``backward`` is the port's whole backward pass, the dQ
@@ -830,8 +840,8 @@ def drive_path(K, R, fields, path: str) -> tuple:
     non-blank and every kernel of the path launched.  Returns (its JSON
     result, the counts)."""
 
-    args = (["--size", "bench", "--seconds", "10"] if path == "train"
-            else ["--pattern", path, "--seconds", "3"])
+    args = (["--size", "bench", "--seconds", "3"] if path == "train"
+            else ["--pattern", path, "--seconds", "2"])
     for name in K.LAUNCHES:
         K.LAUNCHES[name] = 0
     buf = io.StringIO()
@@ -1024,6 +1034,7 @@ def trace_check(K, M, R, train_result) -> dict:
     loads whose shape is known.  Returns the trace check's line."""
 
     import torch
+    from tpumon_torch.loadgen.graph import GraphStep
     from tpumon_torch.trace import TraceEngine
     from tpumon_torch.types import gpu_caps
 
@@ -1073,17 +1084,18 @@ def trace_check(K, M, R, train_result) -> dict:
 
         cfg, params, tokens = R.workload("bench", R.DEFAULT_BATCH,
                                          torch.device("cuda"))
-        for _ in range(3):
-            params, loss = M.train_step(cfg, params, tokens)
-        loss.item()
+        graph = GraphStep(cfg, params, tokens)
+        prog = graph.describe()
 
         def train():
-            nonlocal params, loss
-            params, loss = M.train_step(cfg, params, tokens)
+            # the runner's step: a replay, drained every 32 steps
+            _, loss = graph.step()
             steps[0] += 1
+            if steps[0] % 32 == 0:
+                loss.item()
 
         tr = capture(train)
-        loss.item()
+        graph.loss.item()
         mxu_flops = tr.mxu_tflops * tr.window_s * 1e12 \
             if tr.mxu_tflops is not None else 0.0
         want = M.train_step_dot_flops(cfg, R.DEFAULT_BATCH)
@@ -1091,10 +1103,13 @@ def trace_check(K, M, R, train_result) -> dict:
         out["train"] = dict(row(tr), steps=steps[0],
                             mxu_flops_per_step=per_step,
                             dot_flops_per_step=want,
-                            flop_ratio=per_step / want)
+                            flop_ratio=per_step / want,
+                            graph_records=len(prog.names),
+                            graph_records_matched=prog.matched)
         st = eng.stats()
     finally:
         eng.quiesce()
+    out["torn_down_captures"] = torn_captures(graph, steps)
     out["captures_ok"] = st["captures_ok"]
     out["captures_failed"] = st["captures_failed"]
     out["capture_wall_s"] = st["capture_wall_s"]
@@ -1116,15 +1131,155 @@ def trace_check(K, M, R, train_result) -> dict:
         "conv mxu > vector": conv["mxu_frac"] > conv["vector_frac"],
         "train exact": train["exact"] is True,
         "train flop ratio in [0.5, 1.6]": 0.5 <= train["flop_ratio"] <= 1.6,
+        "train mxu > 0.05 of the window": train["mxu_frac"] > 0.05,
         "0 failed captures": out["captures_failed"] == 0,
+        f">= {TORN_CAPTURES} torn-down captures over replays":
+            out["torn_down_captures"]["landed"] >= TORN_CAPTURES,
     }
+    out["bars"] = bars
     failed = [k for k, ok in bars.items() if not ok]
     if failed:
         raise AssertionError(f"trace check failed {failed}: {out}")
-    # the reference's bar for a step the device paces; the eager bench
-    # step is paced by the host (PERF.md, Findings): reported, and
-    # not asserted
-    out["train mxu > 0.05 of the window"] = train["mxu_frac"] > 0.05
+    return out
+
+
+#: torn-down captures the trace check takes over the graph's replays, and
+#: their window (about 50 replays each)
+TORN_CAPTURES = 10
+TORN_WINDOW_MS = 100.0
+
+
+def torn_captures(graph, steps) -> dict:
+    """TORN_CAPTURES captures of TORN_WINDOW_MS, each by a new
+    ``TraceEngine`` over the graph's replays (each engine closes with
+    CUPTI torn down, and the next session opens after the teardown has
+    landed): every one must land, record the replays and read them
+    exactly.  Returns their count and each capture's duty, mxu share and
+    records."""
+
+    from tpumon_torch.trace import TraceEngine
+
+    def step():
+        _, loss = graph.step()
+        steps[0] += 1
+        if steps[0] % 32 == 0:
+            loss.item()
+
+    rows = []
+    for _ in range(TORN_CAPTURES):
+        eng = TraceEngine(capture_ms=TORN_WINDOW_MS, min_interval_s=0.0)
+        steps[0] = 0
+        try:
+            ok = eng.capture_now(timeout_s=60.0, step=step)
+        finally:
+            eng.quiesce()
+        s = eng.latest().get(0)
+        if not (ok and s is not None and s.n_ops > 0
+                and s.exact_categories):
+            raise AssertionError(f"torn-down capture {len(rows)} over graph "
+                                 f"replays: landed {ok}, {eng.last_error}, "
+                                 f"{s}")
+        rows.append({"duty": s.duty, "mxu_frac": s.mxu_frac,
+                     "n_ops": s.n_ops, "steps": steps[0]})
+    graph.loss.item()
+    return {"landed": len(rows), "captures": rows}
+
+
+def graph_check(M, R) -> dict:
+    """The bench train step as a CUDA graph against the eager step from
+    the same parameters and tokens: after the graph's warm-up steps (the
+    eager side takes as many), 5 steps each; every step's loss within
+    rtol 2e-2 (the JAX package's own check), the q, k, v and o
+    projections' updates over the 5 steps within UPDATE_RTOL (relative
+    Frobenius error), and no growth of allocated memory over the
+    replays.  Also the wall ms a step of each (50 steps, a scalar read
+    every 32)."""
+
+    import torch
+    from tpumon_torch.loadgen.graph import GraphStep
+
+    cfg, params, tokens = R.workload("bench", R.DEFAULT_BATCH,
+                                     torch.device("cuda"))
+    eager = M.tree_map(lambda t: t.clone(), params)
+    graph = GraphStep(cfg, params, tokens)
+    for _ in range(graph.steps):
+        eager, _ = M.train_step(cfg, eager, tokens)
+    names = ("wqkv", "wo")
+    start = {side: {n: p["layers"][n].detach().clone() for n in names}
+             for side, p in (("graph", graph.params), ("eager", eager))}
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    losses = {"graph": [], "eager": []}
+    for _ in range(5):
+        losses["graph"].append(graph.step()[1].item())
+        eager, loss = M.train_step(cfg, eager, tokens)
+        losses["eager"].append(loss.item())
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    updates = {}
+    for side, p in (("graph", graph.params), ("eager", eager)):
+        up = {n: p["layers"][n].detach() - start[side][n] for n in names}
+        wq, wk, wv = up["wqkv"].chunk(3, dim=-1)
+        updates[side] = {"wq": wq, "wk": wk, "wv": wv, "wo": up["wo"]}
+    rel = {n: ((updates["graph"][n] - b).norm() / b.norm()).item()
+           for n, b in updates["eager"].items()}
+
+    def wall_ms(step) -> float:
+        t0 = time.perf_counter()
+        for i in range(50):
+            _, loss = step()
+            if i % 32 == 31:
+                loss.item()
+        loss.item()
+        return (time.perf_counter() - t0) / 50 * 1e3
+
+    out = {"losses": losses, "update_rel_err": rel,
+           "allocated_growth_bytes": mem1 - mem0,
+           "graph_launches_a_step": graph.launches,
+           "eager_step_ms": wall_ms(
+               lambda: M.train_step(cfg, eager, tokens)),
+           "graph_step_ms": wall_ms(graph.step)}
+    if not all(math.isclose(g, e, rel_tol=2e-2)
+               for g, e in zip(losses["graph"], losses["eager"])):
+        raise AssertionError(f"graph losses part from eager ones: {out}")
+    if not max(rel.values()) <= UPDATE_RTOL:
+        raise AssertionError(f"graph updates part from eager ones: {out}")
+    if mem1 > mem0:
+        raise AssertionError(f"replays grew allocated memory: {out}")
+    return out
+
+
+#: the smoke's short paired runs, cell -> seconds a window: the train
+#: cell and one pattern, each BENCH_PAIRS pairs
+BENCH_CELLS = {"train": 2.0, "mxu": 1.0}
+BENCH_PAIRS = 4
+
+
+def bench_gpu_check() -> dict:
+    """``bench gpu``: the paired protocol (``loadgen.bench_gpu``) on the
+    train cell and one pattern, each record with every
+    ``OVERHEAD_RECORD_KEYS`` key from BENCH_PAIRS completed pairs."""
+
+    import torch
+    from tpumon_torch.loadgen import bench_gpu as B
+    from tpumon_torch.loadgen.run import device_name
+
+    out = {}
+    dev = torch.device("cuda")
+    for cell, seconds in BENCH_CELLS.items():
+        work = B.warm_workload(cell, dev, warmup_s=1.0)
+        rec = B.paired(work, BENCH_PAIRS, seconds,
+                       device_name=device_name(dev))
+        del work
+        missing = [k for k in B.OVERHEAD_RECORD_KEYS if k not in rec]
+        if missing or rec["pairs_completed"] != BENCH_PAIRS:
+            raise AssertionError(f"bench gpu {cell}: keys {missing} missing "
+                                 f"or pairs short: {rec}")
+        out[cell] = {k: rec.get(k) for k in (
+            *B.OVERHEAD_RECORD_KEYS, "bare_steps_per_sec",
+            "monitored_steps_per_sec", "overhead_monitored_faster",
+            "overhead_underpowered", "overhead_insufficient_pairs",
+            "families_nonblank")}
     return out
 
 
@@ -1139,14 +1294,6 @@ SMI_QUERY = ("name,uuid,pci.bus_id,driver_version,power.limit,power.draw,"
 #: symbol groups each NVML phase reads through
 NVML_GROUPS = ("identity", "pci", "clocks", "power", "memory", "thermal",
                "utilization", "field_values")
-
-
-def exporter_fields(fields) -> list:
-    """The exporter's families (``fields.EXPORTER_*``), one id each."""
-
-    return sorted({int(f) for f in (fields.EXPORTER_BASE_FIELDS
-                                    + fields.EXPORTER_PROFILING_FIELDS
-                                    + fields.EXPORTER_DCN_FIELDS)})
 
 
 def nvml_abi() -> dict:
@@ -1188,20 +1335,16 @@ def nvml_open(fields):
     ``cuda:0``, matched by UUID (NVML orders by PCI bus and ignores
     ``CUDA_VISIBLE_DEVICES``)."""
 
-    import torch
     from tpumon_torch.backends.nvml import NvmlBackend
+    from tpumon_torch.loadgen.bench_gpu import nvml_index
 
-    uuid = "GPU-" + str(torch.cuda.get_device_properties(0).uuid)
     b = NvmlBackend()
     b.open()
     try:
         missing = [g for g in NVML_GROUPS if g not in b.capabilities()]
         if missing:
             raise AssertionError(f"NVML symbol groups unresolved: {missing}")
-        for i in range(b.chip_count()):
-            if b.chip_info(i).uuid.lower() == uuid.lower():
-                return b, i
-        raise AssertionError(f"no NVML device has torch's cuda:0 UUID {uuid}")
+        return b, nvml_index(b)
     except BaseException:
         b.close()
         raise
@@ -1271,7 +1414,9 @@ def nvml_check(fields, b, i) -> dict:
     }
     sweep = b.read_fields(i, sorted(f for f in fields.CATALOG
                                     if f < fields.BURST_ID_BASE))
-    families = exporter_fields(fields)
+    from tpumon_torch.loadgen.bench_gpu import exporter_fields
+
+    families = exporter_fields()
     nonblank = [fields.CATALOG[f].prom_name for f in families
                 if sweep.get(f) is not None]
     out = {"nvml_index": i, "smi": row, "nvml_before": before,
@@ -1356,64 +1501,19 @@ def nvml_load(K, fields, b, i) -> dict:
 
 
 #: ``nvml cost``: sweeps at 1 Hz for this many seconds
-COST_SECONDS = 30
+COST_SECONDS = 20
 
 
 def nvml_cost(fields, b, i) -> dict:
-    """``nvml cost``: dmon-style sweeps of the exporter's field list (the
-    watch layer's ``update_all``, as ``tpumon_torch.cli.dmon`` runs it)
-    at 1 Hz for ``COST_SECONDS`` s on an otherwise idle card: each
-    sweep's wall ms and the process's CPU share over the run
-    (``time.process_time`` over wall time, every thread of the process
-    counted); ``call_ms``, the wall ms a sweep spends in each NVML entry
-    point and its calls per sweep (a clock read around each call: an
-    NVML call is an ioctl, and its wall time is the CPU it holds)."""
+    """``nvml cost``: ``loadgen.bench_gpu.tier_1hz``, the exporter's field
+    list swept through the NVML backend at 1 Hz for ``COST_SECONDS`` s on
+    an otherwise idle card: each sweep's wall ms, the process's CPU share
+    over the run, and the wall ms a sweep spends in each NVML entry
+    point (``call_ms``)."""
 
-    import tpumon_torch
-    from tpumon_torch.cli.common import ticker
+    from tpumon_torch.loadgen.bench_gpu import exporter_fields, tier_1hz
 
-    spent, calls = {}, {}
-    fn = b._fn
-    originals = dict(fn)
-    for name, f in originals.items():
-        if f is None or name == "nvmlEventSetWait_v2":
-            continue
-
-        def timed(*args, _f=f, _name=name):
-            t = time.perf_counter()
-            try:
-                return _f(*args)
-            finally:
-                spent[_name] = spent.get(_name, 0.0) + \
-                    time.perf_counter() - t
-                calls[_name] = calls.get(_name, 0) + 1
-        fn[name] = timed
-    h = tpumon_torch.init(backend=b)
-    try:
-        fg = h.watches.create_field_group(exporter_fields(fields), "cost")
-        cg = h.watches.create_chip_group([i], "cost")
-        h.watches.watch_fields(cg, fg, update_freq_us=1_000_000)
-        wall_ms = []
-        c0, t0 = time.process_time(), time.monotonic()
-        for _ in ticker(1.0, COST_SECONDS):
-            s0 = time.monotonic()
-            h.watches.update_all(wait=True)
-            wall_ms.append((time.monotonic() - s0) * 1e3)
-        cpu_s, wall_s = time.process_time() - c0, time.monotonic() - t0
-        vals = h.watches.latest_values(i, fg.field_ids)
-    finally:
-        tpumon_torch.shutdown()
-        fn.update(originals)
-    n = len(wall_ms)
-    ranked = sorted(wall_ms)
-    return {"sweeps": len(wall_ms), "fields": len(fg.field_ids),
-            "nonblank": sum(v is not None for v in vals.values()),
-            "sweep_ms": wall_ms, "sweep_ms_median": ranked[len(ranked) // 2],
-            "sweep_ms_max": ranked[-1], "wall_s": wall_s, "cpu_s": cpu_s,
-            "cpu_share": cpu_s / wall_s,
-            "call_ms": {k: [round(v / n * 1e3, 3), calls[k] // n]
-                        for k, v in sorted(spent.items(),
-                                           key=lambda kv: -kv[1])}}
+    return tier_1hz(b, i, exporter_fields(), COST_SECONDS)
 
 
 def nvml_phases(K, fields) -> None:
@@ -1475,6 +1575,7 @@ def main() -> int:
     rows.update(load_kernel_cases(K, lib))
     print("attention check, excess: " + json.dumps(attention_check(K)))
     print("model check: " + json.dumps(model_check(M)))
+    print("graph check: " + json.dumps(graph_check(M, R)))
 
     for name, _, _ in KERNELS:
         rows[name]["launches"] = 0
@@ -1492,6 +1593,7 @@ def main() -> int:
     print("semantics check: " + json.dumps(semantics_check(K, fields)))
     print("trace check: " + json.dumps(trace_check(K, M, R,
                                                    results["train"])))
+    print("bench gpu: " + json.dumps(bench_gpu_check()))
 
     print(json.dumps({"kernels": [rows[n] for n, _, _ in KERNELS],
                       "backward": backward}))

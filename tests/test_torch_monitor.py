@@ -691,7 +691,8 @@ def test_port_imports_neither_jax_nor_tpumon():
     for mod in ("backends/nvml.py", "kmsg.py", "procscan.py", "evidence.py",
                 "device.py", "process_info.py", "cli/common.py",
                 "cli/dmon.py", "cli/deviceinfo.py", "cli/topology.py",
-                "cli/processinfo.py", "cli/diag.py"):
+                "cli/processinfo.py", "cli/diag.py", "loadgen/graph.py",
+                "loadgen/bench_gpu.py"):
         assert os.path.join(REPO, "tpumon_torch", mod) in files, mod
     bad = []
     for path in files:
@@ -705,6 +706,7 @@ def test_port_imports_neither_jax_nor_tpumon():
             else:
                 continue
             for name in names:
-                if name.split(".")[0] in ("jax", "jaxlib", "tpumon"):
+                if name.split(".")[0] in ("jax", "jaxlib", "tpumon",
+                                          "bench"):
                     bad.append(f"{os.path.relpath(path, REPO)}: {name}")
     assert bad == []

@@ -283,6 +283,91 @@ def test_not_supported_is_asked_once(backend, fake):
     assert backend.read_fields(0, [int(F.CORE_TEMP)])[int(F.CORE_TEMP)] == 41
 
 
+def _spy(backend, name, log):
+    """Record each call of one entry point (its field-values requests as
+    (field id, scope) lists)."""
+
+    real = backend._fn[name]
+
+    def spy(*args):
+        if name == "nvmlDeviceGetFieldValues":
+            log.append([(v.fieldId, v.scopeId) for v in args[2][:args[1]]])
+        else:
+            log.append(args[1:-1])
+        return real(*args)
+
+    backend._fn[name] = spy
+
+
+LINK_AND_ENERGY = (F.TOTAL_ENERGY, F.ICI_LINKS_UP, F.ICI_LINK_STATE,
+                   F.ICI_CRC_ERRORS, F.ICI_LINK_CRC_ERRORS)
+
+
+def test_one_field_values_request_a_sweep(backend):
+    """The energy counter (field 83), the NVLink states (field 165, one
+    entry a link), the violation counters and the memory temperature
+    come in ONE field-values request a read; the old per-link and energy
+    entry points are not called.  Until the links are known every link
+    NVML may have is asked; a link that answered NOT_SUPPORTED is not
+    asked again."""
+
+    reqs, states, energy = [], [], []
+    _spy(backend, "nvmlDeviceGetFieldValues", reqs)
+    _spy(backend, "nvmlDeviceGetNvLinkState", states)
+    _spy(backend, "nvmlDeviceGetTotalEnergyConsumption", energy)
+    for _ in range(2):
+        assert backend.read_fields(1, [int(f) for f in DEVICE1]) == {
+            int(f): v for f, v in DEVICE1.items()}
+    assert len(reqs) == 2 and states == [] and energy == []
+    first, second = (set(r) for r in reqs)
+    assert {(N.NVML_FI_DEV_NVLINK_GET_STATE, link)
+            for link in range(N.NVML_NVLINK_MAX_LINKS)} <= first
+    assert {(N.NVML_FI_DEV_TOTAL_ENERGY_CONSUMPTION, 0),
+            (N.NVML_FI_DEV_MEMORY_TEMP, 0)} <= first
+    assert {(f, s) for f, s in second
+            if f == N.NVML_FI_DEV_NVLINK_GET_STATE} == {
+        (N.NVML_FI_DEV_NVLINK_GET_STATE, link) for link in range(4)}
+
+
+def test_field_reads_equal_the_old_calls(backend):
+    """The field-values reads of link state and energy give what the old
+    per-call reads give."""
+
+    ids = [int(f) for f in LINK_AND_ENERGY]
+    by_fields = backend.read_fields(0, ids)
+    backend._fn["nvmlDeviceGetFieldValues"] = None   # the old calls only
+    assert backend.read_fields(0, ids) == by_fields
+    assert by_fields[int(F.TOTAL_ENERGY)] == 987654321
+    assert by_fields[int(F.ICI_LINK_STATE)] == [1, 1, 0, 0]
+
+
+@pytest.mark.parametrize("field,old", [
+    (N.NVML_FI_DEV_TOTAL_ENERGY_CONSUMPTION,
+     "nvmlDeviceGetTotalEnergyConsumption"),
+    (N.NVML_FI_DEV_NVLINK_GET_STATE, "nvmlDeviceGetNvLinkState"),
+])
+def test_not_supported_field_falls_back_once(backend, fake, field, old):
+    """A field the driver answers NOT_SUPPORTED is asked once; its values
+    come from the old entry point from then on, every read."""
+
+    fake.fake_nvml_set_rc(f"field:{field}".encode(),
+                          NVML_ERROR_NOT_SUPPORTED)
+    reqs, olds = [], []
+    _spy(backend, "nvmlDeviceGetFieldValues", reqs)
+    _spy(backend, old, olds)
+    ids = [int(f) for f in LINK_AND_ENERGY]
+    for _ in range(3):
+        assert backend.read_fields(1, ids) == {
+            int(f): DEVICE1[f] for f in LINK_AND_ENERGY}
+    asked = [r for r in reqs if any(f == field for f, _ in r)]
+    assert len(asked) == 1 and len(reqs) == 3
+    if field == N.NVML_FI_DEV_NVLINK_GET_STATE:
+        # the first read probes every link, then the four the fake has
+        assert len(olds) == N.NVML_NVLINK_MAX_LINKS + 2 * 4
+    else:
+        assert len(olds) == 3
+
+
 def test_lost_gpu_drops_the_chip_from_a_bulk_read(backend, fake):
     fake.fake_nvml_set_rc(b"nvmlDeviceGetClockInfo", NVML_ERROR_GPU_IS_LOST)
     with pytest.raises(ChipNotFound):

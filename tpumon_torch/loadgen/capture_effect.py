@@ -4,7 +4,8 @@ of the session leaves it so?
     python -m tpumon_torch.loadgen.capture_effect [--rounds 10]
         [--seconds 2] [--legs engine,torn,...] [--teardown-pairs 0]
 
-In ONE process, the bench train step (batch 8, a scalar read every 32
+In ONE process, the bench train step as the runner steps it on the card
+(a CUDA graph, :class:`.graph.GraphStep`; batch 8, a scalar read every 32
 steps) is timed in windows of ``--seconds``: three windows before any
 profiler session of the process has opened (``never``); then, after one
 capture that pays the profiler's one-time initialization, ``--rounds``
@@ -88,18 +89,17 @@ def main(argv=None) -> int:
 
     from ..trace import (PROFILER_LOCK, TEARDOWN_ENV, TraceEngine,
                          mark_teardown, profiler_session)
-    from . import model as M
+    from .graph import GraphStep
     from .run import DEFAULT_BATCH, resolve_device, workload
 
     if TEARDOWN_ENV in os.environ:
         raise SystemExit(f"{TEARDOWN_ENV} is set: the legs set it themselves")
-    cfg, params, tokens = workload("bench", DEFAULT_BATCH,
-                                   resolve_device("cuda"))
-    state = {"params": params, "loss": None, "n": 0}
+    graph = GraphStep(*workload("bench", DEFAULT_BATCH,
+                                resolve_device("cuda")))
+    state = {"loss": None, "n": 0}
 
     def step() -> None:
-        state["params"], state["loss"] = M.train_step(cfg, state["params"],
-                                                      tokens)
+        _, state["loss"] = graph.step()
         state["n"] += 1
         if state["n"] % 32 == 0:
             state["loss"].item()

@@ -19,6 +19,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import sys
 import time
 
@@ -159,6 +160,210 @@ def tensor_leaves(state):
             yield from tensor_leaves(part)
 
 
+class Workload:
+    """What the runner steps: the bench train step (a
+    :class:`.graph.GraphStep` on a CUDA device, :func:`.model.train_step`
+    on the CPU) or a load pattern (:func:`.kernels.make_pattern`), with a
+    barrier that drains the steps in flight."""
+
+    def __init__(self, pattern: str, size: str = "bench",
+                 batch: int = DEFAULT_BATCH, device=None) -> None:
+        from . import kernels as K
+
+        self.pattern = pattern
+        self.loss = None
+        #: the train step's CUDA graph (None eager or for a pattern)
+        self.graph = None
+        if pattern == "train":
+            from . import model as M
+            from .graph import GraphStep
+
+            cfg, params, tokens = workload(size, batch, device)
+            if tokens.device.type == "cuda":
+                self.graph = GraphStep(cfg, params, tokens)
+                self._train = self.graph.step
+            else:
+                self._train = lambda: M.train_step(cfg, params, tokens)
+        else:
+            self._step, self.state = K.make_pattern(pattern, device=device)
+
+    def step(self) -> None:
+        if self.pattern == "train":
+            _, self.loss = self._train()
+        else:
+            self.state = self._step(self.state)
+
+    def sync(self) -> None:
+        """A host-visible barrier.  Train: a scalar read of the loss, whose
+        step N depends on every prior step's parameters; a pattern: one
+        scalar read from each tensor of the state (the mixed pattern
+        writes its two tensors in turn)."""
+
+        if self.pattern == "train":
+            self.loss.item()
+        else:
+            for leaf in tensor_leaves(self.state):
+                leaf.reshape(-1)[0].item()
+
+    def final_loss(self):
+        return self.loss.item() if self.loss is not None else None
+
+
+def run_window(work: Workload, seconds: float, sync_every: int = 32,
+               self_monitor: bool = False, monitor_output=None,
+               device_name: str = "cpu", final_capture: bool = True) -> dict:
+    """Step ``work`` for ``seconds`` and return the runner's JSON result.
+    With ``self_monitor`` the process samples its own CUDA device through
+    the port's backend and exporter at 1 Hz while stepping, started for
+    this window (after a warm-up of its own: probe calibration, a sweep, a
+    forced trace capture) and shut down after it, after a last sweep
+    whose non-blank families the result counts; ``final_capture`` forces
+    a fresh capture before that sweep, so the count does not depend on
+    whether a capture landed in the window (the paired bench's windows
+    skip it: the warm-up's sample is still fresh, and only the window's
+    steps/s are compared)."""
+
+    exporter = None
+    h = None
+    monitor_samples = 0
+    note_step = lambda: None  # noqa: E731
+    if self_monitor:
+        import tpumon_torch
+        from tpumon_torch.exporter.exporter import TpuExporter
+        if (work.graph is not None and
+                os.environ.get("TPUMON_CUDA_TRACE", "1") != "0"):
+            # what a replay runs, for the trace engine (once a process)
+            work.graph.describe()
+        h = tpumon_torch.init(backend_name="cuda")
+        # profiling=True: the utilization/step-time families are what the
+        # embedded path measures; dcn=True reads blank on one host and the
+        # renderer omits blank families
+        exporter = TpuExporter(h, interval_ms=1000, profiling=True,
+                               dcn=True, output_path=monitor_output)
+        # feed real step boundaries to the backend: PROF_STEP_TIME then
+        # reports the workload's own EWMA, not a probe proxy
+        backend_note = getattr(h.backend, "note_step", None)
+        if callable(backend_note):
+            note_step = backend_note
+
+    def capture_while_stepping() -> bool:
+        """One forced trace capture while THIS thread keeps stepping: the
+        session records the ops of the thread that opens it, so the
+        capture opens here and the steps run inside its window."""
+
+        extra = 0
+
+        def one_step() -> None:
+            nonlocal extra
+            work.step()
+            note_step()
+            extra += 1
+            if sync_every > 0 and extra % sync_every == 0:
+                work.sync()
+
+        ok = h.backend.force_trace_capture(timeout_s=30.0, step=one_step)
+        work.sync()
+        return ok
+
+    # first step outside the timed loop; the probes calibrate here too,
+    # so the measured window pays sweep cost, not set-up cost
+    work.step()
+    work.sync()
+    if exporter is not None:
+        warmup = getattr(h.backend, "warmup_probes", None)
+        if callable(warmup):
+            warmup(0)
+        exporter.sweep()
+        # absorb the FIRST trace capture into warm-up: it pays the
+        # profiler's one-time initialization, and the window should
+        # measure the steady state (in-window captures stay recorded in
+        # monitor_cost)
+        capture_while_stepping()
+
+    def trace_cost():
+        return (h.backend.trace_cost_stats() or {}) \
+            if exporter is not None else {}
+
+    steps = 0
+    sweep_s = 0.0          # wall spent inside inline sweeps (hot loop)
+    blocks = []            # (start, end, n_steps) executed-work blocks
+    #                        between sync barriers, for the within-run
+    #                        capture-step-cost estimator
+    cost0 = trace_cost()   # capture-cost counters at window start
+    t0 = time.monotonic()
+    next_sample = t0
+    block_start, block_steps = t0, 0
+    while time.monotonic() - t0 < seconds:
+        work.step()
+        note_step()
+        steps += 1
+        block_steps += 1
+        if sync_every > 0 and steps % sync_every == 0:
+            work.sync()
+            if exporter is not None:
+                now = time.monotonic()
+                blocks.append((block_start, now, block_steps))
+                block_start, block_steps = now, 0
+        if exporter is not None and time.monotonic() >= next_sample:
+            s0 = time.monotonic()
+            exporter.sweep()
+            sweep_s += time.monotonic() - s0
+            monitor_samples += 1
+            next_sample += 1.0
+    work.sync()  # drain the (bounded) in-flight tail before timing stops
+    elapsed = time.monotonic() - t0
+    if exporter is not None and block_steps:
+        blocks.append((block_start, time.monotonic(), block_steps))
+    # snapshot BEFORE the forced end-of-run capture: only in-window cost
+    # may be attributed to the measured steps/sec
+    cost1 = trace_cost()
+    win_spans = (h.backend.trace_capture_spans()
+                 if exporter is not None else [])
+
+    family_stats = None
+    if exporter is not None:
+        import tpumon_torch
+        from tpumon_torch.exporter.promtext import parse_families
+        try:
+            # one FRESH forced capture while load still runs, so the
+            # non-blank family count does not depend on whether a
+            # periodic capture landed in the window
+            captured = capture_while_stepping() if final_capture else None
+            # one final sweep: which families carry REAL (non-blank)
+            # samples on this device?
+            counts = parse_families(exporter.sweep())
+        finally:
+            tpumon_torch.shutdown()
+        nonblank = sorted(k for k, v in counts.items()
+                          if k.startswith("tpu_") and v > 0)
+        family_stats = {"families_nonblank": len(nonblank),
+                        "families": nonblank,
+                        "capture_forced": captured,
+                        "monitor_cost": monitor_cost(
+                            cost0, cost1, sweep_s, elapsed, blocks,
+                            win_spans, t0)}
+
+    result = {
+        "pattern": work.pattern,
+        "steps": steps,
+        "seconds": round(elapsed, 3),
+        "steps_per_sec": round(steps / max(elapsed, 1e-9), 3),
+        "final_loss": work.final_loss(),
+        "monitor_sweeps": monitor_samples,
+        "device": device_name,
+    }
+    if family_stats is not None:
+        result.update(family_stats)
+    return result
+
+
+def device_name(device) -> str:
+    import torch
+
+    return (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="tpumon-torch-loadgen",
                                 description=__doc__)
@@ -189,175 +394,22 @@ def main(argv=None) -> int:
         p.error(f"--pattern {args.pattern}: not yet ported "
                 f"(ported: {', '.join(PORTED)})")
 
-    import torch
-
-    from . import kernels as K
-    from . import model as M
-
     device = resolve_device(args.device)
-    if args.pattern == "train":
-        cfg, params, tokens = workload(args.size, args.batch, device)
-    else:
-        pattern_step, pattern_state = K.make_pattern(args.pattern,
-                                                     device=device)
-
-    exporter = None
-    h = None
-    monitor_samples = 0
-    note_step = lambda: None  # noqa: E731
-    if args.self_monitor:
-        import tpumon_torch
-        from tpumon_torch.exporter.exporter import TpuExporter
-        h = tpumon_torch.init(backend_name="cuda")
-        # profiling=True: the utilization/step-time families are what the
-        # embedded path measures; dcn=True reads blank on one host and the
-        # renderer omits blank families
-        exporter = TpuExporter(h, interval_ms=1000, profiling=True,
-                               dcn=True, output_path=args.monitor_output)
-        # feed real step boundaries to the backend: PROF_STEP_TIME then
-        # reports the workload's own EWMA, not a probe proxy
-        backend_note = getattr(h.backend, "note_step", None)
-        if callable(backend_note):
-            note_step = backend_note
-
-    loss = None
-    if args.pattern == "train":
-        def do_step():
-            nonlocal params, loss
-            params, loss = M.train_step(cfg, params, tokens)
-
-        def sync():
-            # a scalar device->host read is a real barrier: the loss of
-            # step N depends on every prior step's params
-            loss.item()
-    else:
-        def do_step():
-            nonlocal pattern_state
-            pattern_state = pattern_step(pattern_state)
-
-        def sync():
-            # one scalar read from each tensor of the state drains them
-            # all: the mixed pattern writes its two tensors in turn
-            for leaf in tensor_leaves(pattern_state):
-                leaf.reshape(-1)[0].item()
-
-    def capture_while_stepping() -> bool:
-        """One forced trace capture while THIS thread keeps stepping: the
-        session records the ops of the thread that opens it, so the
-        capture opens here and the steps run inside its window."""
-
-        extra = 0
-
-        def one_step() -> None:
-            nonlocal extra
-            do_step()
-            note_step()
-            extra += 1
-            if args.sync_every > 0 and extra % args.sync_every == 0:
-                sync()
-
-        ok = h.backend.force_trace_capture(timeout_s=30.0, step=one_step)
-        sync()
-        return ok
-
-    # first step outside the timed loop; the probes calibrate here too,
-    # so the measured window pays sweep cost, not set-up cost
-    do_step()
-    sync()
-    if exporter is not None:
-        warmup = getattr(h.backend, "warmup_probes", None)
-        if callable(warmup):
-            warmup(0)
-        exporter.sweep()
-        # absorb the FIRST trace capture into warm-up: it pays the
-        # profiler's one-time initialization, and the window should
-        # measure the steady state (in-window captures stay recorded in
-        # monitor_cost)
-        capture_while_stepping()
-
-    def trace_cost():
-        return (h.backend.trace_cost_stats() or {}) \
-            if exporter is not None else {}
-
-    steps = 0
-    sweep_s = 0.0          # wall spent inside inline sweeps (hot loop)
-    blocks = []            # (start, end, n_steps) executed-work blocks
-    #                        between sync barriers, for the within-run
-    #                        capture-step-cost estimator
-    cost0 = trace_cost()   # capture-cost counters at window start
-    t0 = time.monotonic()
-    next_sample = t0
-    block_start, block_steps = t0, 0
-    while time.monotonic() - t0 < args.seconds:
-        do_step()
-        note_step()
-        steps += 1
-        block_steps += 1
-        if args.sync_every > 0 and steps % args.sync_every == 0:
-            sync()
-            if exporter is not None:
-                now = time.monotonic()
-                blocks.append((block_start, now, block_steps))
-                block_start, block_steps = now, 0
-        if exporter is not None and time.monotonic() >= next_sample:
-            s0 = time.monotonic()
-            exporter.sweep()
-            sweep_s += time.monotonic() - s0
-            monitor_samples += 1
-            next_sample += 1.0
-    sync()  # drain the (bounded) in-flight tail before timing stops
-    elapsed = time.monotonic() - t0
-    if exporter is not None and block_steps:
-        blocks.append((block_start, time.monotonic(), block_steps))
-    # snapshot BEFORE the forced end-of-run capture: only in-window cost
-    # may be attributed to the measured steps/sec
-    cost1 = trace_cost()
-    win_spans = (h.backend.trace_capture_spans()
-                 if exporter is not None else [])
-
-    family_stats = None
-    if exporter is not None:
-        import tpumon_torch
-        from tpumon_torch.exporter.promtext import parse_families
-        # one FRESH forced capture while load still runs, so the non-blank
-        # family count does not depend on whether a periodic capture
-        # landed in the window
-        captured = capture_while_stepping()
-        # one final sweep: which families carry REAL (non-blank) samples
-        # on this device?
-        counts = parse_families(exporter.sweep())
-        nonblank = sorted(k for k, v in counts.items()
-                          if k.startswith("tpu_") and v > 0)
-        family_stats = {"families_nonblank": len(nonblank),
-                        "families": nonblank,
-                        "capture_forced": captured,
-                        "monitor_cost": monitor_cost(
-                            cost0, cost1, sweep_s, elapsed, blocks,
-                            win_spans, t0)}
-        tpumon_torch.shutdown()
-
-    final_loss = loss.item() if loss is not None else None
-    result = {
-        "pattern": args.pattern,
-        "steps": steps,
-        "seconds": round(elapsed, 3),
-        "steps_per_sec": round(steps / max(elapsed, 1e-9), 3),
-        "final_loss": final_loss,
-        "monitor_sweeps": monitor_samples,
-        "device": (torch.cuda.get_device_name(device)
-                   if device.type == "cuda" else "cpu"),
-    }
-    if family_stats is not None:
-        result.update(family_stats)
+    work = Workload(args.pattern, args.size, args.batch, device)
+    result = run_window(work, args.seconds, args.sync_every,
+                        args.self_monitor, args.monitor_output,
+                        device_name(device))
     if args.json:
         print(json.dumps(result))
     else:
+        final_loss = result["final_loss"]
         loss_txt = (f", loss {final_loss:.3f}"
                     if final_loss is not None and math.isfinite(final_loss)
                     else "")
-        print(f"[{args.pattern}] {steps} steps in {elapsed:.1f}s "
-              f"({result['steps_per_sec']:.2f}/s){loss_txt}, "
-              f"{monitor_samples} monitor sweeps on {result['device']}")
+        print(f"[{args.pattern}] {result['steps']} steps in "
+              f"{result['seconds']:.1f}s ({result['steps_per_sec']:.2f}/s)"
+              f"{loss_txt}, {result['monitor_sweeps']} monitor sweeps on "
+              f"{result['device']}")
     return 0
 
 

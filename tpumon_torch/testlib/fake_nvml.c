@@ -247,6 +247,9 @@ nvmlReturn_t nvmlDeviceGetTemperature(nvmlDevice_t d,
 }
 
 #ifndef OMIT_FIELD_VALUES
+nvmlReturn_t nvmlDeviceGetNvLinkState(nvmlDevice_t d, unsigned int link,
+                                      nvmlEnableState_t *s);
+
 nvmlReturn_t nvmlDeviceGetFieldValues(nvmlDevice_t d, int n,
                                       nvmlFieldValue_t *v) {
   DEVICE("nvmlDeviceGetFieldValues", d, i);
@@ -268,6 +271,16 @@ nvmlReturn_t nvmlDeviceGetFieldValues(nvmlDevice_t d, int n,
       f->valueType = NVML_VALUE_TYPE_UNSIGNED_LONG_LONG;
       f->value.ullVal = (f->fieldId - NVML_FI_DEV_PERF_POLICY_POWER + 1ULL) *
                         1000000ULL + 123ULL;
+    } else if (f->fieldId == NVML_FI_DEV_TOTAL_ENERGY_CONSUMPTION) {
+      /* the energy counter's own source, and its own refusals */
+      f->valueType = NVML_VALUE_TYPE_UNSIGNED_LONG_LONG;
+      f->nvmlReturn = nvmlDeviceGetTotalEnergyConsumption(d, &f->value.ullVal);
+    } else if (f->fieldId == NVML_FI_DEV_NVLINK_GET_STATE) {
+      /* the link state entry point's source, and its own refusals */
+      nvmlEnableState_t s;
+      f->valueType = NVML_VALUE_TYPE_UNSIGNED_INT;
+      f->nvmlReturn = nvmlDeviceGetNvLinkState(d, link, &s);
+      f->value.uiVal = (unsigned int)s;
     } else if ((f->fieldId == NVML_FI_DEV_NVLINK_THROUGHPUT_DATA_TX ||
                 f->fieldId == NVML_FI_DEV_NVLINK_THROUGHPUT_DATA_RX) &&
                link < LINKS) {

@@ -19,6 +19,13 @@ and the HBM families stay on the probes, as the reference does for a trace
 without byte stats.  A trace carries no capability stats either: the peaks
 come from the port's table (:func:`tpumon_torch.types.gpu_caps`).
 
+**CUDA graphs.**  A graph's replay runs no aten op, so its kernels come
+with no launching op and no FLOPs.  :func:`record_graph_program` runs the
+graph's work once eagerly and once as a replay in one session and
+records which op launches each record of a replay, and the ops' FLOPs
+(:class:`GraphProgram`); :func:`kineto_records` then reads each graph
+launch whose records match a recorded program by it.
+
 Not ported: the XSpace protobuf parser and the profiler options of
 ``xplane.py:62-530`` and ``:1362-1430`` — Kineto hands its events over in
 process (:func:`kineto_records`) or as a Chrome trace
@@ -382,29 +389,35 @@ class LostRecords(RuntimeError):
     """The profiler recorded kernel launches whose kernels it lost."""
 
 
-def kineto_records(events) -> List[TraceRecord]:
-    """Records from the ``KinetoEvent`` list of a live session: every
-    device record with the aten op that launched it (a kernel's linked
-    correlation id is that op's correlation id), and every op with FLOPs
-    with the device it ran on.
+#: the runtime call that launches a CUDA graph (``cudaGraphLaunch`` and its
+#: versioned names)
+GRAPH_LAUNCH = "cudaGraphLaunch"
 
-    Each kernel launch the session recorded on the host must have its
-    kernel record (they share a correlation id): :class:`LostRecords` when
-    more than one and more than ``LOST_KERNELS_LIMIT`` of them do not.
-    Only the edges are exempt: launches within ``EDGE_NS`` of the
-    session's first host event, and those after the start of its last
-    ``cudaDeviceSynchronize`` (less ``EDGE_NS``) — closing a session
-    synchronizes the device and then stops the recording, so another
-    thread's launches during the synchronize can run after it.  Without a
-    recorded synchronize the last launch stands for it."""
 
+class _Parsed(NamedTuple):
+    """One live session's events, sorted by kind (see :func:`_parse`)."""
+
+    #: device records: (device, start, end, name, correlation id, linked
+    #: correlation id)
+    dev: List[Tuple[int, int, int, str, int, int]]
+    #: aten ops by correlation id: [name, thread, start, end, flops, device]
+    ops: Dict[int, list]
+    #: host kernel and graph launches: (start, correlation id)
+    launches: List[Tuple[int, int]]
+    #: correlation ids of graph launches
+    graph_launches: frozenset
+    t_first: Optional[int]
+    t_sync: Optional[int]
+
+
+def _parse(events) -> _Parsed:
     from torch.autograd import DeviceType
 
     cuda = DeviceType.CUDA
     ops: Dict[int, list] = {}
-    dev: List[Tuple[int, int, int, str, int]] = []
-    launches: List[Tuple[int, int]] = []  # (start, correlation id)
-    kernels = set()
+    dev: List[Tuple[int, int, int, str, int, int]] = []
+    launches: List[Tuple[int, int]] = []
+    graphs = set()
     t_first: Optional[int] = None  # the session's first host event
     t_sync: Optional[int] = None   # its last device synchronize
     for e in events:
@@ -413,40 +426,99 @@ def kineto_records(events) -> List[TraceRecord]:
         name = e.name()
         if e.device_type() == cuda:
             dev.append((e.device_index(), start, end, name,
-                        e.linked_correlation_id()))
-            if not name.startswith(("Memcpy", "Memset")):
-                kernels.add(e.correlation_id())
+                        e.correlation_id(), e.linked_correlation_id()))
             continue
         t_first = start if t_first is None else min(t_first, start)
-        if "LaunchKernel" in name:
+        if "LaunchKernel" in name or name.startswith(GRAPH_LAUNCH):
             launches.append((start, e.correlation_id()))
+            if name.startswith(GRAPH_LAUNCH):
+                graphs.add(e.correlation_id())
         elif name == "cudaDeviceSynchronize":
             t_sync = start if t_sync is None else max(t_sync, start)
         elif e.linked_correlation_id() == 0 and _is_op(name):
             ops[e.correlation_id()] = [name, e.start_thread_id(), start,
                                        end, e.flops(), None]
-    if launches:
-        t_close = t_sync if t_sync is not None else max(t for t, _ in launches)
-        due = [c for t, c in launches
-               if t_first + EDGE_NS <= t < t_close - EDGE_NS]
+    return _Parsed(dev, ops, launches, frozenset(graphs), t_first, t_sync)
+
+
+def _by_graph_launch(p: _Parsed) -> Dict[int, list]:
+    """Device records of each graph launch (they share its correlation
+    id), in the order they ran."""
+
+    out: Dict[int, list] = {}
+    for r in p.dev:
+        if r[4] in p.graph_launches:
+            out.setdefault(r[4], []).append(r)
+    for recs in out.values():
+        recs.sort(key=lambda r: r[1])
+    return out
+
+
+def kineto_records(events) -> List[TraceRecord]:
+    """Records from the ``KinetoEvent`` list of a live session: every
+    device record with the aten op that launched it (a kernel's linked
+    correlation id is that op's correlation id), and every op with FLOPs
+    with the device it ran on.
+
+    A CUDA graph's replay runs no op: the device records of one graph
+    launch (they share its correlation id) whose names are those of a
+    recorded :class:`GraphProgram` take their ops from it, and the
+    program's op FLOPs count once for each such launch.  Other graph
+    records keep no op.
+
+    Each kernel or graph launch the session recorded on the host must
+    have its device records (they share a correlation id):
+    :class:`LostRecords` when more than one and more than
+    ``LOST_KERNELS_LIMIT`` of them do not.  Only the edges are exempt:
+    launches within ``EDGE_NS`` of the session's first host event, and
+    those after the start of its last ``cudaDeviceSynchronize`` (less
+    ``EDGE_NS``) -- closing a session synchronizes the device and then
+    stops the recording, so another thread's launches during the
+    synchronize can run after it.  Without a recorded synchronize the last
+    launch stands for it."""
+
+    p = _parse(events)
+    kernels = {r[4] for r in p.dev if not r[3].startswith(("Memcpy",
+                                                             "Memset"))}
+    if p.launches:
+        t_close = (p.t_sync if p.t_sync is not None
+                   else max(t for t, _ in p.launches))
+        due = [c for t, c in p.launches
+               if p.t_first + EDGE_NS <= t < t_close - EDGE_NS]
     else:
         due = []
     lost = sum(1 for c in due if c not in kernels)
     if lost > max(1, LOST_KERNELS_LIMIT * len(due)):
         raise LostRecords(f"the profiler lost {lost} of {len(due)} kernel "
-                          f"records (of {len(launches)} launches; device "
-                          f"synchronize recorded: {t_sync is not None})")
+                          f"records (of {len(p.launches)} launches; device "
+                          f"synchronize recorded: {p.t_sync is not None})")
+    graph_op: Dict[Tuple[int, int, int], str] = {}
+    graph_flops: List[TraceRecord] = []
+    for recs in _by_graph_launch(p).values():
+        prog = _GRAPH_PROGRAMS.get(program_key(r[3] for r in recs))
+        if prog is None:
+            continue
+        for r, op in zip(recs, prog.ops):
+            if op is not None:
+                graph_op[r[:3]] = op
+        d, s, t = recs[0][0], recs[0][1], recs[-1][2]
+        graph_flops += [TraceRecord("op", d, s, t, op, None, fl)
+                        for op, fl in prog.flops]
     out: List[TraceRecord] = []
-    for d, s, t, name, corr in dev:
-        op = ops.get(corr) if corr else None
+    for d, s, t, name, corr, linked in p.dev:
+        if corr in p.graph_launches:
+            out.append(TraceRecord("device", d, s, t, name,
+                                   graph_op.get((d, s, t))))
+            continue
+        op = p.ops.get(linked) if linked else None
         if op is not None and op[5] is None:
             op[5] = d
         out.append(TraceRecord("device", d, s, t, name,
                                op[0] if op is not None else None))
-    _propagate_devices(list(ops.values()))
+    _propagate_devices(list(p.ops.values()))
     out += [TraceRecord("op", o[5], o[2], o[3], o[0], None, o[4])
-            for o in ops.values() if o[4] > 0]
-    return out
+            for o in p.ops.values() if o[4] > 0]
+    return out + graph_flops
 
 
 #: Chrome-trace categories of device records
@@ -488,6 +560,100 @@ def analyze_kineto_file(path: str, window_s: float
 
     records, devices = load_kineto_file(path)
     return analyze(records, window_s, devices)
+
+
+# -- CUDA graphs ---------------------------------------------------------------
+
+class GraphProgram(NamedTuple):
+    """What one launch of a CUDA graph runs, for :func:`kineto_records`."""
+
+    #: the names of its device records, in the order they run
+    names: Tuple[str, ...]
+    #: the aten op that launches each in an eager run of the same work
+    #: (None where the two did not line up)
+    ops: Tuple[Optional[str], ...]
+    #: (op, FLOPs) of each op of the eager run with FLOPs
+    flops: Tuple[Tuple[str, int], ...]
+
+    @property
+    def matched(self) -> float:
+        """Share of the launch's records that took an op."""
+
+        return sum(op is not None for op in self.ops) / max(len(self.ops), 1)
+
+
+#: recorded graph programs by :func:`program_key` (a replay that ran the
+#: same records reads as the program)
+_GRAPH_PROGRAMS: Dict[Tuple[str, ...], GraphProgram] = {}
+
+
+def program_key(names) -> Tuple[str, ...]:
+    """The record names of a graph launch as programs are looked up by,
+    a copy's or fill's reduced to its kind: from one session of a process
+    to the next, CUPTI reports a graph's copy node as ``Memcpy DtoD
+    (Device -> Device)`` or as the kernel that runs it (``memcpy128``,
+    ``memcpy32_post``), and names a fill by what it knows of the memory
+    (``Memset (Unknown)``, ``Memset (Device)``)."""
+
+    return tuple(n[:6].capitalize() if n[:6].lower() in ("memcpy", "memset")
+                 else n for n in names)
+
+
+def graph_program(events) -> GraphProgram:
+    """The program of a graph from one session's ``events`` that ran its
+    work twice: once eagerly (ops linked to their kernels) and once as
+    one launch of the graph.  The two record sequences line up by
+    :func:`program_key` (``difflib``: the same ops launch the same kernels
+    in the same order), and by position where a run differs at the same
+    length; each record of the launch takes the op of its eager twin."""
+
+    import difflib
+
+    p = _parse(events)
+    launches = list(_by_graph_launch(p).values())
+    if len(launches) != 1:
+        raise ValueError(f"{len(launches)} graph launches recorded, want 1")
+    eager = kineto_records([e for e in events
+                            if e.correlation_id() not in p.graph_launches])
+    dev = sorted((r for r in eager if r.kind == "device"),
+                 key=lambda r: r.start_ns)
+    names = tuple(r[3] for r in launches[0])
+    ops: List[Optional[str]] = [None] * len(names)
+    sm = difflib.SequenceMatcher(None, program_key(r.name for r in dev),
+                                 program_key(names), autojunk=False)
+    for tag, a0, a1, b0, b1 in sm.get_opcodes():
+        # equal runs, and runs of the same length between them
+        if tag == "equal" or (tag == "replace" and a1 - a0 == b1 - b0):
+            for i in range(b1 - b0):
+                ops[b0 + i] = dev[a0 + i].op
+    return GraphProgram(names, tuple(ops),
+                        tuple((r.name, r.flops) for r in eager
+                              if r.kind == "op"))
+
+
+def record_graph_program(eager, replay) -> GraphProgram:
+    """Run ``eager()`` (the graph's work, run eagerly) and then ``replay()``
+    (one launch of the graph) in one profiler session on the calling
+    thread, closed as the engine closes its sessions; record and return
+    their :class:`GraphProgram`."""
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profiler_session():
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA], with_flops=True)
+        prof.start()
+        try:
+            eager()
+            torch.cuda.synchronize()
+            replay()
+            torch.cuda.synchronize()
+        finally:
+            result = close_session(prof)
+    prog = graph_program(list(result.events()))
+    _GRAPH_PROGRAMS[program_key(prog.names)] = prog
+    return prog
 
 
 # -- periodic capture engine ---------------------------------------------------
@@ -568,6 +734,38 @@ def profiler_session(timeout_s: float = 60.0) -> Iterator[None]:
             mark_teardown()
     finally:
         PROFILER_LOCK.release()
+
+
+def close_session(prof):
+    """Close a profiler session on its thread (synchronizing the device,
+    so the window's kernels are all recorded) -> its Kineto result.
+
+    CUPTI is torn down at the close (:data:`TEARDOWN_ENV`), unless the
+    environment sets the switch itself (torch sets it to 0 for inductor's
+    CUDA graphs before CUDA 12.6; the port's graph replays run torn-down
+    captures on CUDA 12.8, ``chip_smoke.py``).  Left up, CUPTI costs the eager bench step
+    a tenth to a fifth of its rate for the rest of the process,
+    whatever the session recorded (``python -m
+    tpumon_torch.loadgen.capture_effect``); torn down, the next
+    session must not open before the teardown has landed
+    (:func:`settle_teardown`)."""
+
+    explicit = os.environ.get(TEARDOWN_ENV)
+    if explicit is None:
+        os.environ[TEARDOWN_ENV] = "1"
+    try:
+        prof.stop()
+    finally:
+        if explicit is None:
+            os.environ.pop(TEARDOWN_ENV, None)
+    from torch.profiler import ProfilerActivity
+
+    # a session without the CUDA activity never brought CUPTI up
+    if ((explicit or "1") == "1" and
+            ProfilerActivity.CUDA in prof.activities):
+        mark_teardown()
+        _synchronize_until(time.monotonic() + CLOSE_SETTLE_S)
+    return prof.profiler.kineto_results
 
 
 class _Session:
@@ -860,36 +1058,7 @@ class TraceEngine:
         prof.start()
         return prof
 
-    @staticmethod
-    def _stop_profiler(prof):
-        """Close a session on its thread (synchronizing the device, so the
-        window's kernels are all recorded) -> its Kineto result.
-
-        CUPTI is torn down at the close (:data:`TEARDOWN_ENV`), unless the
-        environment sets the switch itself (torch sets it to 0 when it
-        profiles CUDA graphs).  Left up, CUPTI costs the eager bench step
-        a tenth to a fifth of its rate for the rest of the process,
-        whatever the session recorded (``python -m
-        tpumon_torch.loadgen.capture_effect``); torn down, the next
-        session must not open before the teardown has landed
-        (:func:`settle_teardown`)."""
-
-        explicit = os.environ.get(TEARDOWN_ENV)
-        if explicit is None:
-            os.environ[TEARDOWN_ENV] = "1"
-        try:
-            prof.stop()
-        finally:
-            if explicit is None:
-                os.environ.pop(TEARDOWN_ENV, None)
-        from torch.profiler import ProfilerActivity
-
-        # a session without the CUDA activity never brought CUPTI up
-        if ((explicit or "1") == "1" and
-                ProfilerActivity.CUDA in prof.activities):
-            mark_teardown()
-            _synchronize_until(time.monotonic() + CLOSE_SETTLE_S)
-        return prof.profiler.kineto_results
+    _stop_profiler = staticmethod(close_session)
 
     def _collect(self, result, window_s: float) -> Dict[int, TraceSample]:
         return analyze(kineto_records(result.events()), window_s,
