@@ -98,7 +98,20 @@
    protocol (``loadgen.bench_gpu``), 4 pairs on the train cell (2 s
    windows) and on the ``mxu`` pattern (1 s): the verdict records, with
    every ``OVERHEAD_RECORD_KEYS`` key.
-8. Prints each load pattern's busy share (its kernel's device time over
+8. ``daemon``: the exporter daemon as the DaemonSet deploys it
+   (``python -m tpumon_torch.exporter.main -d 1000 --port P --pod-labels
+   --merge-textfile``, over NVML, pod labels from a map file keyed by the
+   card's NVML UUID) beside the self-monitored bench train run in its own
+   process, which publishes its drop file to tmpfs; 30 scrapes at 1 Hz,
+   plain and gzip in turn, each held to the exposition's rules (every
+   line valid, no series twice, the drop file's own families served, at
+   least 20 NVML families with the pod's labels), ``/healthz`` 200 from
+   the first sweep on, no CUDA context in the daemon, SIGTERM to a whole
+   textfile; then its footprint at ``-d 100`` and ``-d 1000`` and the
+   split layout's pod daemon (``daemon_phase`` says each check).  The
+   train kernels' launches on this path are the workload process's own
+   counts, which start at 0 with it and which it prints at its end.
+9. Prints each load pattern's busy share (its kernel's device time over
    its self-monitored step), then one ``{"kernels": [...], "backward":
    {...}}`` line.  ``backward`` is the port's whole backward pass, the dQ
    and dK/dV kernels' device times summed, beside SDPA's backward (dQ, dK
@@ -126,6 +139,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -1529,6 +1543,580 @@ def nvml_phases(K, fields) -> None:
         b.close()
 
 
+# -- the exporter daemon ------------------------------------------------------
+
+#: the daemon phase's windows, s: the 1 Hz scrape window, the workload's
+#: stepping window around it, and each footprint run after a 2 s settle
+DAEMON_SCRAPE_S = 30
+DAEMON_WORKLOAD_S = 38
+FOOTPRINT_S = 8
+#: the node-exporter budget the reference's ``bench_footprint`` holds the
+#: exporter to (``bench.py:2352-2358``): RSS KiB and CPU percent
+FOOTPRINT_BUDGET = {"rss_kib": 50 * 1024, "cpu_percent": 20.0}
+#: the pod the map file gives the card
+POD = {"pod": "train-smoke", "namespace": "ml", "container": "worker"}
+POD_LABELS = {"pod_name": POD["pod"], "pod_namespace": POD["namespace"],
+              "container_name": POD["container"]}
+LABEL_RE = re.compile(r'(\w+)="((?:[^"\\]|\\.)*)"')
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_get(port: int, path: str, gz: bool = False):
+    """(status, headers, body bytes, wall ms) of one GET on localhost."""
+
+    import http.client
+
+    t0 = time.monotonic()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+    try:
+        conn.request("GET", path,
+                     headers={"Accept-Encoding": "gzip"} if gz else {})
+        r = conn.getresponse()
+        body = r.read()
+        return (r.status, dict(r.getheaders()), body,
+                1000.0 * (time.monotonic() - t0))
+    finally:
+        conn.close()
+
+
+def proc_stat(pid: int) -> dict:
+    """A process's CPU seconds (user + system), RSS KiB and thread count
+    from ``/proc``."""
+
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    status = {}
+    with open(f"/proc/{pid}/status") as f:
+        for line in f:
+            k, _, v = line.partition(":")
+            status[k] = v.strip()
+    return {"cpu_s": (int(fields[11]) + int(fields[12])) /
+            os.sysconf("SC_CLK_TCK"),
+            "rss_kib": int(status["VmRSS"].split()[0]),
+            "threads": int(status["Threads"])}
+
+
+def samples(text: str) -> list:
+    """(series id, family, labels, value, valid) of every sample line; a
+    line the exporter's merge would drop as malformed has valid False."""
+
+    from tpumon_torch.exporter.exporter import TpuExporter
+
+    out = []
+    for ln in text.splitlines():
+        if not ln or ln.startswith("#"):
+            continue
+        sid = TpuExporter._parse_sample(ln)
+        if sid is None:
+            out.append((ln, ln.split("{", 1)[0], {}, None, False))
+            continue
+        labels = dict(LABEL_RE.findall(sid[len(sid.split("{", 1)[0]):]))
+        out.append((sid, sid.split("{", 1)[0], labels,
+                    ln[len(sid):].split()[0], True))
+    return out
+
+
+def read_drop(path: str):
+    """The drop file's (families with a sample, series ids, malformed
+    lines, mtime), or None before it exists."""
+
+    try:
+        with open(path) as f:
+            text = f.read()
+        mtime = os.stat(path).st_mtime
+    except FileNotFoundError:
+        return None
+    rows = samples(text)
+    return ({r[1] for r in rows if r[4]}, {r[0] for r in rows if r[4]},
+            sum(not r[4] for r in rows), mtime, rows)
+
+
+def spawn(args, env, log_path, stdout=subprocess.DEVNULL):
+    """A ``python -m`` child of this checkout, its stderr to a file."""
+
+    err = open(log_path, "w")
+    try:
+        return subprocess.Popen([sys.executable, "-m", *args], cwd=HERE,
+                                env=env, stdout=stdout, stderr=err,
+                                text=True)
+    finally:
+        err.close()
+
+
+def stop_proc(proc, sig=None, timeout: float = 5.0):
+    """Signal a child (SIGTERM by default) and reap it; kill it past the
+    timeout.  Returns (exit code, seconds to exit), code None if killed."""
+
+    import signal
+
+    if proc.poll() is not None:
+        return proc.returncode, 0.0
+    t0 = time.monotonic()
+    proc.send_signal(sig or signal.SIGTERM)
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = None
+    return rc, time.monotonic() - t0
+
+
+#: libraries a process with a CUDA context maps (the runtime, and the
+#: frameworks that create one) besides libcuda itself
+CONTEXT_LIBS = ("libcudart", "libtorch", "libc10_cuda", "libjax",
+                "libcublas")
+
+
+def cuda_context_marks(pid: int) -> dict:
+    """What a process's ``/proc/<pid>/maps`` says about a CUDA context:
+    the runtime libraries it maps (CONTEXT_LIBS), whether it maps
+    ``/dev/nvidia-uvm`` (a context's unified memory), and whether it maps
+    ``libcuda``."""
+
+    with open(f"/proc/{pid}/maps") as f:
+        paths = {ln.split()[-1] for ln in f if len(ln.split()) >= 6}
+    return {"libs": sorted({lib for lib in CONTEXT_LIBS for p in paths
+                            if lib in os.path.basename(p)}),
+            "uvm_mapped": [p for p in sorted(paths)
+                           if p.startswith("/dev/nvidia-uvm")],
+            "libcuda": any(os.path.basename(p).startswith("libcuda.")
+                           for p in paths)}
+
+
+#: a process that only loads NVML and initializes it (``nvmlInit_v2``,
+#: or ``nvmlInitWithFlags`` with the flags given), then prints what its
+#: maps say and its RSS before and after the init: the control for the
+#: daemon's maps and footprint
+NVML_INIT_ALONE = """
+import ctypes, json, os, sys
+sys.path.insert(0, sys.argv[1])
+from chip_smoke import cuda_context_marks, proc_stat
+lib = ctypes.CDLL(os.environ.get("TPUMON_NVML_PATH") or "libnvidia-ml.so.1")
+before = proc_stat(os.getpid())["rss_kib"]
+if sys.argv[2] == "v2":
+    rc = lib.nvmlInit_v2()
+else:
+    rc = lib.nvmlInitWithFlags(ctypes.c_uint(int(sys.argv[2])))
+marks = cuda_context_marks(os.getpid())
+after = proc_stat(os.getpid())["rss_kib"]
+lib.nvmlShutdown()
+print(json.dumps(dict(marks, init=sys.argv[2], rc=rc, rss_kib_before=before,
+                      rss_kib_after=after)))
+"""
+#: NVML_INIT_FLAG_NO_GPUS: initialize without attaching any GPU
+NVML_INIT_FLAG_NO_GPUS = 1
+
+
+def nvml_init_marks(env, init: str = "v2") -> dict:
+    r = subprocess.run([sys.executable, "-c", NVML_INIT_ALONE, HERE, init],
+                       env=env, capture_output=True, text=True, timeout=60,
+                       check=True)
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def quantile(xs, q: float):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else None
+
+
+def footprint(env, work: str, delay_ms: int) -> dict:
+    """``bench_footprint``'s exporter leg on the port: the daemon with
+    pod labels and no HTTP port at ``delay_ms``, its RSS and CPU share
+    over FOOTPRINT_S after a 2 s settle, against the budget."""
+
+    proc = spawn(["tpumon_torch.exporter.main", "-o",
+                  os.path.join(work, f"foot{delay_ms}.prom"), "-d",
+                  str(delay_ms), "--pod-labels", "--port", "0",
+                  "--wait-for-tpu", "30"], env,
+                 os.path.join(work, f"foot{delay_ms}.err"))
+    try:
+        time.sleep(2.0)
+        s0, t0 = proc_stat(proc.pid), time.monotonic()
+        time.sleep(FOOTPRINT_S)
+        s1, t1 = proc_stat(proc.pid), time.monotonic()
+    finally:
+        rc, _ = stop_proc(proc)
+    out = {"delay_ms": delay_ms, "rss_kib": s1["rss_kib"],
+           "cpu_percent": round(100.0 * (s1["cpu_s"] - s0["cpu_s"]) /
+                                (t1 - t0), 3),
+           "seconds": round(t1 - t0, 3), "exit": rc}
+    out["within_budget"] = (out["rss_kib"] <= FOOTPRINT_BUDGET["rss_kib"] and
+                            out["cpu_percent"] <=
+                            FOOTPRINT_BUDGET["cpu_percent"])
+    if rc != 0:
+        raise AssertionError(f"footprint daemon exited {rc}: {out}")
+    return out
+
+
+def pod_daemon(env, work: str, inp: str, map_file: str) -> dict:
+    """The standalone pod-attribution daemon over a textfile of the split
+    layout (the exporter without ``--pod-labels``): ``/gpu/metrics`` must
+    serve the pod labels, and the output file, ``/gpu/metrics`` and
+    ``/tpu/metrics`` must all equal the enriched input."""
+
+    import signal
+    from tpumon_torch.exporter.pod_attrib import PodAttributor
+
+    with open(inp) as f:
+        want = PodAttributor(map_file=map_file).enrich(f.read())
+    outp = os.path.join(work, "gpu-pod.prom")
+    port = free_port()
+    proc = spawn(["tpumon_torch.exporter.pod_main", "--input", inp,
+                  "--output", outp, "--port", str(port), "--poll", "0.2"],
+                 env, os.path.join(work, "pod.err"))
+    try:
+        body = b""
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and b"pod_name=" not in body:
+            try:
+                body = http_get(port, "/gpu/metrics")[2]
+            except OSError:
+                time.sleep(0.2)
+        tpu = http_get(port, "/tpu/metrics")
+        with open(outp) as f:
+            published = f.read()
+    finally:
+        rc, _ = stop_proc(proc, signal.SIGINT)
+    checks = {"gpu_metrics_pod_labels": b'pod_name="train-smoke"' in body,
+              "gpu_metrics_is_enriched_input": body.decode() == want,
+              "tpu_metrics_is_enriched_input": tpu[2].decode() == want,
+              "output_file_is_enriched_input": published == want,
+              "exit_0_on_sigint": rc == 0}
+    out = {"checks": checks, "bytes": len(want),
+           "labeled_samples": want.count("pod_name=")}
+    if not all(checks.values()):
+        raise AssertionError(f"pod daemon check failed: {out}")
+    return out
+
+
+def daemon_phase(fields) -> dict:
+    """``daemon``: the port's exporter daemon over NVML beside the bench
+    train workload, as the DaemonSet deploys it (the counterpart of the
+    reference's ``bench_deployment_soak`` and ``bench_footprint``).
+
+    A. The workload, ``python -m tpumon_torch.loadgen.run --size bench
+       --self-monitor --monitor-output <tmpfs>/drop/embed.prom`` (the CUDA
+       graph step, B1-B3), in its own process, whose launch counts start
+       at 0 and are read from its JSON line at its end.
+    B. The daemon, ``python -m tpumon_torch.exporter.main -o gpu.prom -d
+       1000 --port P --pod-labels --merge-textfile '<tmpfs>/drop/*.prom'
+       --wait-for-tpu 30``, with ``TPUMON_POD_MAP_FILE`` taking the card's
+       NVML UUID to a pod.
+    C. Scrapes at 1 Hz for DAEMON_SCRAPE_S, plain and gzip in turn, and
+       ``/healthz`` each second; fails unless every scrape is 200 and every
+       sample line valid, ``/healthz`` 200 from the first sweep on, at
+       least 20 of the daemon's own NVML families per card carry the map's
+       pod labels (and every sample of those families for the card does,
+       or is the drop file's own series), every family of the drop file
+       the daemon does not serve itself is served, no series appears
+       twice, the drop file names the card with NVML's ``uuid`` and
+       ``model``, a gzip body equals the plain body of the same sweep, the
+       daemon holds no CUDA context (its maps show no CUDA runtime, torch
+       or JAX library and no ``/dev/nvidia-uvm`` mapping, where the
+       workload's show both; ``libcuda`` only where ``nvmlInit_v2`` alone
+       maps it too, as NVML 580's does; and it is not among the
+       card's compute processes that NVML lists), and SIGTERM ends it
+       with exit 0 within 5 s, its textfile whole.
+    D. Printed: scrape wall p50/p99, the daemon's sweep wall and phases,
+       its CPU share over the window from ``/proc`` beside its own
+       ``tpumon_exporter_cpu_percent``, its RSS, the drop file's age at
+       each scrape, malformed drop lines, the workload's steps/s and
+       captures landed and refused.
+    E. ``footprint``: the daemon at ``-d 100`` and at ``-d 1000`` with pod
+       labels, RSS and CPU share against the node-exporter budget.
+    F. ``pod daemon``: ``tpumon_torch.exporter.pod_main`` over the split
+       layout's textfile (the daemon without ``--pod-labels``)."""
+
+    import gzip
+    import shutil
+    import tempfile
+    import torch
+    from tpumon_torch.exporter.promtext import parse_families
+
+    b, i = nvml_open(fields)
+    try:
+        info = b.chip_info(i)
+    finally:
+        b.close()
+    props = torch.cuda.get_device_properties(0)
+    labels_of_card = {
+        "nvml_uuid": info.uuid, "nvml_model": info.name,
+        "torch_uuid": "GPU-" + str(getattr(props, "uuid", "")),
+        "torch_model": props.name}
+    shm = "/dev/shm" if os.access("/dev/shm", os.W_OK) else None
+    work = tempfile.mkdtemp(prefix="tpumon-daemon-", dir=shm)
+    drop_dir = os.path.join(work, "drop")
+    os.makedirs(drop_dir)
+    drop = os.path.join(drop_dir, "embed.prom")
+    map_file = os.path.join(work, "pods.json")
+    with open(map_file, "w") as f:
+        json.dump({info.uuid: POD}, f)
+    env = dict(os.environ, PYTHONPATH=HERE, TPUMON_POD_MAP_FILE=map_file)
+    for k in ("TPUMON_BACKEND", "TPUMON_CHIPS"):
+        env.pop(k, None)
+    out = {"tmpfs": shm is not None, "card": labels_of_card}
+    daemon = workload = None
+    try:
+        # the split layout's exporter, once: the daemon's own families
+        # (no merge), and phase F's input
+        split = os.path.join(work, "split.prom")
+        r = subprocess.run(
+            [sys.executable, "-m", "tpumon_torch.exporter.main",
+             "--oneshot", "-o", split, "--wait-for-tpu", "30"], cwd=HERE,
+            env=env, capture_output=True, text=True, timeout=120)
+        if r.returncode != 0:
+            raise AssertionError(f"daemon --oneshot exited {r.returncode}: "
+                                 f"{r.stderr[-2000:]}")
+        own = {f for f, n in parse_families(r.stdout).items() if n > 0}
+        own_tpu = {f for f in own if f.startswith("tpu_")}
+        out["oneshot_families"] = len(own_tpu)
+
+        port = free_port()
+        daemon = spawn(["tpumon_torch.exporter.main", "-o",
+                        os.path.join(work, "gpu.prom"), "-d", "1000",
+                        "--port", str(port), "--pod-labels",
+                        "--merge-textfile", os.path.join(drop_dir, "*.prom"),
+                        "--wait-for-tpu", "30"], env,
+                       os.path.join(work, "daemon.err"))
+        workload = spawn(["tpumon_torch.loadgen.run", "--size", "bench",
+                          "--self-monitor", "--monitor-output", drop,
+                          "--seconds", str(DAEMON_WORKLOAD_S), "--json"],
+                         env, os.path.join(work, "workload.err"),
+                         stdout=subprocess.PIPE)
+        t_start = time.monotonic()
+        while True:  # the daemon's first sweep
+            try:
+                if http_get(port, "/healthz")[0] == 200:
+                    break
+            except OSError:
+                pass
+            if daemon.poll() is not None or \
+                    time.monotonic() - t_start > 60:
+                raise AssertionError("the daemon never answered /healthz "
+                                     "200")
+            time.sleep(0.1)
+        out["first_sweep_s"] = round(time.monotonic() - t_start, 3)
+        failures = []
+        healthz_wait = []  # /healthz while the workload sets up
+        while read_drop(drop) is None:
+            if workload.poll() is not None or \
+                    time.monotonic() - t_start > 180:
+                raise AssertionError("the workload's drop file never "
+                                     "landed")
+            healthz_wait.append(http_get(port, "/healthz")[0])
+            time.sleep(0.2)
+        out["drop_landed_s"] = round(time.monotonic() - t_start, 3)
+        time.sleep(1.0)  # one daemon sweep past the landing
+        if any(h != 200 for h in healthz_wait):
+            failures.append(f"/healthz during set-up: {healthz_wait}")
+        scrape_ms, ages, healthz, cpu_self = [], [], [], []
+        sweep_ms, phases = [], {}
+        drop_only, shared, pod_fams = set(), set(), []
+        malformed_drop = 0
+        gz_checked = 0
+        prev = read_drop(drop)
+        first = prev[4]
+        card = [r for r in first if r[4] and r[1].startswith("tpu_")
+                and r[2].get("chip") == "0"]
+        if not card:
+            raise AssertionError("the drop file has no per-chip sample")
+        drop_labels = {"uuid": card[0][2].get("uuid"),
+                       "model": card[0][2].get("model")}
+        out["drop_labels"] = drop_labels
+        if drop_labels != {"uuid": info.uuid, "model": info.name}:
+            failures.append(f"drop file names the card {drop_labels}, NVML "
+                            f"{info.uuid!r} {info.name!r}")
+        s0, t0 = proc_stat(daemon.pid), time.monotonic()
+        threads0 = s0["threads"]
+        for k in range(DAEMON_SCRAPE_S):
+            tick = time.monotonic()
+            gz = k % 2 == 1
+            plain_before = http_get(port, "/metrics")[2] if gz else None
+            status, hdrs, body, ms = http_get(port, "/metrics", gz=gz)
+            if gz:
+                plain_after = http_get(port, "/metrics")[2]
+                if hdrs.get("Content-Encoding") != "gzip":
+                    failures.append(f"scrape {k}: no gzip body")
+                else:
+                    body = gzip.decompress(body)
+                    if plain_before == plain_after:
+                        gz_checked += 1
+                        if body != plain_before:
+                            failures.append(f"scrape {k}: gzip body is not "
+                                            f"the plain body")
+            now = read_drop(drop)
+            ages.append(time.time() - now[3])
+            malformed_drop += now[2]
+            scrape_ms.append(ms)
+            hz = http_get(port, "/healthz")[0]
+            healthz.append(hz)
+            if status != 200 or hz != 200:
+                failures.append(f"scrape {k}: /metrics {status}, /healthz "
+                                f"{hz}")
+            rows = samples(body.decode())
+            bad = [r[0] for r in rows if not r[4]]
+            if bad:
+                failures.append(f"scrape {k}: malformed lines {bad[:3]}")
+            sids = [r[0] for r in rows]
+            dups = {x for x in sids if sids.count(x) > 1}
+            if dups:
+                failures.append(f"scrape {k}: series twice {sorted(dups)[:3]}")
+            fams = {r[1] for r in rows}
+            # what the daemon serves itself: its NVML families (those
+            # with pod labels) and its self families
+            served = own | {r[1] for r in rows if "pod_name" in r[2] or
+                            r[1].startswith("tpumon_exporter_")}
+            need = (prev[0] & now[0]) - served
+            drop_only |= need
+            if need - fams:
+                failures.append(f"scrape {k}: drop families missing "
+                                f"{sorted(need - fams)}")
+            labeled, unlabeled = set(), set()
+            for sid, fam, lab, val, ok in rows:
+                if fam not in own_tpu or lab.get("uuid") != info.uuid:
+                    continue
+                if "pod_name" in lab:
+                    labeled.add(fam)
+                    if any(lab.get(a) != v for a, v in POD_LABELS.items()):
+                        failures.append(f"scrape {k}: wrong pod labels {sid}")
+                else:
+                    unlabeled.add(fam)
+                    if sid not in prev[1] | now[1]:
+                        failures.append(f"scrape {k}: daemon series without "
+                                        f"pod labels {sid}")
+            shared |= labeled & unlabeled
+            pod_fams.append(len(labeled))
+            if len(labeled) < 20:
+                failures.append(f"scrape {k}: {len(labeled)} NVML families "
+                                f"with pod labels")
+            for sid, fam, lab, val, ok in rows:
+                if fam == "tpumon_exporter_cpu_percent":
+                    cpu_self.append(float(val))
+                elif fam == "tpumon_exporter_scrape_duration_seconds":
+                    sweep_ms.append(1000.0 * float(val))
+                elif fam == "tpumon_exporter_sweep_phase_seconds":
+                    phases.setdefault(lab["phase"], []).append(
+                        1000.0 * float(val))
+            prev = now
+            time.sleep(max(0.0, 1.0 - (time.monotonic() - tick)))
+        s1, t1 = proc_stat(daemon.pid), time.monotonic()
+        context = {"daemon": cuda_context_marks(daemon.pid),
+                   "workload": cuda_context_marks(workload.pid),
+                   "nvml_init_alone": nvml_init_marks(env),
+                   "nvml_init_no_gpus": nvml_init_marks(
+                       env, str(NVML_INIT_FLAG_NO_GPUS))}
+        maps = context["daemon"]
+        mapped = maps["libs"] + maps["uvm_mapped"]
+        apps = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,process_name",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.split("\n")
+        app_pids = {int(a.split(",")[0]) for a in apps
+                    if a.split(",")[0].strip().isdigit()}
+        # a CUDA context maps the runtime (libcudart, torch's libraries)
+        # and /dev/nvidia-uvm; the workload's maps must show it, or the
+        # check tells nothing.  libcuda alone is NVML's where nvmlInit_v2
+        # by itself maps it (NVML 580's does)
+        if mapped:
+            failures.append(f"the daemon maps {mapped}")
+        if maps["libcuda"] and not context["nvml_init_alone"]["libcuda"]:
+            failures.append("the daemon maps libcuda, nvmlInit_v2 alone "
+                            "does not")
+        wl_marks = context["workload"]
+        if not (wl_marks["uvm_mapped"] and wl_marks["libs"]):
+            failures.append(f"the workload's maps show no CUDA context: "
+                            f"{wl_marks}")
+        # NVML's compute processes, where its pids are this namespace's
+        # (the workload's among them); else the maps check stands alone
+        apps_usable = workload.pid in app_pids
+        if daemon.pid in app_pids:
+            failures.append(f"compute processes {sorted(app_pids)} hold "
+                            f"the daemon {daemon.pid}")
+        if gz_checked == 0:
+            failures.append("no gzip scrape was bracketed by one sweep")
+        rc, exit_s = stop_proc(daemon)
+        with open(os.path.join(work, "gpu.prom")) as f:
+            final = f.read()
+        final_rows = samples(final)
+        whole = (final.endswith("\n") and final_rows and
+                 all(r[4] for r in final_rows) and
+                 not [n for n in os.listdir(work) if n.endswith(".swp")])
+        if rc != 0 or exit_s > 5.0 or not whole:
+            failures.append(f"SIGTERM: exit {rc} in {exit_s:.2f} s, "
+                            f"textfile whole {whole}")
+        with open(os.path.join(work, "daemon.err")) as f:
+            daemon_err = f.read()
+        try:
+            wl_out, _ = workload.communicate(timeout=180)
+        except subprocess.TimeoutExpired:
+            workload.kill()
+            wl_out, _ = workload.communicate()
+        if workload.returncode != 0:
+            with open(os.path.join(work, "workload.err")) as f:
+                raise AssertionError(f"workload exited {workload.returncode}"
+                                     f": {f.read()[-2000:]}")
+        wl = json.loads(wl_out.strip().splitlines()[-1])
+        loss = wl.get("final_loss")
+        if loss is None or not math.isfinite(loss):
+            failures.append(f"workload final loss {loss}")
+        window = t1 - t0
+        out.update({
+            "scrapes": len(scrape_ms), "gzip_checked": gz_checked,
+            "healthz_200": sum(h == 200 for h in healthz),
+            "healthz_during_setup": len(healthz_wait),
+            "nvml_families_with_pod_labels_min": min(pod_fams),
+            "drop_only_families": sorted(drop_only),
+            "shared_families_twice": sorted(shared),
+            "scrape_ms_p50": quantile(scrape_ms, 0.5),
+            "scrape_ms_p99": quantile(scrape_ms, 0.99),
+            "sweep_ms_p50": quantile(sweep_ms, 0.5),
+            "sweep_ms_max": max(sweep_ms) if sweep_ms else None,
+            "sweep_phase_ms_p50": {ph: quantile(v, 0.5)
+                                   for ph, v in phases.items()},
+            "cpu_percent": round(100.0 * (s1["cpu_s"] - s0["cpu_s"]) /
+                                 window, 3),
+            "cpu_percent_self_metric_p50": quantile(cpu_self, 0.5),
+            "rss_kib": s1["rss_kib"],
+            "rss_budget_kib": FOOTPRINT_BUDGET["rss_kib"],
+            "threads": [threads0, s1["threads"]],
+            "window_s": round(window, 3),
+            "drop_age_s_p50": quantile(ages, 0.5),
+            "drop_age_s_max": max(ages),
+            "drop_malformed_lines": malformed_drop,
+            "merge_malformed_warnings": daemon_err.count("malformed merge"),
+            "cuda_context_marks": context,
+            "compute_apps": sorted(app_pids),
+            "compute_apps_name_this_namespace": apps_usable,
+            "daemon_pid": daemon.pid, "workload_pid": workload.pid,
+            "sigterm_exit": rc, "sigterm_s": round(exit_s, 3),
+            "workload": {k: wl.get(k) for k in (
+                "steps_per_sec", "steps", "seconds", "final_loss",
+                "captures_ok", "captures_failed", "capture_last_error",
+                "capture_forced",
+                "families_nonblank", "launches")},
+        })
+        if failures:
+            raise AssertionError(f"daemon check failed: {failures[:10]} "
+                                 f"{out}")
+        out["footprint"] = [footprint(env, work, d) for d in (100, 1000)]
+        out["pod_daemon"] = pod_daemon(env, work, split, map_file)
+        return out
+    finally:
+        for proc in (daemon, workload):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -1594,6 +2182,16 @@ def main() -> int:
     print("trace check: " + json.dumps(trace_check(K, M, R,
                                                    results["train"])))
     print("bench gpu: " + json.dumps(bench_gpu_check()))
+
+    daemon = daemon_phase(fields)
+    for name in PATHS["train"]:
+        n = daemon["workload"]["launches"].get(name, 0)
+        if n <= 0:
+            return fail(f"kernel {name} never launched on the daemon "
+                        f"path's workload")
+        rows[name]["launches"] += n
+        rows[name]["launches_by_path"]["daemon"] = n
+    print("daemon: " + json.dumps(daemon))
 
     print(json.dumps({"kernels": [rows[n] for n, _, _ in KERNELS],
                       "backward": backward}))

@@ -1,0 +1,777 @@
+"""The port's exporter daemon on the CPU: the textfile merge, the HTTP
+surface, the run loop and the exporter CLI.
+
+The merge cases of ``tests/test_exporter.py`` run through the port's and
+the reference's ``TpuExporter`` over a backend serving the same values
+(``test_torch_monitor._stub_backend``), on the same drop files and the
+same pinned clock, and the two bodies must be equal byte for byte once
+the self families whose values are timings or process stats are removed
+(``tpumon_exporter_scrape_duration_seconds``, ``_sweep_phase_seconds``,
+``_cpu_percent``, ``_memory_kb``).  The CLI runs as a subprocess over the
+fake NVML (``tpumon_torch/testlib/fake_nvml.c``, loaded through
+``TPUMON_NVML_PATH``), as a deployment runs it over ``libnvidia-ml``.
+"""
+
+import ctypes
+import gzip
+import http.client
+import json
+import os
+import re
+import signal
+import subprocess
+import sys
+import threading
+import time
+import types
+
+import pytest
+
+import tpumon
+import tpumon_torch
+from tpumon import types as JT
+from tpumon.backends.base import Backend as JaxBackend
+from tpumon.exporter import exporter as JE
+from tpumon_torch import types as TT
+from tpumon_torch.backends.base import Backend
+from tpumon_torch.exporter import exporter as TE
+from tpumon_torch.exporter.promtext import parse_families
+
+from test_torch_monitor import _stub_backend, _values
+from test_torch_nvml import _build, _controls
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: self families whose values are timings or process stats
+TIMING_FAMILIES = ("tpumon_exporter_scrape_duration_seconds",
+                   "tpumon_exporter_sweep_phase_seconds",
+                   "tpumon_exporter_cpu_percent",
+                   "tpumon_exporter_memory_kb")
+T0 = 2_000_000.0
+
+
+def without_timings(text: str) -> str:
+    return "\n".join(ln for ln in text.split("\n")
+                     if not any(f in ln for f in TIMING_FAMILIES))
+
+
+class _Stats:
+    cpu_percent = 1.25
+    memory_kb = 4096.0
+
+
+class Pair:
+    """The reference's and the port's exporter over the same values,
+    each merging its own copy of one drop directory."""
+
+    def __init__(self, tmp_path, monkeypatch, own_output=False, **kw):
+        monkeypatch.setattr(JE._codec, "active", lambda: False)
+        self.values = {c: _values(c) for c in range(2)}
+        self.now = T0
+        self.dirs = {}
+        self.exps = {}
+        for side, mod, base, types_mod, handle in (
+                ("ref", JE, JaxBackend, JT, tpumon.Handle),
+                ("port", TE, Backend, TT, tpumon_torch.Handle)):
+            d = tmp_path / side
+            d.mkdir()
+            self.dirs[side] = d
+            out = str(d / "gpu.prom") if own_output else None
+            exp = mod.TpuExporter(
+                handle(_stub_backend(base, types_mod, self.values)),
+                interval_ms=1000, output_path=out,
+                clock=lambda: self.now, merge_globs=[str(d / "*.prom")],
+                **kw)
+            # process stats vary run to run: pin them, so the gauges that
+            # count the body's bytes agree too
+            exp._self_mon = types.SimpleNamespace(status=_Stats)
+            self.exps[side] = exp
+
+    def write(self, name, text, age=0.0):
+        for d in self.dirs.values():
+            path = d / name
+            path.write_text(text)
+            os.utime(path, (self.now - age, self.now - age))
+
+    def each(self, fn):
+        for d in self.dirs.values():
+            fn(d)
+
+    def sweep(self, advance=1.0):
+        """One sweep of each; their bodies must agree.  Returns the
+        port's text."""
+
+        self.now += advance
+        ref = self.exps["ref"].sweep(now=self.now)
+        port = self.exps["port"].sweep(now=self.now)
+        assert without_timings(port) == without_timings(ref)
+        return port
+
+
+# ---- the merge cases (tests/test_exporter.py:458-680, :883-931) -------------
+
+def case_fresh_families(p):
+    p.write("workload.prom",
+            "# HELP tpu_workload_step_time Embedded workload step time.\n"
+            "# TYPE tpu_workload_step_time gauge\n"
+            'tpu_workload_step_time{chip="0",uuid="GPU-x"} 8432.5\n')
+    text = p.sweep()
+    assert 'tpu_workload_step_time{chip="0",uuid="GPU-x"} 8432.5' in text
+    assert "# TYPE tpu_workload_step_time gauge" in text
+    text = p.sweep()  # the merge's self-metrics lag a sweep
+    assert parse_families(text)["tpumon_exporter_merged_files"] == 1
+
+
+def case_exporter_series_wins(p):
+    base = p.sweep()
+    own = next(ln for ln in base.splitlines()
+               if ln.startswith("tpu_power_usage{"))
+    sid = own[:own.find("}") + 1]
+    p.write("dup.prom", "# HELP tpu_power_usage duplicate help\n"
+                        "# TYPE tpu_power_usage gauge\n"
+                        f"{sid} 9999.9\n", age=-1.0)
+    text = p.sweep()
+    assert "9999.9" not in text and "duplicate help" not in text
+    assert text.count("# TYPE tpu_power_usage gauge") == 1
+    assert sum(ln.startswith(sid) for ln in text.splitlines()) == 1
+
+
+def case_stale_skipped(p):
+    p.write("dead.prom", 'tpu_workload_step_time{chip="0"} 1.0\n', age=120.0)
+    assert "tpu_workload_step_time" not in p.sweep()
+
+
+def case_own_output_never_ingested(p):
+    p.sweep()  # publishes gpu.prom, which the glob matches
+    text = p.sweep()
+    assert text.count("# TYPE tpu_power_usage gauge") == 1
+    assert parse_families(text)["tpu_power_usage"] == 2
+
+
+def case_malformed_lines_dropped(p):
+    p.write("torn.prom", 'tpu_workload_ok{chip="0"} 1.5\n'
+                         "tpu_workload_step_t\n"
+                         'tpu_workload_bad{chip="0"} 12notanum\n'
+                         'tpu_workload_inf{chip="0"} +Inf\n')
+    text = p.sweep()
+    assert 'tpu_workload_ok{chip="0"} 1.5' in text
+    assert 'tpu_workload_inf{chip="0"} +Inf' in text
+    assert "tpu_workload_step_t\n" not in text and "12notanum" not in text
+    port = p.exps["port"]
+    assert (port._merge_files, port._merge_series) == (1, 2)
+
+
+def case_help_dedup_across_files(p):
+    p.write("a.prom", "# HELP tpu_workload_foo from file a\n"
+                      'tpu_workload_foo{src="a"} 1\n'
+                      "# HELP tpu_workload_full full family\n"
+                      "# TYPE tpu_workload_full gauge\n"
+                      'tpu_workload_full{src="a"} 2\n')
+    p.write("b.prom", "# HELP tpu_workload_foo from file b\n"
+                      'tpu_workload_foo{src="b"} 3\n')
+    text = p.sweep()
+    assert text.count("# HELP tpu_workload_foo") == 1
+    assert "from file b" not in text
+    assert 'tpu_workload_foo{src="b"} 3' in text
+    assert "# TYPE tpu_workload_full gauge" in text
+
+
+def case_braces_in_label_values(p):
+    p.write("braces.prom", 'tpu_workload_note{cfg="{a:1, b:2}"} 2\n'
+                           'tpu_workload_note{cfg="{a:1, b:3}"} 5\n'
+                           'tpu_workload_esc{msg="say \\"hi\\" {x}"} 7\n')
+    text = p.sweep()
+    assert 'tpu_workload_note{cfg="{a:1, b:2}"} 2' in text
+    assert 'tpu_workload_note{cfg="{a:1, b:3}"} 5' in text
+    assert 'tpu_workload_esc{msg="say \\"hi\\" {x}"} 7' in text
+
+
+def case_fifo_and_symlink_skipped(p):
+    def plant(d):
+        os.mkfifo(str(d / "trap.prom"))
+        os.symlink("/dev/zero", str(d / "link.prom"))
+        os.utime(d / "trap.prom", (p.now, p.now), follow_symlinks=False)
+
+    p.each(plant)
+    p.write("good.prom", 'tpu_workload_ok{chip="0"} 1\n')
+    done = {}
+    th = threading.Thread(target=lambda: done.update(t=p.sweep()))
+    th.start()
+    th.join(timeout=10.0)
+    assert not th.is_alive(), "sweep blocked on a FIFO in the drop dir"
+    assert 'tpu_workload_ok{chip="0"} 1' in done["t"]
+
+
+def case_oversized_truncated_at_line(p):
+    for exp in p.exps.values():
+        exp.MERGE_MAX_BYTES = 1024
+    p.write("big.prom", "".join(f'tpu_workload_big{{i="{i}"}} {i}\n'
+                                for i in range(200)))
+    text = p.sweep()
+    assert 'tpu_workload_big{i="0"} 0' in text
+    assert 'tpu_workload_big{i="199"} 199' not in text
+    for ln in text.splitlines():
+        if ln.startswith("tpu_workload_big"):
+            assert re.fullmatch(r'tpu_workload_big\{i="\d+"\} \d+', ln), ln
+
+
+def case_same_family_samples_grouped(p):
+    p.write("extra.prom",
+            'tpu_power_usage{chip="9",uuid="GPU-9",model="Stub GPU"} 42.5\n')
+    lines = p.sweep().splitlines()
+    fam = [i for i, ln in enumerate(lines)
+           if ln.startswith("tpu_power_usage{")]
+    assert any('chip="9"' in lines[i] for i in fam)
+    assert fam == list(range(fam[0], fam[0] + len(fam)))
+
+
+def case_parse_cache_hit(p):
+    parses = []
+    for exp in p.exps.values():
+        real = type(exp)._parse_merge_content
+        exp._parse_merge_content = (
+            lambda content, real=real: parses.append(1) or real(content))
+    p.write("cached.prom", 'tpu_workload_v{chip="0"} 1\n')
+    assert 'tpu_workload_v{chip="0"} 1' in p.sweep()
+    assert len(parses) == 2  # one parse a side
+    assert 'tpu_workload_v{chip="0"} 1' in p.sweep()
+    assert len(parses) == 2  # unchanged file: a stat, no parse
+    p.write("cached.prom", 'tpu_workload_v{chip="0"} 2\n', age=-1.0)
+    assert 'tpu_workload_v{chip="0"} 2' in p.sweep()
+    assert len(parses) == 4
+
+
+def case_cache_eviction(p):
+    p.write("gone.prom", 'tpu_workload_gone{chip="0"} 1\n')
+    assert "tpu_workload_gone" in p.sweep()
+    for side, d in p.dirs.items():
+        assert str(d / "gone.prom") in p.exps[side]._merge_cache
+        os.unlink(d / "gone.prom")
+    assert "tpu_workload_gone" not in p.sweep()
+    assert all(exp._merge_cache == {} for exp in p.exps.values())
+
+
+MERGE_CASES = {
+    "fresh_families": case_fresh_families,
+    "exporter_series_wins": case_exporter_series_wins,
+    "stale_skipped": case_stale_skipped,
+    "own_output_never_ingested": case_own_output_never_ingested,
+    "malformed_lines_dropped": case_malformed_lines_dropped,
+    "help_dedup_across_files": case_help_dedup_across_files,
+    "braces_in_label_values": case_braces_in_label_values,
+    "fifo_and_symlink_skipped": case_fifo_and_symlink_skipped,
+    "oversized_truncated_at_line": case_oversized_truncated_at_line,
+    "same_family_samples_grouped": case_same_family_samples_grouped,
+    "parse_cache_hit": case_parse_cache_hit,
+    "cache_eviction": case_cache_eviction,
+}
+
+
+@pytest.mark.parametrize("case", sorted(MERGE_CASES))
+def test_merge_matches_reference(case, tmp_path, monkeypatch):
+    p = Pair(tmp_path, monkeypatch,
+             own_output=case == "own_output_never_ingested")
+    MERGE_CASES[case](p)
+    text = p.sweep()  # and once more, with the self-metrics' one-sweep lag
+    for ph in ("collect", "render", "merge", "publish"):
+        assert f'phase="{ph}"' in text
+
+
+def test_enricher_path_matches_reference(tmp_path, monkeypatch):
+    """The text-level escape hatch: the full oracle render, the enricher,
+    then the full-text merge and splice."""
+
+    p = Pair(tmp_path, monkeypatch)
+    for exp in p.exps.values():
+        exp.set_enricher(lambda text: text.replace('model="Stub GPU"',
+                                                   'model="Stub GPU",x="1"'))
+    p.write("w.prom", 'tpu_power_usage{chip="7"} 1\n'
+                      "# HELP tpu_workload_y y.\n"
+                      'tpu_workload_y{chip="0"} 2\n')
+    text = p.sweep()
+    assert 'x="1"' in text and 'tpu_power_usage{chip="7"} 1' in text
+
+
+# ---- pod labels at the label level -------------------------------------------
+
+def test_pod_attributor_splices_labels_like_the_reference(tmp_path,
+                                                          monkeypatch):
+    from tpumon.exporter.podresources import PodInfo as JPod
+    from tpumon_torch.exporter.podresources import PodInfo as TPod
+
+    p = Pair(tmp_path, monkeypatch)
+    maps = {"ref": {}, "port": {}}
+
+    class Stub:
+        def __init__(self, side):
+            self.side = side
+
+        def device_map(self):
+            return maps[self.side]
+
+        def lookup(self, mapping, uuid, chip):
+            return mapping.get(uuid) or mapping.get(chip)
+
+    for side, exp in p.exps.items():
+        exp.set_pod_attributor(Stub(side))
+    maps["ref"]["GPU-0"] = JPod("train-a", "ml", "worker")
+    maps["port"]["GPU-0"] = TPod("train-a", "ml", "worker")
+    text = p.sweep()
+    line = next(ln for ln in text.splitlines()
+                if ln.startswith('tpu_power_usage{chip="0"'))
+    assert 'pod_name="train-a",pod_namespace="ml",container_name="worker"' \
+        in line
+    assert "pod_name" not in next(
+        ln for ln in text.splitlines()
+        if ln.startswith('tpu_power_usage{chip="1"'))
+    maps["ref"].clear()
+    maps["port"].clear()
+    assert "pod_name" not in p.sweep()  # pod gone: labels removed
+
+
+def test_failing_pod_map_keeps_the_sweep(tmp_path, monkeypatch):
+    p = Pair(tmp_path, monkeypatch)
+
+    class Broken:
+        def device_map(self):
+            raise OSError("kubelet down")
+
+    for exp in p.exps.values():
+        exp.set_pod_attributor(Broken())
+    assert "tpu_power_usage" in p.sweep()
+
+
+# ---- what stays refused ------------------------------------------------------
+
+@pytest.mark.parametrize("opt,val", [
+    ("burst", True), ("burst_hz", 50), ("blackbox_dir", "/tmp/bb"),
+    ("blackbox_max_bytes", 1 << 20), ("rules", object()),
+    ("ici_per_link_modeled", True)])
+def test_unported_planes_name_item_16b(opt, val):
+    h = tpumon_torch.Handle(_stub_backend(Backend, TT, {0: {}, 1: {}}))
+    with pytest.raises(NotImplementedError, match="item 16b"):
+        TE.TpuExporter(h, output_path=None, **{opt: val})
+
+
+# ---- HTTP --------------------------------------------------------------------
+
+@pytest.mark.parametrize("header", [
+    None, "", "gzip", "GZIP", "deflate, gzip;q=0.5", "gzip;q=0",
+    "gzip; q=0.0", "*", "*;q=0", "identity", "br, *", "gzip;q=0, *",
+    "*;q=0, gzip", "deflate", "x-gzip", " gzip ;q=1.0"])
+def test_accepts_gzip_matches_reference(header):
+    from tpumon.httputil import accepts_gzip as ref
+    from tpumon_torch.httputil import accepts_gzip as ours
+
+    assert ours(header) == ref(header)
+
+
+@pytest.fixture
+def stub_exporter():
+    h = tpumon_torch.Handle(_stub_backend(
+        Backend, TT, {c: _values(c) for c in range(2)}))
+    exp = TE.TpuExporter(h, interval_ms=100, output_path=None)
+    yield exp
+    exp.stop()
+
+
+def test_payload_compressed_once_per_sweep(stub_exporter):
+    exp = stub_exporter
+    assert exp.payload(accept_gzip=True) == (b"", None)  # no sweep yet
+    exp.sweep()
+    b1, e1 = exp.payload(accept_gzip=True)
+    b2, e2 = exp.payload(accept_gzip=True)
+    assert e1 == e2 == "gzip" and b1 is b2
+    plain, enc = exp.payload()
+    assert enc is None and gzip.decompress(b1) == plain
+    exp.sweep()
+    b3, _ = exp.payload(accept_gzip=True)
+    assert b3 is not b1 and gzip.decompress(b3) == exp.payload()[0]
+    text = exp.sweep()  # the gauge covers the previous sweep's variant
+    assert parse_families(text)["tpumon_exporter_scrape_gzip_bytes"] == 1
+
+
+def _get(port, path, headers=None):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=5)
+    try:
+        conn.request("GET", path, headers=headers or {})
+        r = conn.getresponse()
+        return r.status, dict(r.getheaders()), r.read()
+    finally:
+        conn.close()
+
+
+def test_metrics_server_routes_match_reference(stub_exporter, monkeypatch):
+    """Statuses and bodies of both servers over exporters of the same
+    values: 503 before the first sweep, then /metrics and /tpu/metrics
+    200 with their buffer, gzip on request, /healthz 200, 404 otherwise."""
+
+    monkeypatch.setattr(JE._codec, "active", lambda: False)
+    values = {c: _values(c) for c in range(2)}
+    ref = JE.TpuExporter(tpumon.Handle(_stub_backend(JaxBackend, JT, values)),
+                         interval_ms=100, output_path=None)
+    servers = [JE.MetricsHTTPServer(ref, port=0),
+               TE.MetricsHTTPServer(stub_exporter, port=0)]
+    for s in servers:
+        s.start()
+    try:
+        seen = []
+        for exp in (ref, stub_exporter):
+            exp._self_mon = types.SimpleNamespace(status=_Stats)
+        for phase in ("before", "after"):
+            if phase == "after":
+                ref.sweep(now=T0)
+                stub_exporter.sweep(now=T0)
+            row = []
+            for s in servers:
+                got = {}
+                for path in ("/metrics", "/tpu/metrics", "/healthz",
+                             "/nope", "/metrics?x=1"):
+                    status, hdrs, body = _get(s.port, path)
+                    got[path] = (status, hdrs.get("Content-Type"),
+                                 without_timings(body.decode()))
+                status, hdrs, body = _get(s.port, "/metrics",
+                                          {"Accept-Encoding": "gzip"})
+                got["gzip"] = (status, hdrs.get("Content-Encoding"),
+                               hdrs.get("Vary"))
+                row.append(got)
+            assert row[0] == row[1]
+            seen.append(row[1])
+        before, after = seen
+        assert before["/healthz"][0] == 503 and before["/nope"][0] == 404
+        assert after["/healthz"] == (200, "text/plain", "ok")
+        assert after["/metrics"][0] == after["/tpu/metrics"][0] == 200
+        assert after["/metrics"][2] == without_timings(
+            stub_exporter.last_text)
+        assert after["gzip"] == (200, "gzip", "Accept-Encoding")
+    finally:
+        for s in servers:
+            s.stop()
+
+
+def test_healthz_goes_stale_when_sweeps_stop(stub_exporter):
+    exp = stub_exporter
+    assert exp.healthy() == (False, "no sweep yet")
+    exp.sweep()
+    assert exp.healthy() == (True, "ok")
+    # max(3 intervals, 3 s) without a successful sweep
+    exp._last_success_monotonic -= 2.9
+    assert exp.healthy()[0]
+    exp._last_success_monotonic -= 0.2
+    ok, reason = exp.healthy()
+    assert not ok and reason.startswith("last successful sweep")
+
+
+def test_a_raising_sweep_keeps_the_cadence(stub_exporter, monkeypatch):
+    """The loop outlives a failing source: it goes on sweeping at its
+    interval, and /healthz turns 503 once sweeps stop succeeding."""
+
+    exp = stub_exporter
+    real = exp.handle.watches.update_all
+    calls = []
+
+    def flaky(*a, **k):
+        calls.append(time.monotonic())
+        if len(calls) > 2:
+            raise RuntimeError("source lost")
+        return real(*a, **k)
+
+    monkeypatch.setattr(exp.handle.watches, "update_all", flaky)
+    exp.start()
+    deadline = time.monotonic() + 10
+    while len(calls) < 8 and time.monotonic() < deadline:
+        time.sleep(0.02)
+    assert len(calls) >= 8 and exp.sweep_count == 2
+    assert exp._thread is not None and exp._thread.is_alive()
+    gaps = [b - a for a, b in zip(calls[2:], calls[3:])]
+    assert all(g >= 0.08 for g in gaps), gaps  # the 100 ms cadence kept
+    exp._last_success_monotonic -= 3.1
+    assert not exp.healthy()[0]
+    exp.stop()
+    assert exp._thread is None
+
+
+def test_text_http_server_stop_never_hangs(monkeypatch):
+    """The reference's test, on the port's copy: a raising
+    server_close() still reaps the serve thread, and stop() on a
+    never-started server closes the socket without waiting."""
+
+    from tpumon_torch.httputil import TextHTTPServer
+
+    srv = TextHTTPServer(lambda path: (200, "text/plain", "ok\n"), port=0)
+    srv.start()
+    orig_close = srv.server.server_close
+
+    def boom():
+        raise RuntimeError("close wedged")
+
+    monkeypatch.setattr(srv.server, "server_close", boom)
+    with pytest.raises(RuntimeError, match="close wedged"):
+        srv.stop()
+    assert srv._thread is not None and not srv._thread.is_alive()
+    orig_close()
+    srv2 = TextHTTPServer(lambda path: (200, "text/plain", "ok\n"), port=0)
+    srv2.stop()
+    assert srv2.server.socket.fileno() == -1
+
+
+# ---- NVML lifetime under the daemon's loop -----------------------------------
+
+@pytest.fixture(scope="module")
+def fake_lib(tmp_path_factory):
+    return _build(tmp_path_factory.mktemp("nvml"), "libfake_nvml.so")
+
+
+def test_stop_releases_nvml_exactly_once(fake_lib, tmp_path, monkeypatch):
+    from tpumon_torch.backends import nvml as N
+
+    monkeypatch.setenv("TPUMON_NVML_PATH", fake_lib)
+    monkeypatch.setenv("TPUMON_KMSG_PATH", str(tmp_path / "no-kmsg"))
+    monkeypatch.setattr(N.NvmlBackend, "EVENT_WAIT_MS", 20)
+    fake = _controls(fake_lib)
+    fake.fake_nvml_inits.restype = ctypes.c_int
+    fake.fake_nvml_shutdowns.restype = ctypes.c_int
+    h = tpumon_torch.init()
+    try:
+        exp = TE.TpuExporter(h, interval_ms=20,
+                             output_path=str(tmp_path / "gpu.prom"))
+        exp.start()
+        deadline = time.monotonic() + 10
+        while exp.sweep_count < 5 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert exp.sweep_count >= 5
+        assert h.backend._event_thread.is_alive()  # beside the sweeps
+        exp.stop()
+    finally:
+        tpumon_torch.shutdown()
+    assert (fake.fake_nvml_inits(), fake.fake_nvml_shutdowns()) == (1, 1)
+
+
+# ---- the exporter CLI over the fake NVML -------------------------------------
+
+@pytest.fixture
+def cli_env(fake_lib, tmp_path):
+    env = dict(os.environ, TPUMON_NVML_PATH=fake_lib,
+               TPUMON_KMSG_PATH=str(tmp_path / "no-kmsg"), PYTHONPATH=REPO)
+    for k in ("TPUMON_BACKEND", "TPUMON_POD_MAP_FILE", "TPUMON_CHIPS"):
+        env.pop(k, None)
+    return env
+
+
+def _main(*args, env, timeout=60):
+    return subprocess.run([sys.executable, "-m", "tpumon_torch.exporter.main",
+                           *args], capture_output=True, text=True, cwd=REPO,
+                          env=env, timeout=timeout)
+
+
+def test_oneshot_serves_the_north_stars_families(cli_env):
+    r = _main("--oneshot", "-o", "none", env=cli_env)
+    assert r.returncode == 0, r.stderr
+    fams = parse_families(r.stdout)
+    per_chip = [k for k, n in fams.items() if k.startswith("tpu_") and n > 0]
+    assert len(per_chip) >= 20, per_chip
+    assert fams["tpu_power_usage"] == 2
+
+
+def test_oneshot_imports_neither_torch_nor_jax(cli_env):
+    code = ("import json, sys\n"
+            "from tpumon_torch.exporter import main\n"
+            "rc = main.main(['--oneshot', '-o', 'none', '-p', '--dcn'])\n"
+            "print(json.dumps([rc, sorted(m for m in sys.modules if "
+            "m.split('.')[0] in ('torch', 'jax', 'jaxlib', 'tpumon'))]))\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=REPO, env=cli_env, timeout=60)
+    assert r.returncode == 0, r.stderr
+    assert json.loads(r.stdout.strip().splitlines()[-1]) == [0, []]
+
+
+def test_fields_flag_and_bad_field(cli_env):
+    r = _main("--oneshot", "-o", "none", "-e", "155,tpu_core_temp",
+              env=cli_env)
+    assert r.returncode == 0, r.stderr
+    fams = {k for k in parse_families(r.stdout) if k.startswith("tpu_")}
+    assert fams == {"tpu_power_usage", "tpu_core_temp"}
+    bad = _main("--oneshot", "-o", "none", "-e", "nope", env=cli_env)
+    assert bad.returncode == 1 and "unknown field" in bad.stderr
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _wait_http(port, path, want, timeout=20.0):
+    deadline = time.monotonic() + timeout
+    last = None
+    while time.monotonic() < deadline:
+        try:
+            last = _get(port, path)
+            if want(last):
+                return last
+        except OSError:
+            pass
+        time.sleep(0.05)
+    raise AssertionError(f"{path} never answered as wanted: {last}")
+
+
+def _serve(env, *args):
+    port = _free_port()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tpumon_torch.exporter.main", "-d", "100",
+         "--port", str(port), *args], cwd=REPO, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, port
+
+
+def _term(proc):
+    proc.send_signal(signal.SIGTERM)
+    try:
+        return proc.wait(timeout=10)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def test_daemon_serves_metrics_and_healthz_then_stops_on_sigterm(
+        cli_env, tmp_path):
+    out = tmp_path / "gpu.prom"
+    proc, port = _serve(cli_env, "-o", str(out))
+    try:
+        _wait_http(port, "/healthz", lambda r: r[0] == 200)
+        status, hdrs, body = _wait_http(port, "/metrics",
+                                        lambda r: b"tpu_power_usage" in r[2])
+        assert hdrs["Content-Type"] == "text/plain; version=0.0.4"
+        status, hdrs, gz = _get(port, "/tpu/metrics",
+                                {"Accept-Encoding": "gzip"})
+        assert status == 200 and hdrs["Content-Encoding"] == "gzip"
+        assert b"tpu_power_usage" in gzip.decompress(gz)
+        assert _get(port, "/nope")[0] == 404
+        t0 = time.monotonic()
+        assert _term(proc) == 0
+        assert time.monotonic() - t0 < 5.0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = out.read_text()
+    assert text.endswith("\n") and parse_families(text)["tpu_power_usage"] == 2
+    assert not list(tmp_path.glob("*.swp"))
+
+
+def test_daemon_merges_a_drop_file_and_splices_pod_labels(cli_env,
+                                                          tmp_path):
+    drop = tmp_path / "drop"
+    drop.mkdir()
+    (drop / "embed.prom").write_text(
+        "# HELP tpu_trace_duty Measured duty.\n"
+        "# TYPE tpu_trace_duty gauge\n"
+        'tpu_trace_duty{chip="0",uuid="GPU-00000000-1111-2222-3333-'
+        '000000000000",model="NVIDIA H100 80GB HBM3"} 0.93\n')
+    pod_map = tmp_path / "pods.json"
+    pod_map.write_text(json.dumps({
+        "GPU-00000000-1111-2222-3333-000000000000":
+            {"pod": "train-0", "namespace": "ml", "container": "w"},
+        "nvidia1": {"pod": "train-1", "namespace": "ml", "container": "w"}}))
+    env = dict(cli_env, TPUMON_POD_MAP_FILE=str(pod_map))
+    proc, port = _serve(env, "-o", "none", "--pod-labels",
+                        "--merge-textfile", str(drop / "*.prom"))
+    try:
+        _, _, body = _wait_http(port, "/metrics",
+                                lambda r: b"tpu_trace_duty" in r[2])
+        text = body.decode()
+        assert 'model="NVIDIA H100 80GB HBM3"} 0.93' in text
+        power = [ln for ln in text.splitlines()
+                 if ln.startswith("tpu_power_usage{")]
+        assert len(power) == 2
+        assert 'chip="0"' in power[0] and 'pod_name="train-0"' in power[0]
+        assert 'chip="1"' in power[1] and 'pod_name="train-1"' in power[1]
+        assert all('pod_namespace="ml",container_name="w"' in ln
+                   for ln in power)
+        assert _term(proc) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def test_kubelet_socket_and_merge_max_age(cli_env, tmp_path):
+    """``--kubelet-socket`` points pod attribution at a kubelet (a fake
+    one here, answering for GPU 1 by its ``nvidia1`` index), and
+    ``--merge-max-age`` skips a drop file older than it."""
+
+    grpc = pytest.importorskip("grpc")
+    from concurrent import futures
+    from tpumon_torch.exporter.podresources import encode_pod_resources
+
+    payload = encode_pod_resources([
+        ("train-1", "ml", [("w", "nvidia.com/gpu", ["nvidia1"])])])
+
+    class FakeKubelet(grpc.GenericRpcHandler):
+        def service(self, details):
+            if details.method == "/v1alpha1.PodResources/List":
+                return grpc.unary_unary_rpc_method_handler(
+                    lambda req, ctx: payload,
+                    request_deserializer=lambda b: b,
+                    response_serializer=lambda b: b)
+            return None
+
+    import tempfile
+    # a short path: a unix socket's name has a 107-byte limit
+    sock = tempfile.mktemp(prefix="kubelet-test-", suffix=".sock")
+    server = grpc.server(futures.ThreadPoolExecutor(max_workers=2))
+    server.add_generic_rpc_handlers((FakeKubelet(),))
+    server.add_insecure_port(f"unix://{sock}")
+    server.start()
+    drop = tmp_path / "drop"
+    drop.mkdir()
+    (drop / "fresh.prom").write_text('tpu_workload_fresh{chip="0"} 1\n')
+    (drop / "old.prom").write_text('tpu_workload_old{chip="0"} 2\n')
+    old = time.time() - 30.0
+    os.utime(drop / "old.prom", (old, old))
+    try:
+        r = _main("--oneshot", "-o", "none", "--pod-labels",
+                  "--kubelet-socket", sock, "--merge-textfile",
+                  str(drop / "*.prom"), "--merge-max-age", "10",
+                  env=cli_env)
+    finally:
+        server.stop(0)
+        if os.path.exists(sock):
+            os.unlink(sock)
+    assert r.returncode == 0, r.stderr
+    power = [ln for ln in r.stdout.splitlines()
+             if ln.startswith("tpu_power_usage{")]
+    assert "pod_name" not in power[0]
+    assert 'chip="1"' in power[1] and 'pod_name="train-1"' in power[1]
+    assert 'tpu_workload_fresh{chip="0"} 1' in r.stdout
+    assert "tpu_workload_old" not in r.stdout
+
+
+def test_wait_for_gpu_gives_up_within_its_bound(cli_env, tmp_path):
+    env = dict(cli_env, TPUMON_NVML_PATH=str(tmp_path / "no-libnvidia-ml.so"))
+    t0 = time.monotonic()
+    r = _main("--oneshot", "-o", "none", "--wait-for-tpu", "1", env=env)
+    elapsed = time.monotonic() - t0
+    assert r.returncode == 1
+    assert "waiting for the GPU stack" in r.stderr
+    assert "cannot load NVML" in r.stderr.splitlines()[-1]
+    assert elapsed < 15.0
+    # without the gate it fails at once, and never serves another source
+    r = _main("--oneshot", "-o", "none", env=env)
+    assert r.returncode == 1 and r.stdout == ""
+    assert "waiting" not in r.stderr
+
+
+@pytest.mark.parametrize("flag", [
+    ["--burst"], ["--burst-hz", "50"], ["--blackbox-dir", "/tmp/bb"],
+    ["--blackbox-max-bytes", "4096"], ["--rules", "rules.yaml"],
+    ["--stream-port", "9412"], ["--ici-per-link-modeled"],
+    ["--connect", "unix:/tmp/agent.sock"], ["--start-agent"]])
+def test_unported_plane_flags_exit_naming_item_16b(flag, capsys):
+    from tpumon_torch.exporter import main
+
+    with pytest.raises(SystemExit) as e:
+        main.main([*flag, "--oneshot", "-o", "none"])
+    assert e.value.code == 1
+    assert "item 16b" in capsys.readouterr().err

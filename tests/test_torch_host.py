@@ -310,7 +310,7 @@ def test_deviceinfo_render_matches_reference(args):
         RD.render(_handle(RT, *args), 1)
 
 
-# ---- agent run modes: not ported ---------------------------------------------
+# ---- agent run modes: not ported (ROADMAP.md, item 16b) -----------------------
 
 @pytest.mark.parametrize("cli", ["dmon", "deviceinfo", "topology",
                                  "processinfo", "diag"])
@@ -323,7 +323,7 @@ def test_agent_run_modes_exit_naming_the_item(cli, flag, capsys):
         mod.main(flag)
     assert e.value.code == 1
     err = capsys.readouterr().err
-    assert "agent run modes" in err and "item 16" in err
+    assert "agent run modes" in err and "item 16b" in err
 
 
 # ---- the diag load ------------------------------------------------------------

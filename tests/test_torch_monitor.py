@@ -271,6 +271,7 @@ def test_no_trace_engine_hooks():
     b = _stub_cuda()
     assert b.force_trace_capture() is False
     assert b.trace_cost_stats() is None
+    assert b.trace_last_error() is None
     assert b.attribution_stats() is None
     assert b.trace_capture_spans() == []
 
@@ -441,6 +442,7 @@ def test_failed_capture_shows_on_the_scrape(monkeypatch):
     assert vals[int(F.PROF_DUTY_CYCLE_1S)] == 0.8   # the probe's
     assert vals[int(F.PROF_VECTOR_ACTIVE)] is None
     assert b._trace.quiesce(5.0)
+    assert b.trace_last_error()  # why the capture was refused
     text = "\n".join(b.self_metric_lines('host="h"'))
     assert 'tpumon_trace_capture_failures_total{host="h"} 1.000' in text
     assert 'tpumon_trace_captures_total{host="h"} 0.000' in text
@@ -567,25 +569,46 @@ def test_exporter_families_match_reference_exporter():
 
 
 def test_exporter_refuses_unported_planes(tmp_path):
+    """What is still unported (ROADMAP.md item 16b) is refused by name;
+    the textfile merge, the enricher and pod attribution now work (their
+    byte-for-byte cases are in ``tests/test_torch_exporter.py``)."""
+
     import tpumon_torch
     from tpumon_torch import types as TT
     from tpumon_torch.exporter.exporter import TpuExporter
 
-    h = tpumon_torch.Handle(_stub_backend(Backend, TT, {0: {}, 1: {}}))
-    for opt, val in (("burst_hz", 50), ("merge_globs", ["*.prom"]),
-                     ("blackbox_dir", str(tmp_path)), ("rules", object()),
-                     ("ici_per_link_modeled", True)):
-        with pytest.raises(NotImplementedError):
+    h = tpumon_torch.Handle(_stub_backend(
+        Backend, TT, {c: _values(c) for c in range(2)}))
+    for opt, val in (("burst_hz", 50), ("blackbox_dir", str(tmp_path)),
+                     ("rules", object()), ("ici_per_link_modeled", True)):
+        with pytest.raises(NotImplementedError, match="item 16b"):
             TpuExporter(h, **{opt: val})
-    exp = TpuExporter(h, output_path=str(tmp_path / "x.prom"))
+    (tmp_path / "drop.prom").write_text('tpu_workload_x{chip="0"} 7\n')
+    exp = TpuExporter(h, output_path=str(tmp_path / "x.prom"),
+                      merge_globs=[str(tmp_path / "drop.prom")])
     for call in (lambda: exp.set_stream_publisher(None),
-                 lambda: exp.set_enricher(str),
-                 lambda: exp.anomaly_kmsg("x", 0.0),
-                 lambda: exp.set_pod_attributor(None)):
-        with pytest.raises(NotImplementedError):
+                 lambda: exp.anomaly_kmsg("x", 0.0)):
+        with pytest.raises(NotImplementedError, match="item 16b"):
             call()
+    exp.set_enricher(lambda text: text + "# enriched\n")
+    text = exp.sweep()
+    assert text.startswith("# HELP") and "# enriched" in text
+    assert 'tpu_workload_x{chip="0"} 7' in text
+    exp.set_enricher(None)
+
+    class Attributor:
+        def device_map(self):
+            return {"GPU-1": "pod"}
+
+        def lookup(self, mapping, uuid, chip):
+            from tpumon_torch.exporter.podresources import PodInfo
+            return PodInfo("p", "n", "c") if uuid in mapping else None
+
+    exp.set_pod_attributor(Attributor())
     exp.sweep()
-    assert (tmp_path / "x.prom").read_text().startswith("# HELP")
+    lines = (tmp_path / "x.prom").read_text().splitlines()
+    assert any('chip="1"' in ln and 'pod_name="p"' in ln for ln in lines)
+    assert not any('chip="0"' in ln and "pod_name" in ln for ln in lines)
 
 
 def test_monitor_cost_matches_reference_arithmetic():
@@ -692,7 +715,10 @@ def test_port_imports_neither_jax_nor_tpumon():
                 "device.py", "process_info.py", "cli/common.py",
                 "cli/dmon.py", "cli/deviceinfo.py", "cli/topology.py",
                 "cli/processinfo.py", "cli/diag.py", "loadgen/graph.py",
-                "loadgen/bench_gpu.py"):
+                "loadgen/bench_gpu.py", "wire.py", "httputil.py",
+                "exporter/main.py", "exporter/grpc_min.py",
+                "exporter/podresources.py", "exporter/pod_attrib.py",
+                "exporter/pod_main.py"):
         assert os.path.join(REPO, "tpumon_torch", mod) in files, mod
     bad = []
     for path in files:

@@ -1,13 +1,14 @@
 """tpumon_torch — the PyTorch/CUDA port of tpumon.
 
 A second package beside ``tpumon`` (the JAX reference, which it never
-imports).  Slice 1 carries the monitored training path onto an NVIDIA
-H100: the bench transformer (:mod:`.loadgen.model`) with its attention on
+imports).  It carries the monitored training path onto an NVIDIA H100:
+the bench transformer (:mod:`.loadgen.model`) with its attention on
 hand-written CUDA flash kernels (:mod:`.loadgen.kernels`,
 ``csrc/flash_attn.cu``), the in-process CUDA backend
-(:mod:`.backends.cuda`), and the exporter's sweep core
-(:mod:`.exporter.exporter`), driven by ``python -m
-tpumon_torch.loadgen.run``.
+(:mod:`.backends.cuda`) and the exporter's sweep, driven by ``python -m
+tpumon_torch.loadgen.run``; and the out-of-band side: the NVML backend
+(:mod:`.backends.nvml`) under the exporter daemon (``python -m
+tpumon_torch.exporter.main``), whose import path never imports torch.
 
 This module is the trimmed façade: a refcounted :func:`init` /
 :func:`shutdown` pair guarding one process-wide :class:`Handle` that

@@ -316,6 +316,12 @@ class CudaBackend(Backend):
             return False
         return self._engine().capture_now(timeout_s, step=step)
 
+    def trace_last_error(self) -> Optional[str]:
+        """Why the engine's latest failed capture was refused (a
+        ``LostRecords``, say), or None."""
+
+        return self._trace.last_error if self._trace is not None else None
+
     def trace_cost_stats(self) -> Optional[Dict[str, float]]:
         """Capture-cost counters for overhead attribution, or None before
         the engine exists."""

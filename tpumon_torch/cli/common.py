@@ -9,7 +9,7 @@ plus run-mode selection:
     --connect ADDR               standalone mode (agent run modes)
     --start-agent                fork/exec a local agent (agent run modes)
 
-The agent run modes are not ported yet (ROADMAP.md, Queue 1, item 16):
+The agent run modes are not ported yet (ROADMAP.md, Queue 1, item 16b):
 ``--connect`` and ``--start-agent`` exit with an error that says so.
 
 The 1 s ticker loop shape (signal-aware, immediate first tick) follows
@@ -30,7 +30,7 @@ from .. import log
 
 #: what --connect and --start-agent need
 AGENT_MODES_MISSING = ("the agent run modes (--connect, --start-agent) are "
-                       "not ported yet: ROADMAP.md, Queue 1, item 16")
+                       "not ported yet: ROADMAP.md, Queue 1, item 16b")
 
 
 def add_connection_flags(p: argparse.ArgumentParser) -> None:

@@ -5,7 +5,7 @@ tpumon_torch.cli.diag``), over the NVML backend by default.  The load of
 ``--evidence-load`` is the reference's 8-deep chain of 512x512 bf16
 products, in torch, on ``cuda`` unless ``--device cpu``.  The health
 check needs the health plane, which is not ported yet (ROADMAP.md, Queue
-1, item 16): it reports SKIP, never a silent PASS.
+1, item 16b): it reports SKIP, never a silent PASS.
 
 The ``dcgmi diag`` role — absent from the reference repo (it ships no
 diagnostic tool; operators had to infer stack health from missing
@@ -232,7 +232,7 @@ def _check_watch_roundtrip(h: "tpumon_torch.Handle") -> str:
 
 def _check_health(h: "tpumon_torch.Handle") -> str:
     raise _Skip("the health plane is not ported yet "
-                "(ROADMAP.md, Queue 1, item 16)")
+                "(ROADMAP.md, Queue 1, item 16b)")
 
 
 def _check_introspect(h: "tpumon_torch.Handle") -> str:
@@ -248,7 +248,7 @@ def _check_event_path(h: "tpumon_torch.Handle") -> str:
     # the planes not ported yet: on hardware, events come from NVML's
     # event set and kmsg
     raise _Skip("backend has no injection hook, and the policy stream "
-                "is not ported yet (ROADMAP.md, Queue 1, item 16)")
+                "is not ported yet (ROADMAP.md, Queue 1, item 16b)")
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

@@ -1,6 +1,8 @@
-"""The Prometheus exporter: the sweep core of ``tpumon.exporter``, ported.
+"""The Prometheus exporter: ``tpumon.exporter``, ported.
 
 A per-host sweep emitting ``tpu_*`` metric families to an atomically
-renamed textfile.  The HTTP endpoint and the optional planes come in
-later slices.
+renamed textfile and a native HTTP ``/metrics`` endpoint
+(:mod:`.exporter`, :mod:`.main`), with the textfile-collector merge of
+workload drop files and Kubernetes pod attribution from the kubelet
+pod-resources socket (:mod:`.pod_attrib`, :mod:`.pod_main`).
 """

@@ -1,33 +1,46 @@
-"""The exporter's sweep core.
+"""The exporter daemon's engine: the sweep, the textfile merge, pod
+attribution, the run loop and the HTTP ``/metrics`` server.
 
-Counterpart of ``tpumon/exporter/exporter.py``'s :class:`TpuExporter`:
-field and label setup, one watch over the selected chips, the sweep
-(collect -> render -> publish) with exporter-side not-idle tracking, the
-atomic textfile publish, and the ``tpumon_exporter_*`` self-metrics.
-Families keep their ``tpu_*`` names.
+Counterpart of ``tpumon/exporter/exporter.py``: field and label setup,
+one watch over the selected chips, the sweep (collect -> render -> merge
+-> publish) with exporter-side not-idle tracking, the atomic textfile
+publish, the in-memory body served over HTTP (``/metrics``,
+``/tpu/metrics``, ``/healthz``; gzip compressed at most once per sweep),
+the textfile-collector merge of fresh ``*.prom`` drop files, label-level
+pod attribution, and the ``tpumon_exporter_*`` self-metrics.  Families
+keep their ``tpu_*`` names.
 
-Not ported yet, and refused when asked for: the anomaly, flight-recorder
-(blackbox), burst, stream, textfile-merge and pod-attribution planes, the
-modeled per-link ICI split, and the HTTP server.  There is no native
-codec: the render is the pure-Python path.
+Not ported yet, and refused when asked for (ROADMAP.md, Queue 1, item
+16b): the anomaly, flight-recorder (blackbox), burst and stream planes,
+and the modeled per-link ICI split.  There is no native codec: the render
+is the pure-Python path (``tpumon_codec_native 0``).
+
+Importing this module, and running the daemon over the NVML backend,
+never imports ``torch``.
 """
 
 from __future__ import annotations
 
+import gzip
 import os
 import re
+import stat
 import threading
 import time
-from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
+from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
+                    Set, Tuple)
 
 from .. import fields as FF
 from .. import log
 from ..backends.base import FieldValue
+from ..httputil import TextHTTPServer, accepts_gzip
 from ..introspect import SelfMonitor
 from .promtext import SweepRenderer, atomic_write, render_family
 
 F = FF.F
 
+DEFAULT_OUTPUT = "/run/prometheus/tpu.prom"
+DEFAULT_PORT = 9400
 #: the reference floors its interval at 100 ms (dcgm-exporter:32); one
 #: process and one read per sweep leave 10x headroom
 MIN_INTERVAL_MS = 10
@@ -72,36 +85,50 @@ def select_chips(all_chips: Sequence[int],
     return list(all_chips)
 
 
+#: where the planes this port does not carry yet are listed
+NOT_PORTED_ITEM = "ROADMAP.md, Queue 1, item 16b"
 #: constructor options of the reference exporter whose planes this port
 #: does not carry yet, with the value that leaves each plane off
-_NOT_PORTED = {"burst": False, "burst_hz": 0, "merge_globs": None,
+_NOT_PORTED = {"burst": False, "burst_hz": 0,
                "ici_per_link_modeled": False, "blackbox_dir": None,
                "blackbox_max_bytes": None, "rules": None}
 
 
+def not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to tpumon_torch yet "
+                               f"({NOT_PORTED_ITEM})")
+
+
 class TpuExporter:
-    """Owns the watch, the sweep, and the rendered output."""
+    """Owns the watch, the sweep loop, and the rendered output."""
 
     def __init__(self, handle, *,
                  interval_ms: int = 1000,
                  profiling: bool = False,
                  dcn: bool = False,
                  field_ids: Optional[Sequence[int]] = None,
-                 output_path: Optional[str] = None,
+                 output_path: Optional[str] = DEFAULT_OUTPUT,
                  chips: Optional[Sequence[int]] = None,
                  clock: Optional[Callable[[], float]] = None,
+                 merge_globs: Optional[Sequence[str]] = None,
+                 merge_max_age_s: float = 60.0,
                  **planes: Any) -> None:
         """``field_ids`` overrides the canned family sets entirely (the
         ``dcgmi dmon -e`` analog).  ``output_path``: textfile to publish
-        every sweep to (atomic rename), or None."""
+        every sweep to (atomic rename), or None.
+
+        ``merge_globs``: textfile-collector role — merge fresh ``*.prom``
+        files (a workload's embedded self-monitor output) into every
+        sweep, so the out-of-band daemon serves the workload's measured
+        in-process families without touching the device.  Files older
+        than ``merge_max_age_s`` are skipped, and series/HELP duplicates
+        resolve in favor of the exporter's own output."""
 
         for opt, value in planes.items():
             if opt not in _NOT_PORTED:
                 raise TypeError(f"unexpected option {opt!r}")
             if value != _NOT_PORTED[opt]:
-                raise NotImplementedError(
-                    f"exporter option {opt!r} belongs to a plane not "
-                    f"ported to tpumon_torch yet")
+                raise not_ported(f"exporter option {opt!r}")
         if interval_ms < MIN_INTERVAL_MS:
             raise ValueError(
                 f"interval {interval_ms} ms below the {MIN_INTERVAL_MS} ms "
@@ -144,32 +171,94 @@ class TpuExporter:
                                     update_freq_us=interval_ms * 1000,
                                     max_keep_samples=2)
 
+        self._merge_globs = list(merge_globs or [])
+        self._merge_max_age = merge_max_age_s
+        self._merge_files = 0
+        self._merge_series = 0
+        self._merged_families: Set[str] = set()
         self._self_mon = SelfMonitor()
         self._host_label = f'host="{os.uname().nodename}"'
         self._not_idle_since: Dict[int, Optional[float]] = {}
+        #: drop-file parse cache: path -> ((mtime_ns, size, inode),
+        #: parsed entries) — an unchanged workload drop file costs a
+        #: stat per sweep, not a re-parse
+        self._merge_cache: Dict[str, Tuple[Tuple[int, int, int],
+                                           List[tuple]]] = {}
         self._lock = threading.Lock()
         self._last_bytes = b""
+        #: gzip variant of the published body, compressed at most once
+        #: per sweep, lazily on the first Accept-Encoding: gzip scrape
+        self._last_gzip: Optional[bytes] = None
+        self._gzip_bytes = 0
+        self._gzip_compress_lock = threading.Lock()
         self._sweep_count = 0
+        self._last_success_monotonic: Optional[float] = None
         self._last_sweep_duration = 0.0
         #: previous sweep's per-phase wall seconds
         self._last_phases: Dict[str, float] = {}
+        self._enricher: Optional[Callable[[str], str]] = None
+        self._attributor = None
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
 
-    def set_enricher(self, fn) -> None:
-        raise NotImplementedError("text enrichment is not ported yet")
+    # -- pod-attribution hook (exporter/pod_attrib.py) -----------------------
+
+    def set_enricher(self, fn: Optional[Callable[[str], str]]) -> None:
+        """Install a text transformer applied to each sweep (label
+        splicing).  Escape hatch for arbitrary rewrites; for pod
+        attribution prefer :meth:`set_pod_attributor`, which splices at
+        the label level so the renderer's per-chip label caches keep
+        working."""
+
+        self._enricher = fn
 
     def set_pod_attributor(self, attributor) -> None:
-        raise NotImplementedError("pod attribution is not ported yet")
+        """Label-level pod attribution: merge ``{pod_name, pod_namespace,
+        container_name}`` into each chip's label set per sweep.  The
+        attributor's device map is cached for ``attributor.refresh_s``;
+        the renderer's label caches are invalidated only when a chip's
+        pod mapping actually changes."""
+
+        self._attributor = attributor
 
     def set_stream_publisher(self, publisher) -> None:
-        raise NotImplementedError("the stream plane is not ported yet")
+        raise not_ported("the stream plane (set_stream_publisher)")
 
     def anomaly_kmsg(self, line: str, ts: float) -> bool:
-        raise NotImplementedError("the anomaly plane is not ported yet")
+        raise not_ported("the anomaly plane (anomaly_kmsg)")
+
+    def _apply_pod_labels(self) -> None:
+        attributor = self._attributor
+        if attributor is None:
+            return
+        try:
+            mapping = attributor.device_map()
+        except Exception as e:
+            log.warn_every("exporter.podmap", 30.0,
+                           "pod device map refresh failed: %r", e)
+            return
+        for c in self.chips:
+            base = self._labels[c]
+            info = attributor.lookup(mapping, base.get("uuid", ""),
+                                     str(c)) if mapping else None
+            want_keys = ("pod_name", "pod_namespace", "container_name")
+            if info is None:
+                if any(k in base for k in want_keys):
+                    for k in want_keys:
+                        base.pop(k, None)
+                continue
+            new = {"pod_name": info.pod, "pod_namespace": info.namespace,
+                   "container_name": info.container}
+            if any(base.get(k) != v for k, v in new.items()):
+                base.update(new)
 
     # -- one sweep ------------------------------------------------------------
 
     def sweep(self, now: Optional[float] = None) -> str:
-        """One sweep; returns the rendered exposition as ``str``."""
+        """One sweep; returns the rendered exposition as ``str`` (tests,
+        ``--oneshot``).  The sweep loop and the serve path use
+        :meth:`sweep_bytes` / :meth:`payload` and never pay this
+        decode."""
 
         return self.sweep_bytes(now).decode("utf-8")
 
@@ -204,23 +293,416 @@ class TpuExporter:
                     vals = dict(vals)
                     vals[nit] = int(t - last)
             per_chip[c] = vals
+        # inside the timed region: a kubelet refresh stalling the sweep
+        # must show in scrape_duration
+        self._apply_pod_labels()
         t1 = time.monotonic()
         phases["collect"] = t1 - t0
 
         extra = self._self_metrics()
-        parts = self.renderer.render_parts(per_chip, self._labels)
-        body = self.renderer.compose(parts, extra)
-        t2 = time.monotonic()
-        phases["render"] = t2 - t1
+        if self._enricher is None:
+            # hot path: delta-aware bytes render; the merge works from
+            # the renderer's series index instead of re-parsing the text
+            parts = self.renderer.render_parts(per_chip, self._labels)
+            if self._merge_globs:
+                t2 = time.monotonic()
+                phases["render"] = t2 - t1
+                body = self._merge_textfiles_parts(parts, extra, t)
+            else:
+                # body assembly is render work: compose is booked under
+                # the render phase
+                body = self.renderer.compose(parts, extra)
+                t2 = time.monotonic()
+                phases["render"] = t2 - t1
+        else:
+            # enricher escape hatch (arbitrary text rewrites): the
+            # renderer's incremental index cannot survive a text-level
+            # transform, so this path runs the full oracle renderer
+            text = self.renderer.render(per_chip, self._labels,
+                                        extra_lines=extra)
+            try:
+                text = self._enricher(text)
+            except Exception as e:
+                # attribution failure must not break the metric stream
+                log.warn_every("exporter.enrich", 30.0,
+                               "pod attribution failed; serving "
+                               "unenriched metrics: %r", e)
+            t2 = time.monotonic()
+            phases["render"] = t2 - t1
+            if self._merge_globs:
+                text = self._merge_textfiles(text, t)
+            body = text.encode("utf-8")
+        t3 = time.monotonic()
+        phases["merge"] = t3 - t2
         if self.output_path:
             atomic_write(self.output_path, body)
         with self._lock:
             self._last_bytes = body
+            self._last_gzip = None  # next gzip scrape recompresses once
+            self._gzip_bytes = 0    # gauge covers THIS sweep's variant
             self._sweep_count += 1
-        phases["publish"] = time.monotonic() - t2
+            self._last_success_monotonic = time.monotonic()
+        phases["publish"] = time.monotonic() - t3
+        # full-pipeline duration, served with one-sweep lag: a slow merge
+        # or a stalling output filesystem shows in the very self-metric
+        # operators alert on, so the capture happens last
         self._last_sweep_duration = time.monotonic() - t0
         self._last_phases = phases
         return body
+
+    # -- textfile merge (node-exporter textfile-collector role) ---------------
+
+    _VALUE_RE = re.compile(
+        r"^[+-]?(?:Inf|NaN|[0-9]*\.?[0-9]+(?:[eE][+-]?[0-9]+)?)$")
+    _TS_RE = re.compile(r"^[+-]?[0-9]+$")
+
+    @classmethod
+    def _parse_sample(cls, ln: str) -> Optional[str]:
+        """Validate one exposition sample line -> its series identity
+        (name + label set), or None if malformed.
+
+        Quote-aware: label values may legally contain ``{``/``}``/spaces,
+        so the label section ends at the first unquoted ``}``.  Torn
+        writes and garbage return None and are dropped per line — one
+        bad file must not poison the whole scrape."""
+
+        n = len(ln)
+        if not n or not (ln[0].isalpha() or ln[0] in "_:"):
+            return None
+        i = 1
+        while i < n and (ln[i].isalnum() or ln[i] in "_:"):
+            i += 1
+        sid_end = i
+        if i < n and ln[i] == "{":
+            i += 1
+            in_q = False
+            esc = False
+            while i < n:
+                c = ln[i]
+                if esc:
+                    esc = False
+                elif c == "\\":
+                    esc = True
+                elif c == '"':
+                    in_q = not in_q
+                elif c == "}" and not in_q:
+                    break
+                i += 1
+            if i >= n:
+                return None  # unterminated label set (torn write)
+            i += 1
+            sid_end = i
+        if i >= n or ln[i] not in " \t":
+            return None
+        parts = ln[i:].split()
+        if not parts or len(parts) > 2:
+            return None
+        if not cls._VALUE_RE.match(parts[0]):
+            return None
+        if len(parts) == 2 and not cls._TS_RE.match(parts[1]):
+            return None
+        return ln[:sid_end]
+
+    @classmethod
+    def _series_id(cls, line: str) -> str:
+        """Series identity of a known-good sample line (base text)."""
+
+        sid = cls._parse_sample(line)
+        if sid is not None:
+            return sid
+        brace = line.find("}")
+        if brace >= 0:
+            return line[:brace + 1]
+        return line.split(None, 1)[0]
+
+    #: per-file byte cap for merged textfiles: the drop dir is
+    #: workload-writable, and a multi-GB file must not be slurped whole
+    #: into the sweep loop
+    MERGE_MAX_BYTES = 4 << 20
+
+    def _read_merge_file(self, path: str) -> Optional[str]:
+        """Bounded, non-blocking read of one workload drop file.
+
+        O_NONBLOCK so a FIFO cannot park the sweep loop in open(2),
+        O_NOFOLLOW + S_ISREG so a symlink (to /dev/zero, say) is skipped,
+        and a hard byte cap with the truncated tail cut at a line
+        boundary.  Returns None when the file should be skipped."""
+
+        flags = os.O_RDONLY | getattr(os, "O_NONBLOCK", 0) | \
+            getattr(os, "O_NOFOLLOW", 0)
+        fd = os.open(path, flags)
+        try:
+            st = os.fstat(fd)
+            if not stat.S_ISREG(st.st_mode):
+                log.warn_every("exporter.merge.notreg", 60.0,
+                               "merge path %s is not a regular file "
+                               "(mode %o); skipped", path, st.st_mode)
+                return None
+            chunks: List[bytes] = []
+            remaining = self.MERGE_MAX_BYTES + 1
+            while remaining > 0:
+                chunk = os.read(fd, min(remaining, 1 << 20))
+                if not chunk:
+                    break
+                chunks.append(chunk)
+                remaining -= len(chunk)
+            data = b"".join(chunks)
+        finally:
+            os.close(fd)
+        if len(data) > self.MERGE_MAX_BYTES:
+            cut = data.rfind(b"\n", 0, self.MERGE_MAX_BYTES)
+            data = data[:cut + 1 if cut >= 0 else 0]
+            log.warn_every("exporter.merge.truncated", 60.0,
+                           "merge textfile %s exceeds %d bytes; "
+                           "truncated", path, self.MERGE_MAX_BYTES)
+        return data.decode("utf-8", "replace")
+
+    @classmethod
+    def _parse_merge_content(cls, content: str) -> List[tuple]:
+        """Classify one drop file's lines once; the result is cached on
+        the file's stat signature.
+
+        Entry shapes: ``("m", kind, family, line)`` HELP/TYPE metadata,
+        ``("c", line)`` other comment, ``("s", sid, family, line)``
+        valid sample, ``("x",)`` malformed (counted as dropped when
+        applied)."""
+
+        entries: List[tuple] = []
+        for ln in content.splitlines():
+            if ln.startswith("#"):
+                parts = ln.split(None, 3)
+                if len(parts) >= 3 and parts[1] in ("HELP", "TYPE"):
+                    entries.append(("m", parts[1], parts[2], ln))
+                else:
+                    entries.append(("c", ln))
+                continue
+            if not ln.strip():
+                continue
+            sid = cls._parse_sample(ln)
+            if sid is None:
+                entries.append(("x",))
+                continue
+            entries.append(("s", sid, sid.split("{", 1)[0], ln))
+        return entries
+
+    def _load_merge_files(self, now: float) -> Tuple[int, List[List[tuple]]]:
+        """Fresh drop files' parsed entries, with the parse cached on
+        ``(path, mtime_ns, size, inode)``."""
+
+        import glob as _glob
+
+        files = 0
+        out: List[List[tuple]] = []
+        seen_paths: Set[str] = set()
+        for pattern in self._merge_globs:
+            for path in sorted(_glob.glob(pattern)):
+                if self.output_path and \
+                        os.path.abspath(path) == os.path.abspath(
+                            self.output_path):
+                    continue  # never merge our own output back in
+                try:
+                    st = os.stat(path, follow_symlinks=False)
+                    if not stat.S_ISREG(st.st_mode):
+                        # FIFO/symlink planted in the workload-writable
+                        # drop dir: never even open it
+                        log.warn_every("exporter.merge.notreg", 60.0,
+                                       "merge path %s is not a regular "
+                                       "file (mode %o); skipped",
+                                       path, st.st_mode)
+                        continue
+                    age = now - st.st_mtime
+                    if age > self._merge_max_age:
+                        log.warn_every("exporter.merge.stale", 60.0,
+                                       "stale textfile %s (%.0fs old) "
+                                       "skipped", path, age)
+                        continue
+                    sig = (st.st_mtime_ns, st.st_size, st.st_ino)
+                    cached = self._merge_cache.get(path)
+                    if cached is not None and cached[0] == sig:
+                        entries = cached[1]
+                    else:
+                        content = self._read_merge_file(path)
+                        if content is None:
+                            continue
+                        entries = self._parse_merge_content(content)
+                        self._merge_cache[path] = (sig, entries)
+                except OSError as e:
+                    log.warn_every("exporter.merge.read", 60.0,
+                                   "merge textfile %s unreadable: %r",
+                                   path, e)
+                    continue
+                seen_paths.add(path)
+                files += 1
+                out.append(entries)
+        # evict entries whose file left the glob (pod churn names drop
+        # files by pod UID — the cache must not grow without bound)
+        for path in [p for p in self._merge_cache if p not in seen_paths]:
+            del self._merge_cache[path]
+        return files, out
+
+    def _apply_merge(self, series: Set[str], decl: Set[str],
+                     files_entries: List[List[tuple]],
+                     ) -> Tuple[Dict[str, List[str]], List[str]]:
+        """Dedup parsed drop-file entries against the base exposition's
+        series/family index.  Returns ``(by_family, tail_lines)``:
+        merged samples joining a family the base already emits land
+        inside that family's block; everything else appends."""
+
+        by_family: Dict[str, List[str]] = {}
+        tail_lines: List[str] = []
+        seen_meta: Set[Tuple[str, str]] = set()  # (kind, family)
+        merged_fams: Set[str] = set()
+        merged = 0
+        dropped = 0
+        for entries in files_entries:
+            for e in entries:
+                kind = e[0]
+                if kind == "s":
+                    _, sid, fam, ln = e
+                    if sid in series:
+                        continue  # exporter's own sample wins
+                    series.add(sid)
+                    merged += 1
+                    merged_fams.add(fam)
+                    if fam in decl:
+                        by_family.setdefault(fam, []).append(ln)
+                    else:
+                        tail_lines.append(ln)
+                elif kind == "m":
+                    # a family the base text already declared or sampled
+                    # keeps ITS metadata; across merged files the first
+                    # (kind, family) wins
+                    _, mkind, fam, ln = e
+                    key = (mkind, fam)
+                    if fam in decl or key in seen_meta:
+                        continue
+                    seen_meta.add(key)
+                    tail_lines.append(ln)
+                elif kind == "c":
+                    tail_lines.append(e[1])
+                else:
+                    dropped += 1
+        if dropped:
+            log.warn_every("exporter.merge.malformed", 60.0,
+                           "%d malformed merge line(s) dropped "
+                           "(non-atomic writer?)", dropped)
+        self._merge_series = merged
+        self._merged_families = merged_fams
+        return by_family, tail_lines
+
+    def _merge_textfiles(self, text: str, now: float) -> str:
+        """Full-text merge (enricher fallback): the base index is
+        re-parsed from the rendered text because an enricher may have
+        rewritten it arbitrarily."""
+
+        series: Set[str] = set()
+        decl: Set[str] = set()  # families declared OR sampled by base
+        for ln in text.splitlines():
+            if ln.startswith("#"):
+                parts = ln.split(None, 3)
+                if len(parts) >= 3 and parts[1] in ("HELP", "TYPE"):
+                    decl.add(parts[2])
+            elif ln.strip():
+                sid = self._series_id(ln)
+                series.add(sid)
+                decl.add(sid.split("{", 1)[0])
+        files, fe = self._load_merge_files(now)
+        by_family, tail_lines = self._apply_merge(series, decl, fe)
+        # reported via self-metrics with one-sweep lag
+        self._merge_files = files
+        if not by_family and not tail_lines:
+            return text
+        out = self._splice_by_family(text, by_family) if by_family else text
+        if tail_lines:
+            out = out + "\n".join(tail_lines) + "\n"
+        return out
+
+    def _merge_textfiles_parts(self, parts: List[Tuple[str, bytes]],
+                               extra_lines: Sequence[str],
+                               now: float) -> bytes:
+        """Merge against the renderer's incremental series index — no
+        re-parse of the exporter's own exposition; only the per-sweep
+        extra-line block is indexed by line walk."""
+
+        files, fe = self._load_merge_files(now)
+        if not fe:
+            # quiet drop dir: merge nothing, pay no index copy
+            self._merge_files, self._merge_series = files, 0
+            self._merged_families = set()
+            return self.renderer.compose(parts, extra_lines)
+        series = set(self.renderer.series_set)
+        decl = {fam for fam, _ in parts}
+        for ln in extra_lines:
+            if ln.startswith("#"):
+                p = ln.split(None, 3)
+                if len(p) >= 3 and p[1] in ("HELP", "TYPE"):
+                    decl.add(p[2])
+            elif ln.strip():
+                sid = self._series_id(ln)
+                series.add(sid)
+                decl.add(sid.split("{", 1)[0])
+        by_family, tail_lines = self._apply_merge(series, decl, fe)
+        self._merge_files = files
+        if not by_family and not tail_lines:
+            return self.renderer.compose(parts, extra_lines)
+        segs: List[bytes] = []
+        for fam, block in parts:
+            segs.append(block)
+            joined = by_family.pop(fam, None)
+            if joined:
+                segs.append("\n".join(joined).encode("utf-8"))
+        # merged samples joining an extra-line family (plus families
+        # declared but never sampled) splice inside the extra block,
+        # exactly where the full-text walk would put them
+        extra_out = list(extra_lines)
+        if by_family:
+            extra_out = self._splice_lines(extra_out, by_family)
+        if extra_out:
+            segs.append("\n".join(extra_out).encode("utf-8"))
+        if tail_lines:
+            segs.append("\n".join(tail_lines).encode("utf-8"))
+        return b"\n".join(segs) + b"\n"
+
+    def _splice_lines(self, lines: List[str],
+                      by_family: Dict[str, List[str]]) -> List[str]:
+        """Insert merged samples at the close of their family's block in
+        a line list, keeping each sample group contiguous; families the
+        base declared but never sampled this sweep append at the end.
+        Consumes ``by_family``."""
+
+        out: List[str] = []
+        cur_fam: Optional[str] = None
+
+        def close_family() -> None:
+            nonlocal cur_fam
+            if cur_fam is not None and cur_fam in by_family:
+                out.extend(by_family.pop(cur_fam))
+            cur_fam = None
+
+        for ln in lines:
+            fam: Optional[str] = None
+            if ln.startswith("#"):
+                parts = ln.split(None, 3)
+                if len(parts) >= 3 and parts[1] in ("HELP", "TYPE"):
+                    fam = parts[2]
+            elif ln.strip():
+                fam = self._series_id(ln).split("{", 1)[0]
+            if fam is not None and fam != cur_fam:
+                close_family()
+                cur_fam = fam
+            out.append(ln)
+        close_family()
+        for rest in by_family.values():
+            out.extend(rest)
+        by_family.clear()
+        return out
+
+    def _splice_by_family(self, text: str,
+                          by_family: Dict[str, List[str]]) -> str:
+        """Full-text splice (enricher fallback path)."""
+
+        return "\n".join(self._splice_lines(text.splitlines(),
+                                            by_family)) + "\n"
 
     def _self_metrics(self) -> List[str]:
         st = self._self_mon.status()
@@ -238,13 +720,13 @@ class TpuExporter:
                                "backend self-metrics hook failed: %r", e)
         lines += rf("tpumon_exporter_scrape_duration_seconds", "gauge",
                     "Wall time of the previous full sweep "
-                    "(collect+render+publish).",
+                    "(collect+render+merge+publish).",
                     lbl, self._last_sweep_duration, fmt=".6f")
         if self._last_phases:
             lines.append("# HELP tpumon_exporter_sweep_phase_seconds Wall "
                          "time of each phase of the previous sweep.")
             lines.append("# TYPE tpumon_exporter_sweep_phase_seconds gauge")
-            for ph in ("collect", "render", "publish"):
+            for ph in ("collect", "render", "merge", "publish"):
                 if ph in self._last_phases:
                     lines.append(
                         "tpumon_exporter_sweep_phase_seconds{%s,phase=\"%s\"}"
@@ -275,9 +757,139 @@ class TpuExporter:
                         lbl, ratio, fmt=".4f")
         with self._lock:
             nbytes = len(self._last_bytes)
+            gzbytes = self._gzip_bytes
         if nbytes:
             lines += rf("tpumon_exporter_scrape_bytes", "gauge",
                         "Size of the previous sweep's exposition in "
-                        "bytes.",
+                        "bytes (the buffer /metrics serves).",
                         lbl, nbytes, fmt=".0f")
+            lines += rf("tpumon_exporter_scrape_gzip_bytes", "gauge",
+                        "Size of the gzip variant served to "
+                        "Accept-Encoding: gzip scrapers (0 until one "
+                        "asks; compressed once per sweep).",
+                        lbl, gzbytes, fmt=".0f")
+        if self._merge_globs:
+            lines += rf("tpumon_exporter_merged_files", "gauge",
+                        "Fresh textfiles merged into the previous sweep.",
+                        lbl, self._merge_files, fmt=".0f")
+            lines += rf("tpumon_exporter_merged_series", "gauge",
+                        "Sample series merged from textfiles in the "
+                        "previous sweep.",
+                        lbl, self._merge_series, fmt=".0f")
         return lines
+
+    # -- loop -----------------------------------------------------------------
+
+    def run_forever(self) -> None:
+        interval = self.interval_ms / 1000.0
+        while not self._stop.is_set():
+            start = time.monotonic()
+            try:
+                self.sweep_bytes()
+            except Exception as e:
+                # transient source/filesystem failure: keep the cadence;
+                # healthy() surfaces a persistent one, and the log says
+                # what is failing (rate-limited)
+                log.warn_every("exporter.sweep", 30.0,
+                               "sweep failed: %r", e)
+            elapsed = time.monotonic() - start
+            self._stop.wait(max(0.0, interval - elapsed))
+
+    def start(self) -> None:
+        if self._thread is None:
+            self._stop.clear()
+            self._thread = threading.Thread(target=self.run_forever,
+                                            name="prometheus-tpu-sweep",
+                                            daemon=True)
+            self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        th, self._thread = self._thread, None
+        if th is not None:
+            th.join(timeout=5.0)
+
+    # -- accessors ------------------------------------------------------------
+
+    @property
+    def last_text(self) -> str:
+        """Last exposition as ``str`` (the serve path uses
+        :meth:`payload` and never decodes)."""
+
+        with self._lock:
+            body = self._last_bytes
+        return body.decode("utf-8")
+
+    def payload(self, accept_gzip: bool = False,
+                ) -> Tuple[bytes, Optional[str]]:
+        """``(body, content_encoding)`` for ``/metrics`` — the published
+        per-sweep buffer served as-is.  With ``accept_gzip`` the gzip
+        variant is compressed lazily, at most once per sweep, and cached
+        until the next publish."""
+
+        with self._lock:
+            body = self._last_bytes
+            gz = self._last_gzip
+            gen = self._sweep_count
+        if not accept_gzip or not body:
+            return body, None
+        if gz is None:
+            # serialize compressors so N concurrent first-gzip scrapes
+            # cost one compress; the sweep lock is not held across it
+            with self._gzip_compress_lock:
+                with self._lock:
+                    gz = self._last_gzip
+                    body = self._last_bytes
+                    gen = self._sweep_count
+                if gz is None:
+                    gz = gzip.compress(body, 6)
+                    with self._lock:
+                        if self._sweep_count == gen:
+                            # a sweep that published mid-compress wins
+                            self._last_gzip = gz
+                            self._gzip_bytes = len(gz)
+        return gz, "gzip"
+
+    @property
+    def sweep_count(self) -> int:
+        with self._lock:
+            return self._sweep_count
+
+    def healthy(self) -> Tuple[bool, str]:
+        """Readiness: at least one sweep, and the latest succeeded
+        recently (a persistently failing sweep loop must not look
+        healthy, or the DaemonSet never restarts a frozen exporter)."""
+
+        with self._lock:
+            count = self._sweep_count
+            last = self._last_success_monotonic
+        if count == 0 or last is None:
+            return False, "no sweep yet"
+        age = time.monotonic() - last
+        if age > max(3.0 * self.interval_ms / 1000.0, 3.0):
+            return False, f"last successful sweep {age:.1f}s ago"
+        return True, "ok"
+
+
+class MetricsHTTPServer(TextHTTPServer):
+    """The /metrics endpoint: the exporter's published per-sweep buffer
+    served directly, and a gzip variant (compressed once per sweep) when
+    the scraper advertises ``Accept-Encoding: gzip``."""
+
+    def __init__(self, exporter: TpuExporter, port: int = DEFAULT_PORT,
+                 bind: str = "") -> None:
+        def dispatch(path: str, headers: Mapping[str, str]):
+            if path in ("/metrics", "/tpu/metrics"):
+                ae = headers.get("Accept-Encoding", "") if headers else ""
+                body, enc = exporter.payload(
+                    accept_gzip=accepts_gzip(ae))
+                extra = {"Vary": "Accept-Encoding"}
+                if enc:
+                    extra["Content-Encoding"] = enc
+                return 200, "text/plain; version=0.0.4", body, extra
+            if path == "/healthz":
+                ok, reason = exporter.healthy()
+                return (200 if ok else 503), "text/plain", reason
+            return 404, "text/plain", "not found\n"
+
+        super().__init__(dispatch, port=port, bind=bind)

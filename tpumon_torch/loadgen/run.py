@@ -332,6 +332,10 @@ def run_window(work: Workload, seconds: float, sync_every: int = 32,
             # one final sweep: which families carry REAL (non-blank)
             # samples on this device?
             counts = parse_families(exporter.sweep())
+            # every capture of the run, the warm-up's and the final one
+            # included: landed, and refused (a lost-records capture)
+            run_cost = trace_cost()
+            capture_error = h.backend.trace_last_error()
         finally:
             tpumon_torch.shutdown()
         nonblank = sorted(k for k, v in counts.items()
@@ -339,6 +343,10 @@ def run_window(work: Workload, seconds: float, sync_every: int = 32,
         family_stats = {"families_nonblank": len(nonblank),
                         "families": nonblank,
                         "capture_forced": captured,
+                        "captures_ok": int(run_cost.get("captures_ok", 0)),
+                        "captures_failed": int(
+                            run_cost.get("captures_failed", 0)),
+                        "capture_last_error": capture_error,
                         "monitor_cost": monitor_cost(
                             cost0, cost1, sweep_s, elapsed, blocks,
                             win_spans, t0)}
@@ -399,6 +407,10 @@ def main(argv=None) -> int:
     result = run_window(work, args.seconds, args.sync_every,
                         args.self_monitor, args.monitor_output,
                         device_name(device))
+    from . import kernels as K
+    # the process's kernel launches (its graph's replays counted): what a
+    # caller in another process reads to see the path ran the kernels
+    result["launches"] = dict(K.LAUNCHES)
     if args.json:
         print(json.dumps(result))
     else:

@@ -12,8 +12,8 @@
  * points out (a driver without them).  The fake_nvml_* functions are the
  * tests' controls: a return code forced on an entry point by name (or on
  * one field value, as "field:<id>"), the device count, an Xid queued for
- * the event set, and a step of the NVLink data counters and their
- * clock. */
+ * the event set, a step of the NVLink data counters and their clock, and
+ * the counts of nvmlInit_v2 and nvmlShutdown calls. */
 #include <pthread.h>
 #include <stdio.h>
 #include <string.h>
@@ -41,6 +41,8 @@ static pthread_mutex_t g_mu = PTHREAD_MUTEX_INITIALIZER;
 static pthread_cond_t g_cv = PTHREAD_COND_INITIALIZER;
 static struct { int dev; unsigned long long xid; } g_xids[32];
 static int g_nxid;
+static int g_inits;
+static int g_shutdowns;
 
 /* ---- controls ----------------------------------------------------------- */
 
@@ -50,9 +52,15 @@ void fake_nvml_reset(void) {
   g_nover = 0;
   g_nxid = 0;
   g_clock_us = 1000000;
+  g_inits = 0;
+  g_shutdowns = 0;
   memset(g_link_kib, 0, sizeof(g_link_kib));
   pthread_mutex_unlock(&g_mu);
 }
+
+int fake_nvml_inits(void) { return g_inits; }
+
+int fake_nvml_shutdowns(void) { return g_shutdowns; }
 
 void fake_nvml_set_count(int n) { g_count = n; }
 
@@ -116,10 +124,19 @@ static nvmlReturn_t copy_str(char *out, unsigned int len, const char *s) {
 nvmlReturn_t nvmlInit_v2(void) {
   FORCED("nvmlInit_v2");
   for (int i = 0; i < MAX_DEVICES; i++) g_devs[i].index = i;
+  g_inits++;
   return NVML_SUCCESS;
 }
 
-nvmlReturn_t nvmlShutdown(void) { return NVML_SUCCESS; }
+nvmlReturn_t nvmlInitWithFlags(unsigned int flags) {
+  (void)flags;
+  return nvmlInit_v2();
+}
+
+nvmlReturn_t nvmlShutdown(void) {
+  g_shutdowns++;
+  return NVML_SUCCESS;
+}
 
 nvmlReturn_t nvmlDeviceGetCount_v2(unsigned int *n) {
   FORCED("nvmlDeviceGetCount_v2");
