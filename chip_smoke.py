@@ -111,8 +111,24 @@
    split layout's pod daemon (``daemon_phase`` says each check).  The
    train kernels' launches on this path are the workload process's own
    counts, which start at 0 with it and which it prints at its end.
-9. Prints each load pattern's busy share (its kernel's device time over
-   its self-monitored step), then one ``{"kernels": [...], "backward":
+9. ``planes``: the exporter daemon with its burst, flight-recorder and
+   anomaly planes on (``-d 1000 --burst-hz 100 --blackbox-dir D --rules
+   R``) over NVML, in a leg of its own, while this process drives B4 (the
+   ``mxu`` pattern) idle 4 s, as a 250/250 ms square wave for 8 s, steady
+   for 5 s and idle 5 s, and appends an ``NVRM: Xid`` line to the kmsg
+   fixture the daemon reads.  Scraped at 1 Hz, the recording replayed
+   through ``tpumon_torch.cli.replay`` after SIGTERM, then a second
+   daemon on the same directory killed with SIGKILL (``planes_phase``
+   says each check).  Prints the daemon's CPU share with the 100 Hz loop
+   in the idle tail, where this process's own 100 Hz sampler is stopped,
+   and per load phase, beside the ``daemon`` phase's; the inner loop's
+   NVML read per tick,
+   each power reading's and utilization's spread per 1 s window by load
+   phase, the recorder's bytes per tick and the anomaly and record
+   phases.  B4's launches join the kernels line as path ``planes``.
+10. Prints each load pattern's busy share (its kernel's device time over
+   its self-monitored step), the card's name and power limit again, then
+   one ``{"kernels": [...], "backward":
    {...}}`` line.  ``backward`` is the port's whole backward pass, the dQ
    and dK/dV kernels' device times summed, beside SDPA's backward (dQ, dK
    and dV in one call) at the bench shape and at S=1024.  ``kernels`` has
@@ -2117,6 +2133,604 @@ def daemon_phase(fields) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# -- the planes: burst, flight recorder, anomaly ------------------------------
+
+#: the planes phase's B4 timeline, (name, seconds): the square wave steps
+#: the ``mxu`` pattern for SQUARE_HALF_S, then idles as long
+PLANES_TIMELINE = (("idle", 4.0), ("square", 8.0), ("steady", 5.0),
+                   ("idle_tail", 5.0))
+#: the phase the smoke's own 100 Hz sampler stays out of: the daemon's
+#: CPU and overruns there are its own
+CLEAN_PHASE = "idle_tail"
+SQUARE_HALF_S = 0.25
+PLANES_HZ = 100
+#: the burst sources a card must serve and the one it must leave blank
+#: (206: NVML has no source for it)
+BURST_SERVED = (155, 203, 204)
+BURST_BLANK = (206,)
+#: a threshold on utilization, and an incident joining it with an Xid
+#: line (the kmsg fixture the phase appends to during the steady load)
+PLANES_RULES = """version: 1
+detectors:
+  - name: gpu_busy
+    field: TENSORCORE_UTIL
+    type: threshold
+    above: 80
+incidents:
+  - name: busy_gpu_fell_off_the_bus
+    require:
+      - anomaly: gpu_busy
+      - event: CHIP_RESET
+    window_s: 30
+"""
+#: the bounds the phase holds: overruns per 100 Hz tick, the power
+#: integrals over the energy counter's delta, the record phase's share of
+#: the sweep (the reference's acceptance, ``bench.py:1341-1344``)
+OVERRUN_SHARE_MAX = 0.05
+ENERGY_RATIO_TOL = 0.10
+RECORD_SHARE_MAX = 0.05
+#: decision (a) held: under the square wave the instant power's window
+#: spread is at least this many times nvmlDeviceGetPowerUsage's
+INSTANT_OVER_USAGE_MIN = 4.0
+
+
+def replay_cli(env, *args) -> str:
+    r = subprocess.run([sys.executable, "-m", "tpumon_torch.cli.replay",
+                        *args], cwd=HERE, env=env, capture_output=True,
+                       text=True, timeout=120)
+    if r.returncode != 0:
+        raise AssertionError(f"replay {' '.join(args)} exited "
+                             f"{r.returncode}: {r.stderr[-2000:]}")
+    return r.stdout
+
+
+def segment_records(path: str) -> list:
+    """(lead byte, record bytes) of every whole record of a segment file,
+    walked by the framing alone (lead byte, varint length, payload), up
+    to a torn tail."""
+
+    with open(path, "rb") as f:
+        data = f.read()
+    out, pos = [], 0
+    while pos < len(data):
+        p, length, shift = pos + 1, 0, 0
+        while p < len(data):
+            b = data[p]
+            p += 1
+            length |= (b & 0x7F) << shift
+            shift += 7
+            if not b & 0x80:
+                break
+        else:
+            break
+        if p + length > len(data):
+            break
+        out.append((data[pos], p + length - pos))
+        pos = p + length
+    return out
+
+
+def spreads(series, bounds) -> dict:
+    """Per timeline phase, the median over its whole 1 s windows of each
+    reading's max - min: ``series`` is [(wall ts, {reading: value})]."""
+
+    out = {}
+    for name, a, b in bounds:
+        per = {}
+        w = a
+        while w + 1.0 <= b:
+            win = [v for t, v in series if w <= t < w + 1.0]
+            for key in (win[0] if win else {}):
+                vals = [x[key] for x in win if x.get(key) is not None]
+                if len(vals) >= 2:
+                    per.setdefault(key, []).append(max(vals) - min(vals))
+            w += 1.0
+        out[name] = {k: quantile(v, 0.5) for k, v in per.items()}
+    return out
+
+
+def planes_phase(K, fields, daemon_cpu_percent=None) -> dict:
+    """``planes``: the exporter daemon with its three planes on, over
+    NVML, while this process drives B4 (the ``mxu`` pattern) through
+    PLANES_TIMELINE: ``python -m tpumon_torch.exporter.main -d 1000 --port
+    P --burst-hz 100 --blackbox-dir D --rules R``, with the kernel log read
+    from a fixture file (``TPUMON_KMSG_PATH``) to which the phase appends
+    one ``NVRM: Xid`` line of the card during the steady load.  Scraped at
+    1 Hz throughout; until CLEAN_PHASE this process samples both NVML
+    power readings at 100 Hz beside it (decision (a), PERF.md) and times
+    the inner loop's read, and the daemon's CPU share is taken per phase,
+    CLEAN_PHASE's being its own.  Fails unless:
+
+    * burst: from the first whole window on, every scrape serves the 12
+      derived families of 155, 203 and 204 for the card and none of
+      206's; every recorded window has min <= mean <= max; overruns are at
+      most OVERRUN_SHARE_MAX of the ticks; the power integrals of the
+      recorded windows between the first and last scrape are within
+      ENERGY_RATIO_TOL of the energy counter's delta over them; under
+      the square wave the instant power's window spread is at least
+      INSTANT_OVER_USAGE_MIN times ``nvmlDeviceGetPowerUsage``'s;
+    * recorder: after SIGTERM ``tpumon_torch.cli.replay --list`` shows
+      the segment, ``--format json`` has one tick per sweep with rising
+      stamps (the first a keyframe), the snapshot replayed at the last
+      scraped sweep and rendered ``--format promtext`` equals that
+      scrape's catalog samples, the ``record`` phase is under
+      RECORD_SHARE_MAX of the sweep; a second daemon on the same
+      directory opens a new segment and, killed with SIGKILL mid-run,
+      leaves one whose every whole record the reader recovers, raising
+      nothing;
+    * anomaly: ``gpu_busy`` fired and stayed active through the steady
+      load (every scrape from 2 s into it), and was cleared
+      after the idle tail (``tpumon_anomaly_active`` 0), the incident
+      joined the Xid line naming the card (``#chip<i>``), the findings
+      are the recording's 0xB3 records, and ``replay --backtest`` (with
+      the card's bus) re-derives exactly them;
+    * the daemon holds no CUDA context (as in ``daemon_phase``).
+
+    B4's launches are this process's, counted over the timeline."""
+
+    import shutil
+    import signal
+    import tempfile
+    from tpumon_torch import blackbox as BB
+    from tpumon_torch.kmsg import bus_key
+
+    b, i = nvml_open(fields)
+    out = {"kmsg_device_readable": os.access("/dev/kmsg", os.R_OK)}
+    shm = "/dev/shm" if os.access("/dev/shm", os.W_OK) else None
+    work = tempfile.mkdtemp(prefix="tpumon-planes-", dir=shm)
+    bb_dir = os.path.join(work, "bb")
+    rules = os.path.join(work, "rules.yaml")
+    kmsg = os.path.join(work, "kmsg")
+    with open(rules, "w") as f:
+        f.write(PLANES_RULES)
+    open(kmsg, "w").close()
+    # the card's PCI bus as NVML gives it, else as CUDA does (the card's
+    # sandbox answers NVML's PCI info NOT_SUPPORTED); the daemon's engine
+    # maps it to the card only where its NVML bus map holds it
+    key = bus_key(b.chip_info(i).pci.bus_id)
+    if key is None:
+        import torch
+        props = torch.cuda.get_device_properties(0)
+        key = tuple(getattr(props, f"pci_{k}_id", 0)
+                    for k in ("domain", "bus", "device"))
+    pci = "%04x:%02x:%02x" % key
+    bus_map = {"%04x:%02x:%02x" % k: v for k, v in b.bus_index().items()}
+    out["bus_map"] = bus_map
+    env = dict(os.environ, PYTHONPATH=HERE, TPUMON_KMSG_PATH=kmsg)
+    for k in ("TPUMON_BACKEND", "TPUMON_CHIPS"):
+        env.pop(k, None)
+    daemon = second = None
+    stop, scrape_stop = threading.Event(), threading.Event()
+    threads = []
+    samples_ = []
+    errors = []
+    burst_fids = list(fields.BURST_SOURCE_FIELDS)
+
+    def sampler():
+        """The 1 Hz family's power reading (nvmlDeviceGetPowerUsage) beside
+        the inner loop's own read (power from the instant field), 100 Hz;
+        the latter timed."""
+        period = 1.0 / PLANES_HZ
+        nxt = time.monotonic()
+        try:
+            while not stop.is_set():
+                usage = b.read_fields(i, [155])[155]
+                t0 = time.monotonic()
+                tick = b.read_burst_fields([(i, burst_fids)])[i]
+                wall = time.monotonic() - t0
+                samples_.append((time.time(), {
+                    "power_instant": tick.get(155), "power_usage": usage,
+                    "util": tick.get(203), "tick_ms": 1000.0 * wall}))
+                nxt += period
+                stop.wait(max(0.0, nxt - time.monotonic()))
+        except Exception as e:  # surfaced after the join
+            errors.append(e)
+
+    args = ["tpumon_torch.exporter.main", "-o", os.path.join(work, "g.prom"),
+            "-d", "1000", "--burst-hz", str(PLANES_HZ), "--blackbox-dir",
+            bb_dir, "--rules", rules, "--wait-for-tpu", "30"]
+    failures = []
+    try:
+        step, state = K.make_pattern("mxu", device="cuda")
+        drain(step(state))
+        port = free_port()
+        daemon = spawn([*args, "--port", str(port)], env,
+                       os.path.join(work, "daemon.err"))
+        t_start = time.monotonic()
+        while True:
+            try:
+                if http_get(port, "/healthz")[0] == 200:
+                    break
+            except OSError:
+                pass
+            if daemon.poll() is not None or time.monotonic() - t_start > 60:
+                with open(os.path.join(work, "daemon.err")) as f:
+                    raise AssertionError("the planes daemon never answered "
+                                         f"/healthz 200: {f.read()[-2000:]}")
+            time.sleep(0.1)
+        time.sleep(1.0)
+        scrapes = []  # (wall ts, monotonic, rows)
+
+        def scraper():
+            try:
+                while not scrape_stop.is_set():
+                    tick = time.monotonic()
+                    status, _, body, _ = http_get(port, "/metrics")
+                    if status != 200:
+                        raise AssertionError(f"/metrics {status}")
+                    scrapes.append((time.time(), tick,
+                                    samples(body.decode())))
+                    scrape_stop.wait(max(0.0, 1.0 - (time.monotonic()
+                                                     - tick)))
+            except Exception as e:
+                errors.append(e)
+
+        threads = [threading.Thread(target=fn, daemon=True)
+                   for fn in (sampler, scraper)]
+        for th in threads:
+            th.start()
+        # the daemon's CPU at each timeline boundary: the smoke's sampler
+        # shares the NVML proxy with it, so the tail, sampled by nothing
+        # but the daemon, gives the clean figure
+        marks = [(proc_stat(daemon.pid), time.monotonic())]
+        for name in K.LAUNCHES:
+            K.LAUNCHES[name] = 0
+        bounds, xid_ts = [], None
+        s = state
+        for name, secs in PLANES_TIMELINE:
+            if name == CLEAN_PHASE:
+                stop.set()
+                threads[0].join(timeout=30)
+            a = time.time()
+            end = time.monotonic() + secs
+            if name == "square":
+                while time.monotonic() < end:
+                    on = time.monotonic() + SQUARE_HALF_S
+                    while time.monotonic() < on:
+                        for _ in range(8):
+                            s = step(s)
+                        drain(s)
+                    time.sleep(max(0.0, min(end, on + SQUARE_HALF_S)
+                                   - time.monotonic()))
+            elif name == "steady":
+                while time.monotonic() < end:
+                    for _ in range(32):
+                        s = step(s)
+                    drain(s)
+                    if xid_ts is None and time.monotonic() > end - secs / 2:
+                        xid_ts = time.time()
+                        with open(kmsg, "a") as f:
+                            f.write(f"3,9001,{int(xid_ts * 1e6)},-;NVRM: "
+                                    f"Xid (PCI:{pci}): 79, pid=4242, "
+                                    f"name=chip_smoke, GPU has fallen off "
+                                    f"the bus.\n")
+            else:
+                time.sleep(secs)
+            bounds.append((name, a, time.time()))
+            if name != CLEAN_PHASE:
+                marks.append((proc_stat(daemon.pid), time.monotonic()))
+        launches = K.LAUNCHES["mxu_burn"]
+        time.sleep(1.5)  # the idle tail's last window reaches a scrape
+        marks.append((proc_stat(daemon.pid), time.monotonic()))
+        scrape_stop.set()
+        stop.set()
+        for th in threads:
+            th.join(timeout=30)
+        if errors:
+            raise AssertionError(f"planes sampler/scraper failed: {errors}")
+        context = {"daemon": cuda_context_marks(daemon.pid),
+                   "nvml_init_alone": nvml_init_marks(env)}
+        rc, exit_s = stop_proc(daemon)
+        with open(os.path.join(work, "daemon.err")) as f:
+            daemon_err = f.read()
+        out["kmsg_watcher"] = ("fixture" if "feeding kmsg lines" in
+                               daemon_err else "off")
+        maps = context["daemon"]
+        if maps["libs"] or maps["uvm_mapped"]:
+            failures.append(f"the daemon maps {maps}")
+        if maps["libcuda"] and not context["nvml_init_alone"]["libcuda"]:
+            failures.append("the daemon maps libcuda, nvmlInit_v2 alone "
+                            "does not")
+        if rc != 0 or exit_s > 5.0:
+            failures.append(f"SIGTERM: exit {rc} in {exit_s:.2f} s")
+
+        # -- burst, from the scrapes ------------------------------------
+        card = str(i)
+        cat = fields.CATALOG
+        want_fams = {cat[fields.burst_id(s_, a_)].prom_name
+                     for s_ in BURST_SERVED for a_ in range(4)}
+        blank_fams = {cat[fields.burst_id(s_, a_)].prom_name
+                      for s_ in BURST_BLANK for a_ in range(4)}
+
+        def val(rows, fam, **lab):
+            for sid, f_, lb, v, ok in rows:
+                if f_ == fam and all(lb.get(k) == x for k, x in lab.items()):
+                    return float(v)
+            return None
+
+        first_whole = None
+        for k, (ts, mono, rows) in enumerate(scrapes):
+            fams = {r[1] for r in rows if r[2].get("chip") == card}
+            if first_whole is None and want_fams <= fams:
+                first_whole = k
+            if first_whole is not None:
+                if want_fams - fams:
+                    failures.append(f"scrape {k}: burst families missing "
+                                    f"{sorted(want_fams - fams)}")
+            if blank_fams & fams:
+                failures.append(f"scrape {k}: 206's families served "
+                                f"{sorted(blank_fams & fams)}")
+        if first_whole is None or first_whole > 2:
+            failures.append(f"first whole burst window at scrape "
+                            f"{first_whole}")
+        first, last = scrapes[first_whole or 0], scrapes[-1]
+
+        def overruns(a, b_):
+            """(overruns, 100 Hz ticks) between two scrapes."""
+            return ((val(b_[2], "tpumon_agent_burst_overruns_total") or 0) -
+                    (val(a[2], "tpumon_agent_burst_overruns_total") or 0),
+                    PLANES_HZ * (b_[1] - a[1]))
+
+        over, ticks_run = overruns(first, last)
+        # the clean window's scrapes serve sweeps taken after the
+        # sampler stopped
+        clean_a = [x for x in bounds if x[0] == CLEAN_PHASE][0][1]
+        clean = [x for x in scrapes if x[0] >= clean_a + 1.0]
+        over_clean, ticks_clean = (overruns(clean[0], clean[-1])
+                                   if len(clean) > 1 else (None, 0))
+        phase_ms = {}
+        sweep_ms = []
+        for ts, mono, rows in scrapes:
+            for sid, f_, lb, v, ok in rows:
+                if f_ == "tpumon_exporter_sweep_phase_seconds":
+                    phase_ms.setdefault(lb["phase"], []).append(
+                        1000.0 * float(v))
+                elif f_ == "tpumon_exporter_scrape_duration_seconds":
+                    sweep_ms.append(1000.0 * float(v))
+
+        # -- the recording --------------------------------------------
+        reader = BB.BlackBoxReader(bb_dir)
+        items = list(reader.replay())
+        ticks = [x for x in items if isinstance(x, BB.ReplayTick)]
+        recorded = [x for x in items if isinstance(x, BB.AnomalyRecord)]
+        ci = int(card)
+        pw, E = 155, int(fields.F.TOTAL_ENERGY)
+        for tk in ticks:
+            vals = tk.snapshot.get(ci, {})
+            for src in BURST_SERVED:
+                lo, hi, mean = (vals.get(fields.burst_id(src, a_))
+                                for a_ in range(3))
+                if None not in (lo, hi, mean) and not lo <= mean <= hi:
+                    failures.append(f"tick {tk.timestamp}: window of "
+                                    f"{src}: {lo} <= {mean} <= {hi} fails")
+        span = [tk for tk in ticks if first[0] - 1.0 <= tk.timestamp
+                <= last[0]]
+        integral = sum(tk.snapshot[ci].get(fields.burst_id(pw, 3)) or 0.0
+                       for tk in span[1:])
+        energy_j = (span[-1].snapshot[ci][E] - span[0].snapshot[ci][E]) \
+            / 1000.0 if len(span) > 1 else 0.0
+        ratio = integral / energy_j if energy_j else None
+        if ratio is None or abs(ratio - 1.0) > ENERGY_RATIO_TOL:
+            failures.append(f"burst power integral / energy delta {ratio}")
+
+        # recorder bytes per tick by timeline phase
+        seg = reader.segments()
+        recs = segment_records(seg[0].path)
+        per_tick, cur = [], None
+        for lead, n in recs:
+            if lead == BB.TICK_MAGIC:
+                cur = n
+            elif lead == 0xA9 and cur is not None:
+                per_tick.append(cur + n)
+                cur = None
+        byte_phase = {}
+        for tk, nbytes in zip(ticks, per_tick):
+            for name, a, b_ in bounds:
+                if a <= tk.timestamp - 0.5 < b_:
+                    byte_phase.setdefault(name, []).append(nbytes)
+
+        # -- replay CLI ------------------------------------------------
+        listing = replay_cli(env, "--dir", bb_dir, "--list")
+        if seg[0].name not in listing:
+            failures.append(f"--list does not show {seg[0].name}")
+        objs = [json.loads(ln) for ln in replay_cli(
+            env, "--dir", bb_dir, "--format", "json").splitlines()]
+        jt = [o for o in objs if o["kind"] == "tick"]
+        stamps = [o["ts"] for o in jt]
+        frames_last = val(last[2], "tpumon_blackbox_frames_total")
+        if not (jt and jt[0]["keyframe"] and
+                all(b_ > a for a, b_ in zip(stamps, stamps[1:])) and
+                all(0.5 < b_ - a < 2.0 for a, b_ in zip(stamps, stamps[1:]))
+                and frames_last is not None
+                and frames_last <= len(jt) <= frames_last + 4):
+            failures.append(f"replay json: {len(jt)} ticks, keyframe "
+                            f"{jt[0]['keyframe'] if jt else None}, frames "
+                            f"at the last scrape {frames_last}")
+        at = jt[int(frames_last) - 1]["ts"] if frames_last else None
+        prom = replay_cli(env, "--dir", bb_dir, "--format", "promtext",
+                          "--at", repr(at))
+        replayed = {(r[1], r[2].get("chip")): r[3] for r in samples(prom)}
+        catalog = {m.prom_name for m in cat.values()}
+        scraped = {(r[1], r[2].get("chip")): r[3] for r in last[2]
+                   if r[1] in catalog}
+        if replayed != scraped:
+            diff = sorted(set(replayed.items()) ^ set(scraped.items()))
+            failures.append(f"replayed promtext != the last scrape: "
+                            f"{diff[:6]}")
+        findings = [o for o in objs if o["kind"] in ("anomaly", "incident")]
+        bt = [json.loads(ln) for ln in replay_cli(
+            env, "--dir", bb_dir, "--backtest", rules, "--format", "json",
+            *[a for k, v in bus_map.items() for a in ("--bus", f"{k}={v}")]
+        ).splitlines()]
+        summary = bt[-1]
+        if bt[:-1] != findings or summary.get("kind") != "backtest_summary":
+            failures.append(f"backtest {bt[:-1][:4]} != recorded "
+                            f"{findings[:4]}")
+
+        # -- anomaly, from the scrapes ---------------------------------
+        steady = [x for x in bounds if x[0] == "steady"][0]
+        fired = [val(r, "tpumon_anomaly_findings_total", rule="gpu_busy")
+                 for ts, _, r in scrapes if steady[1] <= ts <= steady[2] + 1]
+        # a scrape serves the sweep before it, whose reading may reach
+        # back into the square wave: from 2 s into the steady load on,
+        # every sweep scores it firing (the threshold has no hysteresis)
+        active_steady = [val(r, "tpumon_anomaly_active", rule="gpu_busy")
+                         for ts, _, r in scrapes
+                         if steady[1] + 2.0 <= ts <= steady[2] + 0.5]
+        active_end = val(last[2], "tpumon_anomaly_active", rule="gpu_busy")
+        cleared = val(last[2], "tpumon_anomaly_cleared_total",
+                      rule="gpu_busy")
+        incidents = [f_ for f_ in findings if f_["kind"] == "incident"]
+        if not fired or max(x or 0 for x in fired) < 1:
+            failures.append(f"gpu_busy never fired in the steady load: "
+                            f"{fired}")
+        if len(active_steady) < 2 or not all(active_steady):
+            failures.append(f"gpu_busy not active through the steady "
+                            f"load: {active_steady}")
+        if active_end != 0 or not cleared or cleared < 1:
+            failures.append(f"gpu_busy active {active_end}, cleared "
+                            f"{cleared} after the idle tail")
+        if len(recorded) != len(findings) or not findings:
+            failures.append(f"{len(recorded)} 0xB3 records, "
+                            f"{len(findings)} findings in the json")
+        # the Xid line joins the incident, naming the card where the bus
+        # map holds its bus
+        named = f"#chip{i}" if pci in bus_map else ""
+        if not any(e.startswith("event:CHIP_RESET@") and e.endswith(named)
+                   and ("#chip" in e) == bool(named)
+                   for f_ in incidents for e in f_["evidence"]):
+            failures.append(f"no incident joins the Xid line "
+                            f"({named or 'no bus map'}): {incidents}")
+
+        # -- a second daemon: new segment, then SIGKILL ------------------
+        port2 = free_port()
+        second = spawn([*args, "--port", str(port2)], env,
+                       os.path.join(work, "second.err"))
+        t2 = time.monotonic()
+        while time.monotonic() - t2 < 60:
+            try:
+                if http_get(port2, "/healthz")[0] == 200:
+                    break
+            except OSError:
+                pass
+            time.sleep(0.1)
+        time.sleep(3.3)
+        second.send_signal(signal.SIGKILL)
+        second.wait()
+        segs = BB.BlackBoxReader(bb_dir).segments()
+        r2 = BB.BlackBoxReader(bb_dir)
+        try:
+            after = list(r2.replay())
+        except Exception as e:  # the reader must never raise
+            failures.append(f"reader raised after SIGKILL: {e!r}")
+            after = []
+        whole = sum(1 for lead, _ in segment_records(segs[-1].path)
+                    if lead == 0xA9) if len(segs) == 2 else None
+        got = sum(1 for x in after if isinstance(x, BB.ReplayTick)
+                  and x.timestamp >= segs[-1].start_ts) \
+            if len(segs) == 2 else None
+        if len(segs) != 2 or whole != got or not got:
+            failures.append(f"after SIGKILL: {len(segs)} segments, "
+                            f"{whole} whole frames, {got} recovered")
+
+        def cpu_percent(m0, m1):
+            return round(100.0 * (m1[0]["cpu_s"] - m0[0]["cpu_s"])
+                         / (m1[1] - m0[1]), 3)
+
+        cpu_by_phase = {name: cpu_percent(m0, m1) for (name, _), m0, m1 in
+                        zip(PLANES_TIMELINE, marks, marks[1:])}
+        series = [(t, {k: v for k, v in x.items() if k != "tick_ms"})
+                  for t, x in samples_]
+        spread = spreads(series, bounds)
+        sq = spread.get("square", {})
+        inst_over_usage = (sq["power_instant"] / sq["power_usage"]
+                           if sq.get("power_usage") else None)
+        win_spread = {}
+        for tk in ticks:
+            v = tk.snapshot.get(ci, {})
+            for name, a, b_ in bounds:
+                if a + 1.0 <= tk.timestamp <= b_:
+                    for src, key in ((155, "power"), (203, "util")):
+                        lo = v.get(fields.burst_id(src, 0))
+                        hi = v.get(fields.burst_id(src, 1))
+                        if lo is not None and hi is not None:
+                            win_spread.setdefault(name, {}).setdefault(
+                                key, []).append(hi - lo)
+        tick_ms = [x["tick_ms"] for _, x in samples_]
+        out.update({
+            "kmsg_fixture_xid_at": xid_ts, "card_pci": pci,
+            "scrapes": len(scrapes), "first_whole_window_scrape": first_whole,
+            "families_nonblank": len({r[1] for r in last[2]
+                                      if r[1].startswith("tpu_")
+                                      and r[2].get("chip") == card}),
+            "overruns": over, "ticks": round(ticks_run, 1),
+            "overrun_share": round(over / ticks_run, 5) if ticks_run else None,
+            "overruns_clean": over_clean, "ticks_clean": round(ticks_clean, 1),
+            "energy_ratio": ratio, "energy_j": energy_j,
+            "power_integral_j": integral,
+            "cpu_percent_burst_100hz": cpu_by_phase[CLEAN_PHASE],
+            "cpu_percent_by_phase": cpu_by_phase,
+            "cpu_percent_beside_smoke_sampler": cpu_percent(
+                marks[0], marks[len(PLANES_TIMELINE) - 1]),
+            "cpu_percent_daemon_phase_1hz": daemon_cpu_percent,
+            "inner_read_ms_p50": quantile(tick_ms, 0.5),
+            "inner_read_ms_p99": quantile(tick_ms, 0.99),
+            "inner_read_ms_mean": (sum(tick_ms) / len(tick_ms)
+                                   if tick_ms else None),
+            "smoke_samples": len(samples_),
+            "spread_smoke_100hz": spread,
+            "square_spread_instant_over_usage": inst_over_usage,
+            "spread_daemon_windows": {k: {kk: quantile(vv, 0.5)
+                                          for kk, vv in d.items()}
+                                      for k, d in win_spread.items()},
+            "recorder_bytes_per_tick": {k: sum(v) / len(v)
+                                        for k, v in byte_phase.items()},
+            "sweep_ms_p50": quantile(sweep_ms, 0.5),
+            "phase_ms_p50": {k: quantile(v, 0.5) for k, v in
+                             phase_ms.items()},
+            "record_share": (quantile(phase_ms.get("record", []), 0.5) or 0)
+            / (quantile(sweep_ms, 0.5) or 1),
+            "ticks_recorded": len(jt), "frames_at_last_scrape": frames_last,
+            "findings": [(f_["kind"], f_["rule"], f_["state"], f_["ts"])
+                         for f_ in findings],
+            "incident_evidence": [f_["evidence"] for f_ in incidents],
+            "backtest_summary": summary,
+            "segments_after_restart": len(segs),
+            "sigkill_whole_frames": whole, "sigkill_recovered": got,
+            "torn_segments": r2.last_torn_segments,
+            "sigterm_exit": rc, "launches": {"mxu_burn": launches},
+            "cuda_context_marks": context,
+        })
+        if out["record_share"] >= RECORD_SHARE_MAX:
+            failures.append(f"record phase {out['record_share']:.4f} of "
+                            f"the sweep")
+        if out["overrun_share"] is None or \
+                out["overrun_share"] > OVERRUN_SHARE_MAX:
+            failures.append(f"overruns {over} of {ticks_run:.0f} ticks")
+        if launches <= 0:
+            failures.append("B4 never launched on the planes path")
+        if inst_over_usage is None or \
+                inst_over_usage < INSTANT_OVER_USAGE_MIN:
+            failures.append(f"decision (a): under the square wave the "
+                            f"instant power's spread is {inst_over_usage} "
+                            f"times the usage call's")
+        if failures:
+            raise AssertionError(f"planes check failed: {failures[:10]} "
+                                 f"{out}")
+        return out
+    finally:
+        stop.set()
+        scrape_stop.set()
+        for th in threads:
+            th.join(timeout=30)
+        for proc in (daemon, second):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        b.close()
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -2193,6 +2807,14 @@ def main() -> int:
         rows[name]["launches_by_path"]["daemon"] = n
     print("daemon: " + json.dumps(daemon))
 
+    planes = planes_phase(K, fields, daemon["cpu_percent"])
+    n = planes["launches"]["mxu_burn"]
+    rows["mxu_burn"]["launches"] += n
+    rows["mxu_burn"]["launches_by_path"]["planes"] = n
+    print("planes: " + json.dumps(planes))
+
+    # the card again, where a tail of the output keeps it
+    print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": [rows[n] for n, _, _ in KERNELS],
                       "backward": backward}))
     print(json.dumps({"ok": True, "device": {

@@ -34,6 +34,7 @@ from tpumon.backends.base import Backend as JaxBackend
 from tpumon.exporter import exporter as JE
 from tpumon_torch import types as TT
 from tpumon_torch.backends.base import Backend
+from tpumon_torch.backends.cuda import CudaBackend
 from tpumon_torch.exporter import exporter as TE
 from tpumon_torch.exporter.promtext import parse_families
 
@@ -340,16 +341,50 @@ def test_failing_pod_map_keeps_the_sweep(tmp_path, monkeypatch):
     assert "tpu_power_usage" in p.sweep()
 
 
-# ---- what stays refused ------------------------------------------------------
+# ---- the reference's plane options ----------------------------------------------
 
 @pytest.mark.parametrize("opt,val", [
     ("burst", True), ("burst_hz", 50), ("blackbox_dir", "/tmp/bb"),
     ("blackbox_max_bytes", 1 << 20), ("rules", object()),
     ("ici_per_link_modeled", True)])
-def test_unported_planes_name_item_16b(opt, val):
-    h = tpumon_torch.Handle(_stub_backend(Backend, TT, {0: {}, 1: {}}))
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        TE.TpuExporter(h, output_path=None, **{opt: val})
+def test_unported_planes_name_item_16b(opt, val, tmp_path):
+    """Each plane option of the reference's exporter: the burst, recorder
+    and anomaly planes (ROADMAP.md item 16b, parts 1-3) now run; the
+    modeled per-link split is still refused, naming its item (item 7).
+    The recorder writes under ``tmp_path``, the rules are a real set."""
+
+    from tpumon_torch import anomaly as TA
+
+    h = tpumon_torch.Handle(_stub_backend(Backend, TT,
+                                          {c: _values(c) for c in range(2)}))
+    if opt == "ici_per_link_modeled":
+        with pytest.raises(NotImplementedError, match="item 7"):
+            TE.TpuExporter(h, output_path=None, **{opt: val})
+        return
+    if opt == "blackbox_dir":
+        val = str(tmp_path / "bb")
+    if opt == "rules":
+        val = TA.Rules.from_dict({"version": 1, "detectors": [
+            {"name": "busy", "field": 203, "type": "threshold",
+             "above": -1}]})
+    exp = TE.TpuExporter(h, output_path=None, **{opt: val})
+    try:
+        text = exp.sweep(now=T0)
+    finally:
+        exp.stop()
+    fams = parse_families(text)
+    if opt in ("burst", "burst_hz"):
+        from tpumon_torch import fields as TF
+        assert set(TF.EXPORTER_BURST_FIELDS) <= set(exp.field_ids)
+        assert (exp._burst_sampler is not None) == (opt == "burst_hz")
+    elif opt == "blackbox_dir":
+        assert fams["tpumon_blackbox_frames_total"] == 1
+        assert len(os.listdir(val)) == 1
+    elif opt == "rules":
+        assert fams["tpumon_anomaly_findings_total"] == 1
+        assert exp.last_findings
+    else:
+        assert exp.blackbox is None and "tpumon_blackbox" not in text
 
 
 # ---- HTTP --------------------------------------------------------------------
@@ -768,10 +803,211 @@ def test_wait_for_gpu_gives_up_within_its_bound(cli_env, tmp_path):
     ["--blackbox-max-bytes", "4096"], ["--rules", "rules.yaml"],
     ["--stream-port", "9412"], ["--ici-per-link-modeled"],
     ["--connect", "unix:/tmp/agent.sock"], ["--start-agent"]])
-def test_unported_plane_flags_exit_naming_item_16b(flag, capsys):
+def test_unported_plane_flags_exit_naming_item_16b(flag, capsys, cli_env,
+                                                   tmp_path):
+    """Each plane flag of the reference's CLI: ``--burst``,
+    ``--burst-hz``, ``--blackbox-dir``, ``--blackbox-max-bytes`` and
+    ``--rules`` now run (over the fake NVML; the recorder under
+    ``tmp_path``, a real rules file); ``--stream-port`` and the agent run
+    modes exit 1 naming item 16b, ``--ici-per-link-modeled`` item 7."""
+
     from tpumon_torch.exporter import main
 
-    with pytest.raises(SystemExit) as e:
-        main.main([*flag, "--oneshot", "-o", "none"])
-    assert e.value.code == 1
-    assert "item 16b" in capsys.readouterr().err
+    refused = {"--stream-port": "item 16b", "--connect": "item 16b",
+               "--start-agent": "item 16b", "--ici-per-link-modeled":
+               "ROADMAP.md, Queue 1, item 7"}
+    if flag[0] in refused:
+        with pytest.raises(SystemExit) as e:
+            main.main([*flag, "--oneshot", "-o", "none"])
+        assert e.value.code == 1
+        assert refused[flag[0]] in capsys.readouterr().err
+        return
+    bb = tmp_path / "bb"
+    rules = tmp_path / "rules.yaml"
+    rules.write_text("version: 1\ndetectors:\n  - name: warm\n"
+                     "    field: tpu_core_temp\n    type: threshold\n"
+                     "    above: 1\n")
+    argv = [{"/tmp/bb": str(bb), "rules.yaml": str(rules)}.get(a, a)
+            for a in flag]
+    r = _main(*argv, "--oneshot", "-o", "none", env=cli_env)
+    assert r.returncode == 0, r.stderr
+    fams = parse_families(r.stdout)
+    want = {
+        # the families are asked for, and blank without the inner loop
+        "--burst": lambda: "tpu_power_usage_1s_min" not in fams,
+        "--burst-hz": lambda: fams.get("tpumon_agent_burst_rate_hz") == 1,
+        "--blackbox-dir": lambda: len(os.listdir(bb)) == 1,
+        "--blackbox-max-bytes": lambda: "tpumon_blackbox_segments" not in
+        fams,
+        # both fake cards run warm: two firings of the one rule
+        "--rules": lambda: re.search(
+            r'^tpumon_anomaly_findings_total\{[^}]*rule="warm"\} 2$',
+            r.stdout, re.M) is not None}
+    assert want[flag[0]](), r.stdout[-3000:]
+
+
+# ---- the burst, recorder and anomaly planes --------------------------------------
+
+PLANE_RULES = ("version: 1\ndetectors:\n"
+               "  - name: busy\n    field: TENSORCORE_UTIL\n"
+               "    type: threshold\n    above: 80\n"
+               "  - name: power_z\n    field: POWER_USAGE\n    type: ewma_z\n"
+               "    z: 2\n    min_samples: 3\n"
+               "incidents:\n  - name: busy_xid\n    window_s: 5\n"
+               "    require:\n      - anomaly: busy\n      - kmsg: Xid\n")
+
+
+def test_planes_render_the_reference_bytes(tmp_path, monkeypatch):
+    """The reference's and the port's exporter with the three planes on,
+    over the same values: each sweep's body (bar the timing families) and
+    the recorder's segment files must be equal byte for byte.  The burst
+    inner loops are stopped at once and fed the same seeded samples; the
+    kmsg lines go through ``anomaly_kmsg`` on both."""
+
+    import numpy as np
+    from tpumon import anomaly as JA
+    from tpumon import burst as JB
+    from tpumon_torch import anomaly as TA
+    from tpumon_torch import burst as TB
+
+    monkeypatch.setattr(JE._codec, "active", lambda: False)
+    rules = tmp_path / "rules.yaml"
+    rules.write_text(PLANE_RULES)
+    values = {c: _values(c) for c in range(2)}
+    exps = {}
+    for side, mod, base, types_mod, handle, amod, bmod in (
+            ("ref", JE, JaxBackend, JT, tpumon.Handle, JA, JB),
+            ("port", TE, Backend, TT, tpumon_torch.Handle, TA, TB)):
+        exp = mod.TpuExporter(
+            handle(_stub_backend(base, types_mod, values)),
+            interval_ms=1000, output_path=None, clock=lambda: T0,
+            burst_hz=50, blackbox_dir=str(tmp_path / side / "bb"),
+            rules=amod.load_rules(str(rules)))
+        exp._self_mon = types.SimpleNamespace(status=_Stats)
+        s = exp._burst_sampler
+        s.stop()
+        s._acc, s._overruns = bmod.BurstAccumulator(), 3
+        exps[side] = (exp, s)
+    rng = np.random.default_rng(9)
+    try:
+        for k in range(8):
+            now = T0 + k
+            for c in range(2):
+                values[c][203] = int(rng.choice([10, 90]))
+                values[c][155] = float(rng.uniform(100, 600))
+            samples = [(int(rng.integers(0, 2)), int(rng.choice(
+                [155, 203, 204])), now - 1 + 0.02 * j,
+                float(rng.uniform(0, 700))) for j in range(40)]
+            texts = []
+            for exp, s in exps.values():
+                for chip, fid, t, v in samples:
+                    s._acc.fold(chip, fid, t, v)
+                if k in (2, 5):
+                    assert exp.anomaly_kmsg(f"kernel: Xid note {k}",
+                                            now - 0.5)
+                texts.append(exp.sweep(now=now))
+            assert without_timings(texts[1]) == without_timings(texts[0])
+        fams = parse_families(texts[1])
+        for fam in ("tpu_power_usage_1s_integral", "tpumon_agent_burst_rate_hz",
+                    "tpumon_agent_burst_overruns_total",
+                    "tpumon_blackbox_bytes_written_total",
+                    "tpumon_anomaly_findings_total",
+                    "tpumon_incident_findings_total"):
+            assert fams.get(fam), fam
+        assert exps["port"][0].last_findings
+    finally:
+        for exp, _ in exps.values():
+            exp.stop()
+    files = {}
+    for side in exps:
+        d = tmp_path / side / "bb"
+        files[side] = {n: (d / n).read_bytes() for n in os.listdir(d)}
+    assert files["port"] == files["ref"] and files["port"]
+
+
+def test_burst_is_refused_over_the_cuda_backend(tmp_path):
+    """A read of the burst fields on the embedded ``CudaBackend`` runs a
+    probe or opens a trace session, so ``burst_hz`` over it fails the
+    start, and the recorder it had opened is released."""
+
+    stub = _stub_backend(Backend, TT, {c: _values(c) for c in range(2)})
+    stub.read_burst_fields = CudaBackend().read_burst_fields
+    with pytest.raises(ValueError, match="refused over the cuda backend"):
+        TE.TpuExporter(tpumon_torch.Handle(stub), output_path=None,
+                       burst_hz=100, blackbox_dir=str(tmp_path / "bb"))
+    exp = TE.TpuExporter(tpumon_torch.Handle(stub), output_path=None,
+                         burst=True)  # the families alone run anywhere
+    exp.stop()
+
+
+def test_oneshot_with_the_planes_imports_neither_torch_nor_jax(cli_env,
+                                                              tmp_path):
+    rules = tmp_path / "rules.yaml"
+    rules.write_text(PLANE_RULES)
+    code = ("import json, sys\n"
+            "from tpumon_torch.exporter import main\n"
+            f"rc = main.main(['--oneshot', '-o', 'none', '--burst-hz', '100',"
+            f" '--blackbox-dir', {str(tmp_path / 'bb')!r}, '--rules', "
+            f"{str(rules)!r}])\n"
+            "print(json.dumps([rc, sorted(m for m in sys.modules if "
+            "m.split('.')[0] in ('torch', 'jax', 'jaxlib', 'tpumon'))]))\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=REPO, env=cli_env, timeout=60)
+    assert r.returncode == 0, r.stderr
+    assert json.loads(r.stdout.strip().splitlines()[-1]) == [0, []]
+    fams = parse_families(r.stdout)
+    assert fams["tpumon_blackbox_frames_total"] == 1
+    assert fams["tpu_power_usage_1s_max"] == 2  # one per fake card
+
+
+def test_daemon_records_kmsg_lines_and_the_incident(cli_env, tmp_path):
+    """The daemon with its three planes over the fake NVML, its kernel log
+    a fixture file: an ``NVRM: Xid`` line appended while it runs is
+    recorded, joins the incident naming the fake's card by its bus, and
+    a backtest with that bus re-derives the recorded findings."""
+
+    bb, rules, kmsg = tmp_path / "bb", tmp_path / "r.yaml", tmp_path / "kmsg"
+    rules.write_text("version: 1\ndetectors:\n  - name: busy\n"
+                     "    field: TENSORCORE_UTIL\n    type: threshold\n"
+                     "    above: 80\nincidents:\n  - name: lost\n"
+                     "    window_s: 30\n    require:\n"
+                     "      - anomaly: busy\n      - event: CHIP_RESET\n")
+    kmsg.write_text("")
+    env = dict(cli_env, TPUMON_KMSG_PATH=str(kmsg))
+    proc, port = _serve(env, "-o", "none", "--burst-hz", "100",
+                        "--blackbox-dir", str(bb), "--rules", str(rules))
+    try:
+        _wait_http(port, "/healthz", lambda r: r[0] == 200)
+        with open(kmsg, "a") as f:
+            f.write("3,77,123,-;NVRM: Xid (PCI:0000:28:00): 79, pid=1, "
+                    "GPU has fallen off the bus.\n")
+        _wait_http(port, "/metrics", lambda r: b'tpumon_incident_findings_'
+                   b'total{host="' in r[2] and b'rule="lost"} 1' in r[2])
+    finally:
+        assert _term(proc) == 0
+    err = proc.stderr.read()
+    assert "feeding kmsg lines" in err
+    out = []
+    for argv in (["--format", "json"],
+                 ["--backtest", str(rules), "--format", "json", "--bus",
+                  "0000:18:00=0", "--bus", "0000:28:00=1"]):
+        r = subprocess.run([sys.executable, "-m", "tpumon_torch.cli.replay",
+                            "--dir", str(bb), *argv], capture_output=True,
+                           text=True, cwd=REPO, env=env, timeout=60)
+        assert r.returncode == 0, r.stderr
+        out.append([json.loads(ln) for ln in r.stdout.splitlines()])
+    recorded = [o for o in out[0] if o["kind"] in ("anomaly", "incident")]
+    assert [o for o in out[0] if o["kind"] == "kmsg"]
+    assert out[1][:-1] == recorded
+    (inc,) = [o for o in recorded if o["kind"] == "incident"]
+    assert inc["evidence"][-1].endswith("#chip1")
+
+
+def test_an_unusable_blackbox_dir_fails_the_start(cli_env, tmp_path):
+    (tmp_path / "file").write_text("")
+    r = _main("--oneshot", "-o", "none", "--blackbox-dir",
+              str(tmp_path / "file" / "bb"), env=cli_env)
+    assert r.returncode == 1 and "unusable" in r.stderr
+    r = _main("--oneshot", "-o", "none", "--rules",
+              str(tmp_path / "missing.yaml"), env=cli_env)
+    assert r.returncode == 1 and "missing.yaml" in r.stderr

@@ -569,27 +569,39 @@ def test_exporter_families_match_reference_exporter():
 
 
 def test_exporter_refuses_unported_planes(tmp_path):
-    """What is still unported (ROADMAP.md item 16b) is refused by name;
-    the textfile merge, the enricher and pod attribution now work (their
-    byte-for-byte cases are in ``tests/test_torch_exporter.py``)."""
+    """What is still unported is refused by name: the stream plane
+    (ROADMAP.md item 16b) and the modeled per-link split (item 7).  The
+    burst, recorder and anomaly planes run (their byte-for-byte cases are
+    in ``tests/test_torch_exporter.py``), and so do the textfile merge,
+    the enricher and pod attribution; ``anomaly_kmsg`` without rules
+    takes no line."""
 
     import tpumon_torch
     from tpumon_torch import types as TT
+    from tpumon_torch.anomaly import Rules
     from tpumon_torch.exporter.exporter import TpuExporter
 
     h = tpumon_torch.Handle(_stub_backend(
         Backend, TT, {c: _values(c) for c in range(2)}))
-    for opt, val in (("burst_hz", 50), ("blackbox_dir", str(tmp_path)),
-                     ("rules", object()), ("ici_per_link_modeled", True)):
-        with pytest.raises(NotImplementedError, match="item 16b"):
-            TpuExporter(h, **{opt: val})
+    with pytest.raises(NotImplementedError, match="item 7"):
+        TpuExporter(h, ici_per_link_modeled=True)
+    rules = Rules.from_dict({"version": 1, "detectors": [
+        {"name": "any", "field": 203, "type": "threshold", "above": -1}]})
+    planes = TpuExporter(h, output_path=None, burst_hz=50,
+                         blackbox_dir=str(tmp_path / "bb"), rules=rules)
+    try:
+        assert planes.anomaly_kmsg("x", 0.0) is True
+        text = planes.sweep()
+    finally:
+        planes.stop()
+    assert "tpumon_blackbox_frames_total" in text
+    assert "tpumon_anomaly_findings_total" in text
     (tmp_path / "drop.prom").write_text('tpu_workload_x{chip="0"} 7\n')
     exp = TpuExporter(h, output_path=str(tmp_path / "x.prom"),
                       merge_globs=[str(tmp_path / "drop.prom")])
-    for call in (lambda: exp.set_stream_publisher(None),
-                 lambda: exp.anomaly_kmsg("x", 0.0)):
-        with pytest.raises(NotImplementedError, match="item 16b"):
-            call()
+    with pytest.raises(NotImplementedError, match="item 16b"):
+        exp.set_stream_publisher(None)
+    assert exp.anomaly_kmsg("x", 0.0) is False
     exp.set_enricher(lambda text: text + "# enriched\n")
     text = exp.sweep()
     assert text.startswith("# HELP") and "# enriched" in text
@@ -718,7 +730,9 @@ def test_port_imports_neither_jax_nor_tpumon():
                 "loadgen/bench_gpu.py", "wire.py", "httputil.py",
                 "exporter/main.py", "exporter/grpc_min.py",
                 "exporter/podresources.py", "exporter/pod_attrib.py",
-                "exporter/pod_main.py"):
+                "exporter/pod_main.py", "sweepframe.py", "burst.py",
+                "blackbox.py", "anomaly.py", "simple_yaml.py",
+                "cli/replay.py"):
         assert os.path.join(REPO, "tpumon_torch", mod) in files, mod
     bad = []
     for path in files:

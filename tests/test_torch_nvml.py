@@ -682,3 +682,48 @@ def test_diag_evidence_over_nvml(cli_env):
     assert rep["nvml"] == {"found": True, "path": cli_env["TPUMON_NVML_PATH"]}
     fams = rep["families"]
     assert fams["backend"] == "nvml" and fams["live_count"] >= 20
+
+
+# ---- the burst inner loop's read ---------------------------------------------
+
+BURST = [155, 203, 204, 206]
+
+
+def test_burst_read_takes_power_from_the_instant_field(backend):
+    """The burst loop's power is ``NVML_FI_DEV_POWER_INSTANT`` (the
+    fake's 151250 mW on device 1, apart from ``nvmlDeviceGetPowerUsage``'s
+    124456): on the H100 the usage call is a 1 s average that shows none
+    of a 250 ms square wave's swing (PERF.md, Findings, decision (a)).  A card
+    costs one field-values request and one utilization call a tick; 206
+    has no source and stays blank."""
+
+    assert N.BURST_POWER_FIELD == N.NVML_FI_DEV_POWER_INSTANT
+    reqs, power, util = [], [], []
+    _spy(backend, "nvmlDeviceGetFieldValues", reqs)
+    _spy(backend, "nvmlDeviceGetPowerUsage", power)
+    _spy(backend, "nvmlDeviceGetUtilizationRates", util)
+    for _ in range(3):
+        assert backend.read_burst_fields([(0, BURST), (1, BURST)]) == {
+            0: {155: 150.25, 203: 87, 204: 45, 206: None},
+            1: {155: 151.25, 203: 87, 204: 45, 206: None}}
+    assert reqs == [[(N.NVML_FI_DEV_POWER_INSTANT, 0)]] * 6
+    assert power == [] and len(util) == 6
+    # the 1 Hz sweep keeps nvmlDeviceGetPowerUsage (held to nvidia-smi)
+    assert backend.read_fields(1, [155]) == {155: DEVICE1[F.POWER_USAGE]}
+
+
+def test_burst_read_falls_back_to_the_usage_call_once_refused(backend, fake):
+    fake.fake_nvml_set_rc(f"field:{N.NVML_FI_DEV_POWER_INSTANT}".encode(),
+                          NVML_ERROR_NOT_SUPPORTED)
+    reqs = []
+    _spy(backend, "nvmlDeviceGetFieldValues", reqs)
+    for _ in range(3):
+        assert backend.read_burst_fields([(1, [155, 203])]) == {
+            1: {155: DEVICE1[F.POWER_USAGE], 203: 87}}
+    assert len(reqs) == 1  # asked once, then the usage call serves it
+
+
+def test_burst_read_drops_a_lost_gpu(backend, fake):
+    fake.fake_nvml_set_rc(b"nvmlDeviceGetUtilizationRates", 15)  # GPU_IS_LOST
+    assert backend.read_burst_fields([(0, BURST), (1, [155])]) == {
+        1: {155: 151.25}}

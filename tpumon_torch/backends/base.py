@@ -159,6 +159,21 @@ class Backend(abc.ABC):
         return (self.read_fields_bulk(requests, now=now,
                                       max_age_s=max_age_s), None)
 
+    def read_burst_fields(self, requests: List[Tuple[int, List[int]]]
+                          ) -> Dict[int, Dict[int, FieldValue]]:
+        """The burst inner loop's read (:class:`tpumon_torch.burst.
+        BurstSampler`, 50-100 Hz) of the burst source fields.  Default:
+        :meth:`read_fields_bulk`.  A backend whose read would multiply
+        its device work by the inner rate raises ``ValueError``."""
+
+        return self.read_fields_bulk(requests)
+
+    def bus_index(self) -> Dict[Tuple[int, int, int], int]:
+        """Each chip's PCI bus key -> its index, so kernel-log evidence
+        names the chip.  Default: none known."""
+
+        return {}
+
     def processes(self, index: int) -> List[DeviceProcess]:
         """Processes currently holding the chip. Default: none visible."""
 

@@ -387,6 +387,16 @@ class CudaBackend(Backend):
 
     # -- metrics --------------------------------------------------------------
 
+    def read_burst_fields(self, requests):
+        # a read of utilization (203) runs a device probe or opens a
+        # trace session (read_fields), so a 50-100 Hz loop over it would
+        # launch device work at its rate
+        raise ValueError(
+            "the burst inner loop is refused over the cuda backend: a read "
+            "of the burst fields runs a device probe or opens a trace "
+            "session, so the loop would launch device work at its rate; "
+            "run the exporter daemon over NVML")
+
     def read_fields(self, index: int, field_ids: Sequence[int],
                     now: Optional[float] = None) -> Dict[int, FieldValue]:
         self._dev(index)

@@ -1,19 +1,27 @@
-"""The exporter daemon's engine: the sweep, the textfile merge, pod
-attribution, the run loop and the HTTP ``/metrics`` server.
+"""The exporter daemon's engine: the sweep, its planes, the textfile
+merge, pod attribution, the run loop and the HTTP ``/metrics`` server.
 
 Counterpart of ``tpumon/exporter/exporter.py``: field and label setup,
-one watch over the selected chips, the sweep (collect -> render -> merge
--> publish) with exporter-side not-idle tracking, the atomic textfile
-publish, the in-memory body served over HTTP (``/metrics``,
-``/tpu/metrics``, ``/healthz``; gzip compressed at most once per sweep),
-the textfile-collector merge of fresh ``*.prom`` drop files, label-level
-pod attribution, and the ``tpumon_exporter_*`` self-metrics.  Families
-keep their ``tpu_*`` names.
+one watch over the selected chips, the sweep (collect -> anomaly ->
+record -> render -> merge -> publish) with exporter-side not-idle
+tracking, the atomic textfile publish, the in-memory body served over
+HTTP (``/metrics``, ``/tpu/metrics``, ``/healthz``; gzip compressed at
+most once per sweep), the textfile-collector merge of fresh ``*.prom``
+drop files, label-level pod attribution, and the ``tpumon_exporter_*``
+self-metrics.  Families keep their ``tpu_*`` names.
 
-Not ported yet, and refused when asked for (ROADMAP.md, Queue 1, item
-16b): the anomaly, flight-recorder (blackbox), burst and stream planes,
-and the modeled per-link ICI split.  There is no native codec: the render
-is the pure-Python path (``tpumon_codec_native 0``).
+The planes, wired into one sweep in the reference's order: the burst
+inner loop's 1 s harvest (``burst_hz``, :mod:`tpumon_torch.burst`) is
+laid over the snapshot first; then the anomaly engine (``rules``,
+:mod:`tpumon_torch.anomaly`) scores it, draining the kernel-log lines
+:meth:`TpuExporter.anomaly_kmsg` queued; then the flight recorder
+(``blackbox_dir``, :mod:`tpumon_torch.blackbox`) tees the snapshot and
+its findings.  A plane that cannot start fails the constructor.
+
+Not ported yet, and refused when asked for: the stream plane
+(:meth:`TpuExporter.set_stream_publisher`; ROADMAP.md, Queue 1, item 16b)
+and the modeled per-link ICI split (item 7).  There is no native codec:
+the render is the pure-Python path (``tpumon_codec_native 0``).
 
 Importing this module, and running the daemon over the NVML backend,
 never imports ``torch``.
@@ -23,6 +31,7 @@ from __future__ import annotations
 
 import gzip
 import os
+import queue
 import re
 import stat
 import threading
@@ -35,7 +44,8 @@ from .. import log
 from ..backends.base import FieldValue
 from ..httputil import TextHTTPServer, accepts_gzip
 from ..introspect import SelfMonitor
-from .promtext import SweepRenderer, atomic_write, render_family
+from .promtext import (SweepRenderer, atomic_write, render_family,
+                       render_family_samples)
 
 F = FF.F
 
@@ -85,18 +95,15 @@ def select_chips(all_chips: Sequence[int],
     return list(all_chips)
 
 
-#: where the planes this port does not carry yet are listed
+#: where the parts this port does not carry yet are listed
 NOT_PORTED_ITEM = "ROADMAP.md, Queue 1, item 16b"
-#: constructor options of the reference exporter whose planes this port
-#: does not carry yet, with the value that leaves each plane off
-_NOT_PORTED = {"burst": False, "burst_hz": 0,
-               "ici_per_link_modeled": False, "blackbox_dir": None,
-               "blackbox_max_bytes": None, "rules": None}
+#: the modeled per-link ICI split waits for NCCL attribution
+MODELED_LINKS_ITEM = "ROADMAP.md, Queue 1, item 7"
 
 
-def not_ported(what: str) -> NotImplementedError:
+def not_ported(what: str, item: str = NOT_PORTED_ITEM) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to tpumon_torch yet "
-                               f"({NOT_PORTED_ITEM})")
+                               f"({item})")
 
 
 class TpuExporter:
@@ -112,7 +119,12 @@ class TpuExporter:
                  clock: Optional[Callable[[], float]] = None,
                  merge_globs: Optional[Sequence[str]] = None,
                  merge_max_age_s: float = 60.0,
-                 **planes: Any) -> None:
+                 burst: bool = False,
+                 burst_hz: int = 0,
+                 ici_per_link_modeled: bool = False,
+                 blackbox_dir: Optional[str] = None,
+                 blackbox_max_bytes: Optional[int] = None,
+                 rules: Optional[Any] = None) -> None:
         """``field_ids`` overrides the canned family sets entirely (the
         ``dcgmi dmon -e`` analog).  ``output_path``: textfile to publish
         every sweep to (atomic rename), or None.
@@ -122,13 +134,21 @@ class TpuExporter:
         sweep, so the out-of-band daemon serves the workload's measured
         in-process families without touching the device.  Files older
         than ``merge_max_age_s`` are skipped, and series/HELP duplicates
-        resolve in favor of the exporter's own output."""
+        resolve in favor of the exporter's own output.
 
-        for opt, value in planes.items():
-            if opt not in _NOT_PORTED:
-                raise TypeError(f"unexpected option {opt!r}")
-            if value != _NOT_PORTED[opt]:
-                raise not_ported(f"exporter option {opt!r}")
+        ``burst``/``burst_hz``: the burst-derived 1 s min/max/mean/
+        integral families; ``burst_hz > 0`` starts the inner loop
+        (:class:`tpumon_torch.burst.BurstSampler`) over the backend.
+        ``blackbox_dir``: tee every sweep into the flight recorder there
+        (``blackbox_max_bytes`` its disk budget).  ``rules`` (a
+        :class:`tpumon_torch.anomaly.Rules`): score every sweep's
+        changed values on the sweep thread; findings surface as the
+        ``tpumon_anomaly_*``/``tpumon_incident_*`` families and as 0xB3
+        records in the recorder."""
+
+        if ici_per_link_modeled:
+            raise not_ported("exporter option 'ici_per_link_modeled'",
+                             MODELED_LINKS_ITEM)
         if interval_ms < MIN_INTERVAL_MS:
             raise ValueError(
                 f"interval {interval_ms} ms below the {MIN_INTERVAL_MS} ms "
@@ -149,6 +169,10 @@ class TpuExporter:
                 field_ids += FF.EXPORTER_PROFILING_FIELDS
             if dcn:
                 field_ids += FF.EXPORTER_DCN_FIELDS
+            if burst or burst_hz > 0:
+                # burst add-on: the derived 1 s min/max/mean/integral
+                # families ride the normal sweep
+                field_ids += FF.EXPORTER_BURST_FIELDS
         self.field_ids = field_ids
         self._fid_set = frozenset(int(f) for f in field_ids)
 
@@ -170,6 +194,29 @@ class TpuExporter:
         handle.watches.watch_fields(self._cg, self._fg,
                                     update_freq_us=interval_ms * 1000,
                                     max_keep_samples=2)
+
+        # flight recorder: tee every sweep's delta frame to bounded
+        # on-disk segments
+        self.blackbox = None  # acquired at the END of __init__
+        # burst sampling: a 50-100 Hz thread folding the cheap-counter
+        # subset into windowed accumulators, harvested once per second
+        # by the sweep and laid over the snapshot (so the derived fields
+        # ride the renderer and recorder tees like any field)
+        self._burst_sampler = None  # acquired at the END of __init__
+        self._burst_stats: Optional[Dict[str, float]] = None
+        self._burst_stats_ts = 0.0
+        # streaming anomaly detection: scored on the sweep thread
+        # (single-owner engine); kmsg lines arrive from the watcher
+        # thread via a Queue and are drained HERE, so no engine state is
+        # ever touched cross-thread
+        self.anomaly = None
+        self._anomaly_kmsg_q: "queue.Queue[Tuple[str, float]]" = \
+            queue.Queue(maxsize=1024)
+        self.last_findings: List[Any] = []
+        if rules is not None:
+            from ..anomaly import AnomalyEngine
+            # the backend's GPU bus map: kmsg evidence names the card
+            self.anomaly = AnomalyEngine(rules, handle.backend.bus_index())
 
         self._merge_globs = list(merge_globs or [])
         self._merge_max_age = merge_max_age_s
@@ -201,6 +248,49 @@ class TpuExporter:
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
 
+        # the two OS resources this constructor owns — the flight
+        # recorder's open segment and the burst inner-loop thread — are
+        # acquired LAST: everything above is passive state, and a raise
+        # in the burst wiring releases the already-open recorder
+        if blackbox_dir:
+            from ..blackbox import DEFAULT_MAX_BYTES, BlackBoxWriter
+            try:
+                self.blackbox = BlackBoxWriter(
+                    blackbox_dir,
+                    max_bytes=blackbox_max_bytes or DEFAULT_MAX_BYTES)
+            except OSError as e:
+                # an operator asking for a black box must not silently
+                # run without one
+                raise ValueError(
+                    f"blackbox dir {blackbox_dir!r} unusable: {e}"
+                ) from e
+        try:
+            if burst_hz > 0:
+                self._start_burst(handle, burst_hz)
+        except BaseException:
+            bb, self.blackbox = self.blackbox, None
+            if bb is not None:
+                bb.close()
+            raise
+
+    def _start_burst(self, handle, burst_hz: int) -> None:
+        """Start the inner loop (:class:`tpumon_torch.burst.BurstSampler`)
+        over the backend's ``read_burst_fields``.  Its first read runs
+        here, so a backend that refuses the loop (one whose read would
+        multiply its device work by the inner rate) fails the start."""
+
+        from ..burst import BurstSampler
+
+        read = handle.backend.read_burst_fields
+        burst_reqs = [(c, list(FF.BURST_SOURCE_FIELDS)) for c in self.chips]
+        read(burst_reqs)
+
+        def _burst_sample() -> Dict[int, Dict[int, FieldValue]]:
+            return dict(read(burst_reqs))
+
+        self._burst_sampler = BurstSampler(_burst_sample, burst_hz)
+        self._burst_sampler.start()
+
     # -- pod-attribution hook (exporter/pod_attrib.py) -----------------------
 
     def set_enricher(self, fn: Optional[Callable[[str], str]]) -> None:
@@ -225,7 +315,26 @@ class TpuExporter:
         raise not_ported("the stream plane (set_stream_publisher)")
 
     def anomaly_kmsg(self, line: str, ts: float) -> bool:
-        raise not_ported("the anomaly plane (anomaly_kmsg)")
+        """Queue one kernel-log line for the detection plane (any
+        thread — the KmsgWatcher sink calls this from the tailer
+        thread; the sweep thread drains the queue).
+
+        Returns True when the line was queued: the sweep thread then
+        owns BOTH scoring and recording it, so the black box's record
+        order matches the live engine's processing order exactly (what
+        lets a backtest re-derive identical verdicts).  False (engine
+        off, or a full queue) means the caller should record the line
+        itself."""
+
+        if self.anomaly is None:
+            return False
+        try:
+            self._anomaly_kmsg_q.put_nowait((line, ts))
+            return True
+        except queue.Full:
+            log.warn_every("exporter.anomaly.kmsgq", 60.0,
+                           "anomaly kmsg queue full; line dropped")
+            return False
 
     def _apply_pod_labels(self) -> None:
         attributor = self._attributor
@@ -293,11 +402,72 @@ class TpuExporter:
                     vals = dict(vals)
                     vals[nit] = int(t - last)
             per_chip[c] = vals
+
+        if self._burst_sampler is not None:
+            # lay the 1 s burst harvest over the snapshot BEFORE the
+            # tees so the derived fields ride every downstream plane;
+            # copy-on-write per chip (the snapshot is read-only).  The
+            # window gate uses the injected clock.
+            for c, bvals in self._burst_sampler.harvest_if_due(
+                    now=t).items():
+                base = per_chip.get(c)
+                if base is not None:
+                    merged = dict(base)
+                    merged.update(bvals)
+                    per_chip[c] = merged
+        # refreshed at most 1 Hz, on the injected clock
+        if t - self._burst_stats_ts >= 1.0:
+            self._burst_stats = (self._burst_sampler.stats()
+                                 if self._burst_sampler is not None
+                                 else None)
+            self._burst_stats_ts = t
         # inside the timed region: a kubelet refresh stalling the sweep
         # must show in scrape_duration
         self._apply_pod_labels()
         t1 = time.monotonic()
         phases["collect"] = t1 - t0
+        findings: List[Any] = []
+        if self.anomaly is not None:
+            # detection BEFORE the tee: this sweep's findings ride this
+            # sweep's recorder segment.  Kmsg lines queued by the
+            # watcher thread drain here, on the sweep thread.
+            try:
+                while True:
+                    try:
+                        line, k_ts = self._anomaly_kmsg_q.get_nowait()
+                    except queue.Empty:
+                        break
+                    if self.blackbox is not None:
+                        # recorded HERE, in drain order, so the on-disk
+                        # sequence is exactly the sequence the live
+                        # engine scored (backtest identity)
+                        self.blackbox.record_kmsg(line, now=k_ts)
+                    findings += self.anomaly.observe_kmsg(line, k_ts)
+                findings += self.anomaly.observe(per_chip, now=t)
+            except Exception as e:
+                # a broken detector must never cost the metric stream
+                log.warn_every("exporter.anomaly", 30.0,
+                               "anomaly engine failed: %r", e)
+            if findings:
+                self.last_findings = findings
+            t1a = time.monotonic()
+            phases["anomaly"] = t1a - t1
+            t1 = t1a
+        if self.blackbox is not None:
+            # tee the sweep into the flight recorder, stamped with the
+            # sweep's wall time so replay lines up with Prometheus.
+            # Failure degrades the RECORDER, never the metric stream.
+            try:
+                self.blackbox.record_sweep(per_chip, now=t)
+                for rec in findings:
+                    # 0xB3 verdicts beside the frame they scored
+                    self.blackbox.record_finding(rec)
+            except Exception as e:
+                log.warn_every("exporter.blackbox", 30.0,
+                               "flight recorder tee failed: %r", e)
+            t1b = time.monotonic()
+            phases["record"] = t1b - t1
+            t1 = t1b
 
         extra = self._self_metrics()
         if self._enricher is None:
@@ -726,7 +896,8 @@ class TpuExporter:
             lines.append("# HELP tpumon_exporter_sweep_phase_seconds Wall "
                          "time of each phase of the previous sweep.")
             lines.append("# TYPE tpumon_exporter_sweep_phase_seconds gauge")
-            for ph in ("collect", "render", "merge", "publish"):
+            for ph in ("collect", "anomaly", "record", "render",
+                       "merge", "publish"):
                 if ph in self._last_phases:
                     lines.append(
                         "tpumon_exporter_sweep_phase_seconds{%s,phase=\"%s\"}"
@@ -755,6 +926,77 @@ class TpuExporter:
                         "render line cache in the previous sweep "
                         "(1.0 = no value changed).",
                         lbl, ratio, fmt=".4f")
+        # the flight recorder's write/retention counters: is the black
+        # box recording, and how fast is it burning its budget
+        if self.blackbox is not None:
+            bb = self.blackbox.stats()
+            lines += rf("tpumon_blackbox_bytes_written_total", "counter",
+                        "Bytes appended to flight-recorder segments "
+                        "since start.",
+                        lbl, bb["bytes_written_total"], fmt=".0f")
+            lines += rf("tpumon_blackbox_frames_total", "counter",
+                        "Sweep frames recorded since start.",
+                        lbl, bb["frames_total"], fmt=".0f")
+            lines += rf("tpumon_blackbox_segments", "gauge",
+                        "Flight-recorder segment files currently on "
+                        "disk.",
+                        lbl, bb["segments"], fmt=".0f")
+            lines += rf("tpumon_blackbox_segments_reclaimed_total",
+                        "counter",
+                        "Oldest-first segment reclamations under the "
+                        "disk budget since start.",
+                        lbl, bb["segments_reclaimed_total"], fmt=".0f")
+            lines += rf("tpumon_blackbox_write_errors_total", "counter",
+                        "Recorder write failures (segment dropped, "
+                        "recording continued) since start.",
+                        lbl, bb["write_errors_total"], fmt=".0f")
+            lines += rf("tpumon_blackbox_records_dropped_total",
+                        "counter",
+                        "Records dropped while the recorder was "
+                        "degraded by a failing disk (counted, never "
+                        "raised into the sweep) since start.",
+                        lbl, bb["records_dropped_total"], fmt=".0f")
+        # detection-plane families, emitted from the one registration
+        # (anomaly.METRIC_FAMILIES)
+        if self.anomaly is not None:
+            from ..anomaly import METRIC_FAMILIES
+            st_a = self.anomaly.stats()
+            per_rule: Dict[str, Dict[str, int]] = {
+                "tpumon_anomaly_findings_total": st_a["findings_total"],
+                "tpumon_anomaly_cleared_total": st_a["cleared_total"],
+                "tpumon_anomaly_active": st_a["active"],
+                "tpumon_incident_findings_total":
+                    st_a["incidents_total"],
+                "tpumon_incident_suppressed_total":
+                    st_a["suppressed_total"],
+            }
+            scalar = {
+                "tpumon_anomaly_series_tracked": st_a["series_tracked"],
+                "tpumon_anomaly_scored_total": st_a["scored_total"],
+            }
+            for fam, ptype, help_txt in METRIC_FAMILIES:
+                rules_map = per_rule.get(fam)
+                if rules_map is not None:
+                    samples = [(f'{lbl},rule="{r}"', float(n))
+                               for r, n in sorted(rules_map.items())]
+                    if samples:
+                        lines += render_family_samples(
+                            fam, ptype, help_txt, samples, fmt=".0f")
+                else:
+                    lines += render_family(fam, ptype, help_txt, lbl,
+                                           float(scalar[fam]),
+                                           fmt=".0f")
+        # burst-loop health: overruns climbing because the source is
+        # slower than the period show on the scrape
+        if self._burst_stats:
+            bs = self._burst_stats
+            lines += rf("tpumon_agent_burst_rate_hz", "gauge",
+                        "Configured burst inner-loop sampling rate.",
+                        lbl, bs.get("burst_hz", 0.0), fmt=".0f")
+            lines += rf("tpumon_agent_burst_overruns_total", "counter",
+                        "Burst inner-loop periods missed (sampling "
+                        "slower than the configured rate) since start.",
+                        lbl, bs.get("burst_overruns", 0.0), fmt=".0f")
         with self._lock:
             nbytes = len(self._last_bytes)
             gzbytes = self._gzip_bytes
@@ -806,8 +1048,24 @@ class TpuExporter:
     def stop(self) -> None:
         self._stop.set()
         th, self._thread = self._thread, None
-        if th is not None:
-            th.join(timeout=5.0)
+        # one raising member stop must not leak the members after it
+        try:
+            if th is not None:
+                th.join(timeout=5.0)
+        finally:
+            if self._burst_sampler is not None:
+                try:
+                    self._burst_sampler.stop()
+                except Exception as e:
+                    log.warn_every("exporter.stop", 30.0,
+                                   "burst sampler stop failed: %r", e)
+            if self.blackbox is not None:
+                try:
+                    self.blackbox.close()
+                except Exception as e:
+                    log.warn_every("exporter.stop", 30.0,
+                                   "flight recorder close failed: %r",
+                                   e)
 
     # -- accessors ------------------------------------------------------------
 

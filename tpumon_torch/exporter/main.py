@@ -18,10 +18,15 @@ CUDA context.  ``--wait-for-tpu S`` retries the NVML init every 2 s for
 up to S seconds (-1 = forever) before it exits 1; nothing else is ever
 served in its place.
 
-Flags of planes not ported yet (the burst, flight-recorder, anomaly and
-stream planes, the modeled per-link split; ROADMAP.md, Queue 1, item
-16b) exit 1 with a message that names the item, as ``--connect`` and
-``--start-agent`` do.
+The planes the deployed configuration turns off run as in the
+reference: ``--burst-hz HZ`` (the burst inner loop over NVML; implies
+``--burst``), ``--blackbox-dir DIR`` (the flight recorder; replay it with
+``python -m tpumon_torch.cli.replay``) and ``--rules FILE`` (the anomaly
+plane); with either of the last two, kernel-log lines ride in through a
+kmsg watcher where ``/dev/kmsg`` can be read.  Flags of what is not
+ported yet exit 1 with a message that names its ROADMAP.md item:
+``--stream-port`` (Queue 1, item 16b), ``--ici-per-link-modeled`` (item
+7), and ``--connect``/``--start-agent`` (item 16b).
 """
 
 from __future__ import annotations
@@ -37,19 +42,8 @@ import tpumon_torch
 from .. import log
 from ..cli.common import add_connection_flags, die, init_from_args
 from .exporter import (DEFAULT_OUTPUT, DEFAULT_PORT, MIN_INTERVAL_MS,
-                       NOT_PORTED_ITEM, MetricsHTTPServer, TpuExporter)
-
-
-def _unported_planes(args: argparse.Namespace) -> list:
-    """The not-yet-ported plane flags this argv turns on."""
-
-    asked = {"--burst": args.burst, "--burst-hz": args.burst_hz > 0,
-             "--blackbox-dir": args.blackbox_dir is not None,
-             "--blackbox-max-bytes": args.blackbox_max_bytes is not None,
-             "--rules": args.rules is not None,
-             "--stream-port": args.stream_port != 0,
-             "--ici-per-link-modeled": args.ici_per_link_modeled}
-    return [flag for flag, on in asked.items() if on]
+                       MODELED_LINKS_ITEM, NOT_PORTED_ITEM,
+                       MetricsHTTPServer, TpuExporter)
 
 
 def main(argv=None) -> int:
@@ -72,9 +66,12 @@ def main(argv=None) -> int:
     p.add_argument("--dcn", action="store_true",
                    help="add multi-slice DCN families")
     p.add_argument("--burst", action="store_true",
-                   help="burst-derived families (not ported yet)")
+                   help="add the burst-derived 1s min/max/mean/integral "
+                        "families (blank unless --burst-hz runs the "
+                        "inner loop)")
     p.add_argument("--burst-hz", type=int, default=0, metavar="HZ",
-                   help="burst inner loop (not ported yet)")
+                   help="run the burst inner loop at HZ (50-100 typical; "
+                        "0 = off) over the NVML backend; implies --burst")
     p.add_argument("--port", type=int, default=DEFAULT_PORT,
                    help=f"HTTP /metrics port (default {DEFAULT_PORT}; "
                         "0 disables)")
@@ -97,17 +94,30 @@ def main(argv=None) -> int:
     p.add_argument("--ici-per-link-modeled", action="store_true",
                    default=os.environ.get(
                        "TPUMON_ICI_PER_LINK_MODELED") == "1",
-                   help="modeled per-link split (not ported yet)")
+                   help="modeled per-link split (not ported yet: "
+                        f"{MODELED_LINKS_ITEM})")
     p.add_argument("--blackbox-dir", default=None, metavar="DIR",
-                   help="flight recorder (not ported yet)")
+                   help="flight recorder: tee every sweep's delta frame "
+                        "(plus kmsg lines) into bounded on-disk segments "
+                        "under DIR; replay with python -m "
+                        "tpumon_torch.cli.replay")
     p.add_argument("--blackbox-max-bytes", type=int, default=None,
-                   metavar="N", help="flight recorder budget (not ported "
-                                     "yet)")
+                   metavar="N",
+                   help="flight recorder disk budget in bytes "
+                        "(default 64 MiB; oldest segments reclaimed "
+                        "first)")
     p.add_argument("--rules", default=None, metavar="FILE",
-                   help="streaming anomaly detection (not ported yet)")
+                   help="streaming anomaly detection: load a versioned "
+                        "rules.yaml (per-series detectors + cross-signal "
+                        "incident rules) and score every sweep's changed "
+                        "values in-process; findings surface as "
+                        "tpumon_anomaly_*/tpumon_incident_* families and "
+                        "flight-recorder records.  Validate a rule change "
+                        "against recorded history with python -m "
+                        "tpumon_torch.cli.replay --backtest FILE")
     p.add_argument("--stream-port", type=int, default=0, metavar="N",
-                   help="live streaming plane (not ported yet; 0 "
-                        "disables)")
+                   help=f"live streaming plane (not ported yet: "
+                        f"{NOT_PORTED_ITEM}; 0 disables)")
     p.add_argument("--oneshot", action="store_true",
                    help="single sweep, print to stdout, exit")
     p.add_argument("--wait-for-tpu", type=float, default=0.0, metavar="S",
@@ -117,10 +127,12 @@ def main(argv=None) -> int:
                         "default 0 fails fast")
     args = p.parse_args(argv)
 
-    unported = _unported_planes(args)
-    if unported:
-        die(f"{', '.join(unported)}: the plane is not ported to "
+    if args.stream_port:
+        die(f"--stream-port: the stream plane is not ported to "
             f"tpumon_torch yet ({NOT_PORTED_ITEM})")
+    if args.ici_per_link_modeled:
+        die(f"--ici-per-link-modeled: the modeled per-link split is not "
+            f"ported to tpumon_torch yet ({MODELED_LINKS_ITEM})")
     if args.delay < MIN_INTERVAL_MS:
         die(f"minimum collect interval is {MIN_INTERVAL_MS} ms")
 
@@ -146,6 +158,7 @@ def main(argv=None) -> int:
     # was already wired (a constructor raising early leaves the rest None)
     exporter = None
     http = None
+    kmsg_watcher = None
     try:
         if args.fields:
             from .. import fields as FF
@@ -159,13 +172,25 @@ def main(argv=None) -> int:
                     if m is None:
                         die(f"unknown field {part!r}")
                     field_ids.append(m.field_id)
+        rules = None
+        if args.rules:
+            from ..anomaly import load_rules
+            try:
+                rules = load_rules(args.rules)
+            except (OSError, ValueError) as e:
+                die(str(e))
         try:
             exporter = TpuExporter(h, interval_ms=args.delay,
                                    profiling=args.profiling, dcn=args.dcn,
+                                   burst=args.burst,
+                                   burst_hz=args.burst_hz,
                                    field_ids=field_ids,
                                    output_path=output,
                                    merge_globs=args.merge_textfile,
-                                   merge_max_age_s=args.merge_max_age)
+                                   merge_max_age_s=args.merge_max_age,
+                                   blackbox_dir=args.blackbox_dir,
+                                   blackbox_max_bytes=args.blackbox_max_bytes,
+                                   rules=rules)
         except ValueError as e:
             die(str(e))
         if not exporter.chips:
@@ -182,6 +207,7 @@ def main(argv=None) -> int:
 
         if args.oneshot:
             sys.stdout.write(exporter.sweep())
+            exporter.stop()
             return 0
 
         log.info("prometheus-tpu: backend=%s chips=%s interval=%dms "
@@ -192,11 +218,46 @@ def main(argv=None) -> int:
             http.start()
             log.info("prometheus-tpu: serving /metrics on :%d", args.port)
 
+        # kernel-log lines ride into the black box next to the sweep
+        # frames AND feed the detection plane's incident joins.
+        # Best-effort — no /dev/kmsg (an unprivileged container, the
+        # card's sandbox) just means no kmsg records and no kmsg-side
+        # evidence.
+        if exporter.blackbox is not None or exporter.anomaly is not None:
+            from ..kmsg import KmsgWatcher
+            bb = exporter.blackbox
+            exp = exporter
+
+            def _kmsg_sink(chip: int, etype: int, ts: float,
+                           msg: str) -> None:
+                # when the engine is armed, the sweep thread records the
+                # line at drain time (queue accepted -> True) so disk
+                # order == live scoring order; otherwise (or on a full
+                # queue) record directly, keeping the evidence
+                if not exp.anomaly_kmsg(msg, ts) and bb is not None:
+                    bb.record_kmsg(msg, now=ts)
+
+            kmsg_watcher = KmsgWatcher(sink=_kmsg_sink,
+                                       buses=h.backend.bus_index())
+            if kmsg_watcher.start():
+                log.info("prometheus-tpu: feeding kmsg lines from %s to "
+                         "the flight recorder / detection plane",
+                         kmsg_watcher.path)
+            else:
+                log.info("prometheus-tpu: no kernel log at %s; the "
+                         "planes run without kmsg lines",
+                         kmsg_watcher.path)
+                kmsg_watcher = None
+
         stop = threading.Event()
         signal.signal(signal.SIGINT, lambda *_: stop.set())
         signal.signal(signal.SIGTERM, lambda *_: stop.set())
         exporter.start()
         stop.wait()
+        # kmsg first: a kernel line landing after exporter.stop() has
+        # closed the recorder would reopen a segment nothing closes
+        if kmsg_watcher is not None:
+            kmsg_watcher.stop()
         exporter.stop()
         if http:
             http.stop()
@@ -204,6 +265,11 @@ def main(argv=None) -> int:
         # a failed wiring step (port in use, ...) must not leak what
         # already started: release in the normal teardown order,
         # best-effort, then let the error surface
+        if kmsg_watcher is not None:
+            try:
+                kmsg_watcher.stop()
+            except Exception as e:
+                log.warning("kmsg stop after failed start: %r", e)
         if exporter is not None:
             try:
                 exporter.stop()

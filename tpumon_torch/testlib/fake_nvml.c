@@ -292,6 +292,11 @@ nvmlReturn_t nvmlDeviceGetFieldValues(nvmlDevice_t d, int n,
       /* the energy counter's own source, and its own refusals */
       f->valueType = NVML_VALUE_TYPE_UNSIGNED_LONG_LONG;
       f->nvmlReturn = nvmlDeviceGetTotalEnergyConsumption(d, &f->value.ullVal);
+    } else if (f->fieldId == NVML_FI_DEV_POWER_INSTANT) {
+      /* mW, apart from nvmlDeviceGetPowerUsage's so a test can tell
+         which reading served power */
+      f->valueType = NVML_VALUE_TYPE_UNSIGNED_INT;
+      f->value.uiVal = 150250 + 1000 * (unsigned int)i;
     } else if (f->fieldId == NVML_FI_DEV_NVLINK_GET_STATE) {
       /* the link state entry point's source, and its own refusals */
       nvmlEnableState_t s;
