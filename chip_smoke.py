@@ -126,7 +126,22 @@
    each power reading's and utilization's spread per 1 s window by load
    phase, the recorder's bytes per tick and the anomaly and record
    phases.  B4's launches join the kernels line as path ``planes``.
-10. Prints each load pattern's busy share (its kernel's device time over
+10. ``watches``: the façade's health, policy and event-set watches over
+   NVML while this process drives B4 idle 4 s, steady 6 s, idle 4 s,
+   steady 6 s: the policy CLI at the reference's 250 W (one POWER
+   violation a steady stretch, none idle), an in-process THERMAL watch
+   held to the crossings of its limit, ``health_check`` not FAIL, the
+   critical event set silent, and the REST API (``python -m
+   tpumon_torch.restapi.main``) on every route of the card, agreeing
+   with the handle, without a CUDA context (``watches_phase`` says each
+   check).  B4's launches join the kernels line as path ``watches``.
+11. ``stream``: the exporter daemon with ``--stream-port`` and
+   ``--blackbox-dir`` beside the train workload, 10 s with no
+   subscriber, then 20 s with 16 decoders, a ``GET /stream``
+   subscriber, the stream CLI and a late decoder: every subscriber's
+   sweeps are the recorder's (``stream_phase`` says each check).  The
+   workload's B1-B3 launches join the kernels line as path ``stream``.
+12. Prints each load pattern's busy share (its kernel's device time over
    its self-monitored step), the card's name and power limit again, then
    one ``{"kernels": [...], "backward":
    {...}}`` line.  ``backward`` is the port's whole backward pass, the dQ
@@ -2731,6 +2746,661 @@ def planes_phase(K, fields, daemon_cpu_percent=None) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# -- the watches: health, policy, event sets, the REST API --------------------
+
+#: the watches phase's B4 timeline, (name, seconds)
+WATCHES_TIMELINE = (("idle", 4.0), ("steady", 6.0), ("idle2", 4.0),
+                    ("steady2", 6.0))
+#: the reference's default power limit (DCGM's 250 W, ``tpumon/events.py``)
+POLICY_POWER_W = 250.0
+#: a POWER violation must arrive within this long of its load's start
+POWER_LAG_MAX_S = 2.0
+#: the thermal limit is this far over the idle core temperature
+THERMAL_MARGIN_C = 3
+VIOLATION_RE = re.compile(r"chip (\d+) (\w+): \w+ threshold breached: "
+                          r"([-\d.]+) >= ([-\d.]+)$")
+
+
+def get_json(port: int, path: str):
+    """(status, body text, parsed JSON or None, wall ms) of one GET."""
+
+    status, _, body, ms = http_get(port, path)
+    text = body.decode()
+    try:
+        parsed = json.loads(text) if "/json" in path else None
+    except ValueError:
+        parsed = None
+    return status, text, parsed, ms
+
+
+def watches_phase(K, fields) -> dict:
+    """``watches``: the façade's health, policy and event-set watches
+    over NVML on the card, and the REST API on them, while this process
+    drives B4 (the ``mxu`` pattern) through WATCHES_TIMELINE.
+
+    * Policy CLI: ``python -m tpumon_torch.cli.policy --conditions
+      power,thermal --thermal-limit <idle core temp + THERMAL_MARGIN_C>
+      --duration 22``, its lines stamped as they arrive.  Fails unless no
+      POWER violation arrives in an idle stretch, exactly one in each
+      steady one, within POWER_LAG_MAX_S of its start, each at least
+      POLICY_POWER_W.
+    * Thermal: an in-process ``Handle`` (``tpumon_torch.init``, NVML)
+      with the same limit registered and its watch sweeping every 0.2 s;
+      every temperature its evaluations read is recorded, and the
+      violations must be exactly the crossings of the limit (edge
+      triggered, re-armed below it).  The highest reading is printed.
+    * Health: ``health_set`` at idle, ``health_check`` after the second
+      steady stretch; fails on FAIL.  Each system's status and
+      incidents, and which ``_CHECK_FIELDS`` read non-blank, are printed.
+    * Event set: ``CRITICAL_EVENTS`` registered for the card; fails if
+      it returns anything in the run.
+    * REST API: ``python -m tpumon_torch.restapi.main -p P`` over NVML;
+      every route of the card and its ``/json`` twin, by index and UUID,
+      the process route for this process, and ``/tpu/status``.  Fails
+      unless each is 200 (the JSON ones parse), a bad id is 400 and an
+      unknown id and UUID 404, ``/tpu/health/json/<i>`` agrees with the
+      handle's ``health_check``, and the REST process holds no CUDA
+      context (as in ``daemon_phase``).
+
+    B4's launches are this process's, counted over the timeline."""
+
+    import queue
+    import shutil
+    import tempfile
+    import tpumon_torch
+    from tpumon_torch import health as H
+    from tpumon_torch.event_set import CRITICAL_EVENTS
+    from tpumon_torch.events import PolicyCondition
+    from tpumon_torch.loadgen.bench_gpu import nvml_index
+
+    F = fields.F
+    T = int(F.CORE_TEMP)
+    work = tempfile.mkdtemp(prefix="tpumon-watches-")
+    env = dict(os.environ, PYTHONPATH=HERE)
+    for k in ("TPUMON_BACKEND", "TPUMON_CHIPS"):
+        env.pop(k, None)
+    out, failures = {}, []
+    lines = []  # (monotonic, line) of the policy CLI
+    policy = rest = None
+    h = tpumon_torch.init(backend_name="nvml")
+    try:
+        if h.backend.name != "nvml":
+            raise AssertionError(f"the façade opened {h.backend.name}")
+        i = nvml_index(h.backend)
+        read = h.backend.read_fields
+        idle_temp = read(i, [T])[T]
+        limit = idle_temp + THERMAL_MARGIN_C
+        readings = []  # what the handle's thermal evaluations read
+
+        def recording_read(index, fids, now=None):
+            vals = read(index, fids, now=now)
+            if index == i and list(fids) == [T]:
+                readings.append(vals.get(T))
+            return vals
+
+        h.backend.read_fields = recording_read
+        h.health_set(i)
+        events = h.new_event_set()
+        events.register_event(CRITICAL_EVENTS, chip_index=i)
+        thermal = h.register_policy(i, PolicyCondition.THERMAL,
+                                    {PolicyCondition.THERMAL: limit})
+        policy = subprocess.Popen(
+            [sys.executable, "-m", "tpumon_torch.cli.policy", "--chip",
+             str(i), "--conditions", "power,thermal", "--thermal-limit",
+             str(limit), "--duration", "22"], cwd=HERE, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+        def reader():
+            for ln in policy.stdout:
+                lines.append((time.monotonic(), ln.rstrip("\n")))
+
+        rth = threading.Thread(target=reader, daemon=True)
+        rth.start()
+        t0 = time.monotonic()
+        while not lines:
+            if policy.poll() is not None or time.monotonic() - t0 > 60:
+                raise AssertionError(f"the policy CLI never listened: "
+                                     f"{policy.stderr.read()[-2000:]}")
+            time.sleep(0.05)
+        step, state = K.make_pattern("mxu", device="cuda")
+        drain(step(state))
+        time.sleep(0.6)  # its first sweeps read the idle card
+        h.watches.start(tick_s=0.2)
+        for name in K.LAUNCHES:
+            K.LAUNCHES[name] = 0
+        bounds, s = [], state
+        for name, secs in WATCHES_TIMELINE:
+            a = time.monotonic()
+            end = a + secs
+            if name.startswith("steady"):
+                while time.monotonic() < end:
+                    for _ in range(32):
+                        s = step(s)
+                    drain(s)
+            else:
+                time.sleep(secs)
+            bounds.append((name, a, time.monotonic()))
+        launches = K.LAUNCHES["mxu_burn"]
+        result = h.health_check(i)
+        h.watches.stop()
+        quiet = events.wait(0.0)
+        try:
+            rc = policy.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            policy.kill()
+            rc = None
+        rth.join(timeout=10)
+
+        # -- policy CLI: POWER at each steady stretch's start -------------
+        by_stretch = {name: [] for name, _ in WATCHES_TIMELINE}
+        cli_thermal = []
+        for mono, ln in lines[1:]:
+            m = VIOLATION_RE.search(ln)
+            if m is None:
+                failures.append(f"policy CLI line {ln!r}")
+                continue
+            cond, value = m.group(2), float(m.group(3))
+            if cond == "THERMAL":
+                cli_thermal.append(value)
+                continue
+            where = [(name, a) for name, a, b_ in bounds if a <= mono < b_]
+            name, a = where[0] if where else ("after", bounds[-1][2])
+            by_stretch.setdefault(name, []).append(
+                {"value": value, "lag_s": round(mono - a, 3)})
+        for name, got in by_stretch.items():
+            want = 1 if name.startswith("steady") else 0
+            if len(got) != want:
+                failures.append(f"{len(got)} POWER violations in {name}: "
+                                f"{got}")
+            for v in got:
+                if v["lag_s"] > POWER_LAG_MAX_S or \
+                        v["value"] < POLICY_POWER_W:
+                    failures.append(f"POWER violation in {name}: {v}")
+        if rc != 0:
+            failures.append(f"policy CLI exited {rc}")
+
+        # -- thermal: violations exactly at the crossings -----------------
+        crossings, armed = [], True
+        for v in readings:
+            if v is None:
+                continue
+            if v >= limit and armed:
+                armed = False
+                crossings.append(v)
+            elif v < limit:
+                armed = True
+        fired = []
+        while True:
+            try:
+                fired.append(thermal.get_nowait().data["value"])
+            except queue.Empty:
+                break
+        if fired != crossings:
+            failures.append(f"THERMAL violations {fired}, crossings "
+                            f"{crossings}")
+        temps = [v for v in readings if v is not None]
+
+        # -- health ---------------------------------------------------------
+        systems = {}  # each system's worst incident
+        for inc in result.incidents:
+            cur = systems.get(inc.system.name)
+            if cur is None or inc.status.value > cur.value:
+                systems[inc.system.name] = inc.status
+        if result.status.name == "FAIL":
+            failures.append(f"health FAIL: {result.incidents}")
+        inputs = read(i, H._CHECK_FIELDS)
+        if quiet is not None:
+            failures.append(f"the critical event set returned {quiet}")
+
+        # -- the REST API ---------------------------------------------------
+        port = free_port()
+        rest = spawn(["tpumon_torch.restapi.main", "-p", str(port),
+                      "--process-warmup", "1"], env,
+                     os.path.join(work, "rest.err"))
+        t0 = time.monotonic()
+        while True:
+            try:
+                http_get(port, "/tpu/status")
+                break
+            except OSError:
+                if rest.poll() is not None or time.monotonic() - t0 > 60:
+                    with open(os.path.join(work, "rest.err")) as f:
+                        raise AssertionError(f"the REST API never served: "
+                                             f"{f.read()[-2000:]}")
+                time.sleep(0.1)
+        uuid = h.chip_info(i).uuid
+        paths = ["/tpu/status", "/tpu/status/json"]
+        for kind in ("device/info", "device/status", "health"):
+            paths += [f"/tpu/{kind}/{i}", f"/tpu/{kind}/json/{i}",
+                      f"/tpu/{kind}/uuid/{uuid}",
+                      f"/tpu/{kind}/json/uuid/{uuid}"]
+        paths += [f"/tpu/device/topology/{i}",
+                  f"/tpu/device/topology/json/{i}",
+                  f"/tpu/process/info/pid/{os.getpid()}",
+                  f"/tpu/process/info/json/pid/{os.getpid()}"]
+        answers = {p: get_json(port, p) for p in paths}
+        for p, (code, text, parsed, _) in answers.items():
+            if code != 200 or ("/json" in p and parsed is None):
+                failures.append(f"GET {p}: {code} {text[:200]!r}")
+        bad = {"/tpu/device/info/x": 400, "/tpu/device/status/json/99": 404,
+               "/tpu/health/uuid/GPU-nope": 404}
+        bad_got = {p: get_json(port, p)[0] for p in bad}
+        if bad_got != bad:
+            failures.append(f"validation answers {bad_got}")
+        rest_health = get_json(port, f"/tpu/health/json/{i}")[2]
+        mine = h.health_check(i)
+        health_pair = {
+            "rest": rest_health and (rest_health["status"], [
+                (x["system"], x["status"], x["message"])
+                for x in rest_health["incidents"]]),
+            "handle": (mine.status.name, [
+                (x.system.name, x.status.name, x.message)
+                for x in mine.incidents])}
+        if health_pair["rest"] is None or \
+                tuple(health_pair["rest"]) != health_pair["handle"]:
+            failures.append(f"REST health != the handle's: {health_pair}")
+        context = {"rest": cuda_context_marks(rest.pid),
+                   "nvml_init_alone": nvml_init_marks(env)}
+        maps = context["rest"]
+        if maps["libs"] or maps["uvm_mapped"]:
+            failures.append(f"the REST process maps {maps}")
+        if maps["libcuda"] and not context["nvml_init_alone"]["libcuda"]:
+            failures.append("the REST process maps libcuda, nvmlInit_v2 "
+                            "alone does not")
+        rest_rc, _ = stop_proc(rest)
+        if rest_rc != 0:
+            failures.append(f"REST API exit {rest_rc} on SIGTERM")
+        # the process route sweeps for its warm-up (``--process-warmup``)
+        ms = [a[3] for p, a in answers.items() if "/process/" not in p]
+        out.update({
+            "card": i, "idle_core_temp_c": idle_temp, "thermal_limit_c": limit,
+            "power_limit_w": POLICY_POWER_W,
+            "power_violations": by_stretch,
+            "thermal_readings": len(temps),
+            "thermal_max_c": max(temps) if temps else None,
+            "thermal_violations": fired, "thermal_crossings": crossings,
+            "policy_cli_thermal": cli_thermal,
+            "health": {"status": result.status.name,
+                       "systems": {k: v.name for k, v in systems.items()},
+                       "incidents": [(x.system.name, x.status.name,
+                                      x.message) for x in result.incidents]},
+            "check_fields_nonblank": sorted(
+                fields.CATALOG[f].prom_name for f, v in inputs.items()
+                if v is not None),
+            "check_fields_blank": sorted(
+                fields.CATALOG[f].prom_name for f, v in inputs.items()
+                if v is None),
+            "event_set_quiet": quiet is None,
+            "rest_routes": len(answers), "rest_ms_p50": quantile(ms, 0.5),
+            "rest_ms_max": max(ms),
+            "rest_process_route": answers[paths[-1]][0],
+            "rest_process_route_ms": answers[paths[-1]][3],
+            "rest_health_vs_handle": health_pair,
+            "cuda_context_marks": context,
+            "launches": {"mxu_burn": launches},
+        })
+        if launches <= 0:
+            failures.append("B4 never launched on the watches path")
+        if failures:
+            raise AssertionError(f"watches check failed: {failures[:10]} "
+                                 f"{out}")
+        return out
+    finally:
+        h.watches.stop()
+        for proc in (policy, rest):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        tpumon_torch.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# -- the stream plane ------------------------------------------------------------
+
+#: in-process decoders attached from the start of the subscribed stretch
+STREAM_DECODERS = 16
+#: the stretch with no subscriber, then the subscribed one; the late
+#: decoder attaches this far into the latter
+STREAM_QUIET_S = 10.0
+STREAM_SUBSCRIBED_S = 20.0
+STREAM_LATE_S = 10.0
+
+
+class Subscribers:
+    """The phase's in-process stream subscribers on one selector thread:
+    each socket's bytes fed to its own ``StreamDecoder``; an HTTP one's
+    reply head is held apart first."""
+
+    def __init__(self, port: int) -> None:
+        import selectors
+
+        self.port = port
+        self.sel = selectors.DefaultSelector()
+        self.subs = {}  # name -> state
+        self.errors = []
+        self.stop = threading.Event()
+        self.lock = threading.Lock()
+        self.thread = threading.Thread(target=self._loop, daemon=True)
+        self.thread.start()
+
+    def attach(self, name: str, http: bool = False) -> None:
+        import selectors
+        import socket
+        from tpumon_torch.frameserver import StreamDecoder
+
+        s = socket.create_connection(("127.0.0.1", self.port), timeout=10)
+        s.sendall(b"GET /stream HTTP/1.1\r\nHost: smoke\r\n\r\n" if http
+                  else b'{"op": "stream"}\n')
+        s.setblocking(False)
+        st = {"sock": s, "dec": StreamDecoder(), "items": [], "bytes": 0,
+              "head": bytearray() if http else None, "http": http,
+              "attached": time.time()}
+        with self.lock:
+            self.subs[name] = st
+            self.sel.register(s, selectors.EVENT_READ, name)
+
+    def _loop(self) -> None:
+        while not self.stop.is_set():
+            with self.lock:
+                ready = self.sel.select(0.05) if self.subs else []
+            if not ready:
+                time.sleep(0.01)
+            for key, _ in ready:
+                st = self.subs[key.data]
+                try:
+                    chunk = st["sock"].recv(1 << 16)
+                    if not chunk:
+                        raise EOFError(f"{key.data}: stream closed")
+                    st["bytes"] += len(chunk)
+                    if st["head"] is not None:
+                        st["head"] += chunk
+                        end = st["head"].find(b"\r\n\r\n")
+                        if end < 0:
+                            continue
+                        chunk = bytes(st["head"][end + 4:])
+                        st["head"] = bytes(st["head"][:end + 4])
+                        if not st["head"].startswith(b"HTTP/1.1 200 OK"):
+                            raise AssertionError(f"{key.data}: {st['head']}")
+                    st["items"].extend(st["dec"].feed(chunk))
+                except Exception as e:  # surfaced after close
+                    self.errors.append(repr(e))
+                    with self.lock:
+                        self.sel.unregister(st["sock"])
+
+    def close(self) -> None:
+        if self.stop.is_set():
+            return
+        self.stop.set()
+        self.thread.join(timeout=10)
+        for st in self.subs.values():
+            st["sock"].close()
+        self.sel.close()
+
+
+def stream_phase(fields) -> dict:
+    """``stream``: the exporter daemon with its stream plane on, over NVML,
+    beside the bench train workload (B1-B3, as in ``daemon_phase``):
+    ``python -m tpumon_torch.exporter.main -o none -d 1000 --port P
+    --stream-port S --blackbox-dir D``.  STREAM_QUIET_S with no
+    subscriber, then STREAM_SUBSCRIBED_S with STREAM_DECODERS in-process
+    ``StreamDecoder`` subscribers (JSON op), one ``GET /stream`` one, one
+    ``python -m tpumon_torch.cli.stream --connect 127.0.0.1:S --format
+    json`` process, and a decoder attaching STREAM_LATE_S in.  Scraped at
+    1 Hz throughout.  Fails unless every subscriber's decoded sweeps are
+    the flight recorder's for the same sweep stamps (read back with the
+    port's ``BlackBoxReader``), each a run of consecutive recorded sweeps
+    opened by a keyframe (the late one's equal to the recorder's sweep at
+    its stamp), the CLI's JSON lines equal a decoder's for the same
+    sweeps, and the daemon holds no CUDA context and maps no torch.
+    Printed: the ``stream`` phase ms a sweep and the sweep wall, p50/p99
+    in each stretch, ``tpumon_stream_*`` bytes a subscriber a tick, and
+    the daemon's CPU share in each stretch.  The train kernels' launches
+    are the workload's own counts, from its JSON line."""
+
+    import shutil
+    import tempfile
+    from tpumon_torch import blackbox as BB
+    from tpumon_torch.cli.replay import _item_objs
+
+    shm = "/dev/shm" if os.access("/dev/shm", os.W_OK) else None
+    work = tempfile.mkdtemp(prefix="tpumon-stream-", dir=shm)
+    bb_dir = os.path.join(work, "bb")
+    drop = os.path.join(work, "embed.prom")
+    env = dict(os.environ, PYTHONPATH=HERE)
+    for k in ("TPUMON_BACKEND", "TPUMON_CHIPS"):
+        env.pop(k, None)
+    port, sport = free_port(), free_port()
+    daemon = workload = cli = subs = None
+    out, failures = {}, []
+    try:
+        daemon = spawn(["tpumon_torch.exporter.main", "-o", "none", "-d",
+                        "1000", "--port", str(port), "--stream-port",
+                        str(sport), "--blackbox-dir", bb_dir,
+                        "--wait-for-tpu", "30"], env,
+                       os.path.join(work, "daemon.err"))
+        workload = spawn(["tpumon_torch.loadgen.run", "--size", "bench",
+                          "--self-monitor", "--monitor-output", drop,
+                          "--seconds", str(STREAM_QUIET_S +
+                                           STREAM_SUBSCRIBED_S + 25),
+                          "--json"], env, os.path.join(work, "workload.err"),
+                         stdout=subprocess.PIPE)
+        t0 = time.monotonic()
+        while True:
+            try:
+                if http_get(port, "/healthz")[0] == 200:
+                    break
+            except OSError:
+                pass
+            if daemon.poll() is not None or time.monotonic() - t0 > 60:
+                with open(os.path.join(work, "daemon.err")) as f:
+                    raise AssertionError(f"the stream daemon never "
+                                         f"answered /healthz 200: "
+                                         f"{f.read()[-2000:]}")
+            time.sleep(0.1)
+        while not os.path.exists(drop):  # the workload is stepping
+            if workload.poll() is not None or time.monotonic() - t0 > 180:
+                with open(os.path.join(work, "workload.err")) as f:
+                    raise AssertionError(f"the workload never stepped: "
+                                         f"{f.read()[-2000:]}")
+            time.sleep(0.2)
+
+        def scrape_for(seconds, at=None):
+            """1 Hz scrapes: [(wall, rows)], and the daemon's CPU % over
+            the stretch; ``at`` = (seconds in, fn) runs once."""
+            rows, m0 = [], (proc_stat(daemon.pid), time.monotonic())
+            end = time.monotonic() + seconds
+            while time.monotonic() < end:
+                tick = time.monotonic()
+                if at is not None and tick - m0[1] >= at[0]:
+                    at[1]()
+                    at = None
+                status, _, body, _ = http_get(port, "/metrics")
+                if status != 200:
+                    raise AssertionError(f"/metrics {status}")
+                rows.append((time.time(), samples(body.decode())))
+                time.sleep(max(0.0, 1.0 - (time.monotonic() - tick)))
+            m1 = (proc_stat(daemon.pid), time.monotonic())
+            return rows, round(100.0 * (m1[0]["cpu_s"] - m0[0]["cpu_s"])
+                               / (m1[1] - m0[1]), 3)
+
+        quiet_rows, quiet_cpu = scrape_for(STREAM_QUIET_S)
+        subs = Subscribers(sport)
+        for k in range(STREAM_DECODERS):
+            subs.attach(f"decoder{k}")
+        subs.attach("http", http=True)
+        cli_out = open(os.path.join(work, "cli.jsonl"), "w")
+        try:
+            cli = subprocess.Popen(
+                [sys.executable, "-m", "tpumon_torch.cli.stream",
+                 "--connect", f"127.0.0.1:{sport}", "--format", "json"],
+                cwd=HERE, env=env, stdout=cli_out,
+                stderr=open(os.path.join(work, "cli.err"), "w"))
+        finally:
+            cli_out.close()
+        sub_rows, sub_cpu = scrape_for(
+            STREAM_SUBSCRIBED_S, at=(STREAM_LATE_S,
+                                     lambda: subs.attach("late")))
+        cli_rc, _ = stop_proc(cli)
+        subs.close()
+        context = {"daemon": cuda_context_marks(daemon.pid),
+                   "nvml_init_alone": nvml_init_marks(env)}
+        rc, exit_s = stop_proc(daemon)
+        try:
+            wl_out, _ = workload.communicate(timeout=180)
+        except subprocess.TimeoutExpired:
+            workload.kill()
+            wl_out, _ = workload.communicate()
+        if workload.returncode != 0:
+            with open(os.path.join(work, "workload.err")) as f:
+                raise AssertionError(f"workload exited {workload.returncode}"
+                                     f": {f.read()[-2000:]}")
+        wl = json.loads(wl_out.strip().splitlines()[-1])
+        if subs.errors:
+            failures.append(f"subscribers: {subs.errors[:4]}")
+        if rc != 0 or exit_s > 5.0:
+            failures.append(f"SIGTERM: exit {rc} in {exit_s:.2f} s")
+        maps = context["daemon"]
+        if maps["libs"] or maps["uvm_mapped"]:
+            failures.append(f"the daemon maps {maps}")
+        if maps["libcuda"] and not context["nvml_init_alone"]["libcuda"]:
+            failures.append("the daemon maps libcuda, nvmlInit_v2 alone "
+                            "does not")
+
+        # -- every subscriber's sweeps are the recorder's ---------------
+        recorded = [x for x in BB.BlackBoxReader(bb_dir).replay()
+                    if isinstance(x, BB.ReplayTick)]
+        at_ts = {tk.timestamp: k for k, tk in enumerate(recorded)}
+
+        def events(tk):
+            return [(e.etype.name, e.chip_index, e.seq, e.message)
+                    for e in tk.events]
+
+        ticks_by = {}
+        for name, st in subs.subs.items():
+            ticks = [x for x in st["items"] if isinstance(x, BB.ReplayTick)]
+            ticks_by[name] = ticks
+            idx = [at_ts.get(tk.timestamp) for tk in ticks]
+            if not ticks or None in idx or \
+                    idx != list(range(idx[0], idx[0] + len(idx))):
+                failures.append(f"{name}: {len(ticks)} ticks, recorder "
+                                f"indices {idx[:3]}...{idx[-3:]}")
+                continue
+            if not ticks[0].keyframe or any(tk.keyframe for tk in ticks[1:]):
+                failures.append(f"{name}: keyframes at "
+                                f"{[k for k, t in enumerate(ticks) if t.keyframe]}")
+            for tk, k in zip(ticks, idx):
+                if tk.snapshot != recorded[k].snapshot or \
+                        (not tk.keyframe and events(tk) !=
+                         events(recorded[k])):
+                    failures.append(f"{name}: sweep {tk.timestamp} differs "
+                                    f"from the recorder's")
+                    break
+        late = ticks_by.get("late") or []
+        first = ticks_by.get("decoder0") or []
+        if not late or len(late) > len(first) - STREAM_LATE_S / 2:
+            failures.append(f"the late decoder got {len(late)} ticks, "
+                            f"decoder0 {len(first)}")
+        # -- the CLI's lines are a decoder's ----------------------------
+        with open(os.path.join(work, "cli.jsonl")) as f:
+            cli_objs = [json.loads(ln) for ln in f if ln.strip()]
+        cli_ticks = [o for o in cli_objs if o["kind"] == "tick"]
+        dec_lines = {tk.timestamp: [json.dumps(o, sort_keys=True)
+                                    for o in _item_objs(tk)]
+                     for tk in first}
+        groups, cur = {}, None
+        for o in cli_objs:
+            if o["kind"] == "tick":
+                cur = o["ts"]
+                groups[cur] = []
+            if cur is not None:
+                groups[cur].append(json.dumps(o, sort_keys=True))
+        compared = 0
+        for o in cli_ticks[1:]:
+            if o["ts"] in dec_lines:
+                compared += 1
+                if groups[o["ts"]] != dec_lines[o["ts"]]:
+                    failures.append(f"CLI tick {o['ts']}: "
+                                    f"{groups[o['ts']]} != "
+                                    f"{dec_lines[o['ts']]}")
+                    break
+        if compared < STREAM_SUBSCRIBED_S - 5 or not cli_ticks[0]["keyframe"]:
+            failures.append(f"CLI: {len(cli_ticks)} ticks, {compared} "
+                            f"compared with decoder0")
+
+        # -- the figures -------------------------------------------------
+        def phase(rows, name):
+            return [1000.0 * float(v) for _, rs in rows
+                    for _, f_, lb, v, _ in rs
+                    if f_ == "tpumon_exporter_sweep_phase_seconds"
+                    and lb.get("phase") == name]
+
+        def family(rows, fam):
+            return [float(v) for _, rs in rows for _, f_, _, v, _ in rs
+                    if f_ == fam]
+
+        def p(xs):
+            return {"p50": quantile(xs, 0.5), "p99": quantile(xs, 0.99),
+                    "n": len(xs)}
+
+        # the subscribed stretch's scrapes serve sweeps with every
+        # subscriber attached from its second second on
+        steady = sub_rows[2:]
+        sent = family(steady, "tpumon_stream_bytes_sent_total")
+        frames = family(steady, "tpumon_exporter_sweeps_total")
+        nsubs = family(steady, "tpumon_stream_subscribers")
+        per_sub_tick = ((sent[-1] - sent[0]) / (frames[-1] - frames[0])
+                        / nsubs[-1]) if len(sent) > 1 and \
+            frames[-1] > frames[0] and nsubs[-1] else None
+        client = subs.subs["decoder0"]
+        out.update({
+            "subscribers": {"decoders": STREAM_DECODERS, "http": 1,
+                            "cli": 1, "late": 1},
+            "stream_phase_ms": {"quiet": p(phase(quiet_rows, "stream")),
+                                "subscribed": p(phase(sub_rows, "stream"))},
+            "sweep_phase_ms": {
+                stretch: {ph: p(phase(rows, ph)) for ph in (
+                    "collect", "record", "stream", "render", "publish")}
+                for stretch, rows in (("quiet", quiet_rows),
+                                      ("subscribed", sub_rows))},
+            "sweep_ms": {
+                "quiet": p([1000.0 * x for x in family(
+                    quiet_rows, "tpumon_exporter_scrape_duration_seconds")]),
+                "subscribed": p([1000.0 * x for x in family(
+                    sub_rows, "tpumon_exporter_scrape_duration_seconds")])},
+            "cpu_percent": {"quiet": quiet_cpu, "subscribed": sub_cpu},
+            "bytes_per_subscriber_tick": per_sub_tick,
+            "decoder0_bytes_per_tick": client["bytes"] / max(1, len(first)),
+            "subscribers_gauge_max": max(nsubs) if nsubs else None,
+            "stream_totals": {f: family(sub_rows[-1:], f)[0] for f in (
+                "tpumon_stream_subscribers_total",
+                "tpumon_stream_frames_sent_total",
+                "tpumon_stream_keyframes_total",
+                "tpumon_stream_dropped_frames_total",
+                "tpumon_stream_resyncs_total")},
+            "ticks": {"recorded": len(recorded), "decoder0": len(first),
+                      "late": len(late), "http": len(ticks_by.get("http",
+                                                                   [])),
+                      "cli": len(cli_ticks), "cli_compared": compared},
+            "cli_exit": cli_rc, "sigterm_exit": rc,
+            "cuda_context_marks": context,
+            "workload": {k: wl.get(k) for k in (
+                "steps_per_sec", "steps", "final_loss", "captures_ok",
+                "captures_failed", "launches")},
+        })
+        if failures:
+            raise AssertionError(f"stream check failed: {failures[:10]} "
+                                 f"{out}")
+        return out
+    finally:
+        if subs is not None:
+            subs.close()
+        for proc in (cli, daemon, workload):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -2812,6 +3482,22 @@ def main() -> int:
     rows["mxu_burn"]["launches"] += n
     rows["mxu_burn"]["launches_by_path"]["planes"] = n
     print("planes: " + json.dumps(planes))
+
+    watches = watches_phase(K, fields)
+    n = watches["launches"]["mxu_burn"]
+    rows["mxu_burn"]["launches"] += n
+    rows["mxu_burn"]["launches_by_path"]["watches"] = n
+    print("watches: " + json.dumps(watches))
+
+    stream = stream_phase(fields)
+    for name in PATHS["train"]:
+        n = (stream["workload"]["launches"] or {}).get(name, 0)
+        if n <= 0:
+            return fail(f"kernel {name} never launched on the stream "
+                        f"path's workload")
+        rows[name]["launches"] += n
+        rows[name]["launches_by_path"]["stream"] = n
+    print("stream: " + json.dumps(stream))
 
     # the card again, where a tail of the output keeps it
     print(smi.stdout.strip().splitlines()[0])

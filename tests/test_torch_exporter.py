@@ -806,15 +806,17 @@ def test_wait_for_gpu_gives_up_within_its_bound(cli_env, tmp_path):
 def test_unported_plane_flags_exit_naming_item_16b(flag, capsys, cli_env,
                                                    tmp_path):
     """Each plane flag of the reference's CLI: ``--burst``,
-    ``--burst-hz``, ``--blackbox-dir``, ``--blackbox-max-bytes`` and
-    ``--rules`` now run (over the fake NVML; the recorder under
-    ``tmp_path``, a real rules file); ``--stream-port`` and the agent run
-    modes exit 1 naming item 16b, ``--ici-per-link-modeled`` item 7."""
+    ``--burst-hz``, ``--blackbox-dir``, ``--blackbox-max-bytes``,
+    ``--rules`` and ``--stream-port`` now run (over the fake NVML; the
+    recorder under ``tmp_path``, a real rules file; ``--oneshot`` returns
+    before the stream plane binds, as in the reference); the agent run
+    modes exit 1 naming item 16b, part 5, ``--ici-per-link-modeled``
+    item 7."""
 
     from tpumon_torch.exporter import main
 
-    refused = {"--stream-port": "item 16b", "--connect": "item 16b",
-               "--start-agent": "item 16b", "--ici-per-link-modeled":
+    refused = {"--connect": "item 16b, part 5",
+               "--start-agent": "item 16b, part 5", "--ici-per-link-modeled":
                "ROADMAP.md, Queue 1, item 7"}
     if flag[0] in refused:
         with pytest.raises(SystemExit) as e:
@@ -842,7 +844,9 @@ def test_unported_plane_flags_exit_naming_item_16b(flag, capsys, cli_env,
         # both fake cards run warm: two firings of the one rule
         "--rules": lambda: re.search(
             r'^tpumon_anomaly_findings_total\{[^}]*rule="warm"\} 2$',
-            r.stdout, re.M) is not None}
+            r.stdout, re.M) is not None,
+        "--stream-port": lambda: fams.get("tpu_power_usage") == 2 and
+        "tpumon_stream_subscribers" not in fams}
     assert want[flag[0]](), r.stdout[-3000:]
 
 

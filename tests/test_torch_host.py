@@ -313,7 +313,7 @@ def test_deviceinfo_render_matches_reference(args):
 # ---- agent run modes: not ported (ROADMAP.md, item 16b) -----------------------
 
 @pytest.mark.parametrize("cli", ["dmon", "deviceinfo", "topology",
-                                 "processinfo", "diag"])
+                                 "processinfo", "diag", "health", "policy"])
 @pytest.mark.parametrize("flag", [["--connect", "unix:/tmp/agent.sock"],
                                   ["--start-agent"]])
 def test_agent_run_modes_exit_naming_the_item(cli, flag, capsys):
@@ -323,7 +323,7 @@ def test_agent_run_modes_exit_naming_the_item(cli, flag, capsys):
         mod.main(flag)
     assert e.value.code == 1
     err = capsys.readouterr().err
-    assert "agent run modes" in err and "item 16b" in err
+    assert "agent run modes" in err and "item 16b, part 5" in err
 
 
 # ---- the diag load ------------------------------------------------------------

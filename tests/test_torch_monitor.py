@@ -569,12 +569,12 @@ def test_exporter_families_match_reference_exporter():
 
 
 def test_exporter_refuses_unported_planes(tmp_path):
-    """What is still unported is refused by name: the stream plane
-    (ROADMAP.md item 16b) and the modeled per-link split (item 7).  The
-    burst, recorder and anomaly planes run (their byte-for-byte cases are
-    in ``tests/test_torch_exporter.py``), and so do the textfile merge,
-    the enricher and pod attribution; ``anomaly_kmsg`` without rules
-    takes no line."""
+    """What is still unported is refused by name: the modeled per-link
+    split (ROADMAP.md item 7).  The burst, recorder and anomaly planes
+    run (their byte-for-byte cases are in ``tests/test_torch_exporter.py``),
+    and so do the stream plane (``tests/test_torch_stream.py``), the
+    textfile merge, the enricher and pod attribution; ``anomaly_kmsg``
+    without rules takes no line."""
 
     import tpumon_torch
     from tpumon_torch import types as TT
@@ -599,8 +599,7 @@ def test_exporter_refuses_unported_planes(tmp_path):
     (tmp_path / "drop.prom").write_text('tpu_workload_x{chip="0"} 7\n')
     exp = TpuExporter(h, output_path=str(tmp_path / "x.prom"),
                       merge_globs=[str(tmp_path / "drop.prom")])
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        exp.set_stream_publisher(None)
+    exp.set_stream_publisher(None)  # installs, as in the reference
     assert exp.anomaly_kmsg("x", 0.0) is False
     exp.set_enricher(lambda text: text + "# enriched\n")
     text = exp.sweep()

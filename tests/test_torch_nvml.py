@@ -669,9 +669,13 @@ def test_diag_over_nvml_skips_what_is_not_ported(cli_env):
     assert rows["backend init"]["detail"] == "nvml"
     assert rows["status fields"]["status"] == "PASS"
     assert rows["topology"]["status"] == "PASS"
-    assert rows["health subsystems"]["status"] == "SKIP"
-    assert "item 16" in rows["health subsystems"]["detail"]
+    # the health check runs (the fake's two VBIOS versions split evenly:
+    # the lower one's card warns); no port backend injects events
+    assert rows["health subsystems"] == {
+        "check": "health subsystems", "status": "PASS",
+        "detail": "all chips WARN"}
     assert rows["event path"]["status"] == "SKIP"
+    assert "no injection hook" in rows["event path"]["detail"]
     assert not [d for d in rows.values() if d["status"] == "FAIL"]
 
 

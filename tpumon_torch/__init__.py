@@ -8,29 +8,42 @@ hand-written CUDA flash kernels (:mod:`.loadgen.kernels`,
 (:mod:`.backends.cuda`) and the exporter's sweep, driven by ``python -m
 tpumon_torch.loadgen.run``; and the out-of-band side: the NVML backend
 (:mod:`.backends.nvml`) under the exporter daemon (``python -m
-tpumon_torch.exporter.main``), whose import path never imports torch.
+tpumon_torch.exporter.main``), the REST API (``python -m
+tpumon_torch.restapi.main``) and the sample CLIs, whose import paths never
+import torch.
 
-This module is the trimmed façade: a refcounted :func:`init` /
-:func:`shutdown` pair guarding one process-wide :class:`Handle` that
-carries what the exporter, the runner and the sample CLIs use (backend,
-watches, inventory, status, topology, versions, per-process accounting,
-introspection).  The default backend is ``auto``: the out-of-band NVML
-source (:mod:`.backends.nvml`).
+This module is the thread-safe public façade, the counterpart of
+``tpumon/__init__.py``: a refcounted :func:`init` / :func:`shutdown` pair
+guarding one process-wide :class:`Handle` (backend, watches, inventory,
+status, topology, versions, per-process accounting, health watches, the
+policy violation stream, event sets, introspection).  The default
+backend is ``auto``: the out-of-band NVML source (:mod:`.backends.nvml`).
+The reference's agent run modes (``RunMode``, ``--connect``,
+``--start-agent``) are not ported yet: ROADMAP.md, Queue 1, item 16b,
+part 5.
 """
 
 from __future__ import annotations
 
+import queue
 import threading
 from typing import Dict, List, Optional
 
+from . import fields
 from .backends import (Backend, BackendError, ChipNotFound, LibraryNotFound,
                        make_backend)
-from .device import Chip
+from .device import Chip, status_from_fields
+from .event_set import CRITICAL_EVENTS, EventSet
+from .events import Event, EventType, PolicyCondition, PolicyViolation
+from .health import HealthMonitor
 from .introspect import SelfMonitor
+from .policy import PolicyManager
 from .process_info import WATCH_WARMUP_S, ProcessWatcher
-from .types import (ChipInfo, ChipStatus, EngineStatus, ProcessInfo,
+from .types import (ChipInfo, ChipMode, ChipStatus, EngineStatus,
+                    HealthResult, HealthStatus, HealthSystem, ProcessInfo,
                     TopologyInfo, VersionInfo)
-from .watch import WatchManager
+from .watch import (DEFAULT_MAX_KEEP_AGE_S, DEFAULT_UPDATE_FREQ_US,
+                    ChipGroup, FieldGroup, WatchManager)
 
 __version__ = "0.1.0"
 
@@ -44,9 +57,17 @@ class Handle:
         self._own_backend = own_backend
         self.watches = WatchManager(backend, clock=clock)
         self._clock = clock
+        self.health = HealthMonitor(backend, clock=clock)
+        self.policy = PolicyManager(backend, clock=clock)
         self._chips: Dict[int, Chip] = {}
         self._processes: Optional[ProcessWatcher] = None
         self.self_monitor = SelfMonitor()
+        self.watches.add_event_listener(self.policy.on_event)
+        # threshold policies are evaluated on every sweep, so background
+        # sweeping (watches.start()) drives the violation stream end to end
+        self.watches.add_sweep_listener(lambda now: self.policy.evaluate(now))
+
+    # -- inventory ------------------------------------------------------------
 
     def chip_count(self) -> int:
         return self.backend.chip_count()
@@ -54,15 +75,33 @@ class Handle:
     def supported_chips(self) -> List[int]:
         return self.backend.supported_chips()
 
-    def chip_info(self, index: int) -> ChipInfo:
-        return self.backend.chip_info(index)
-
-    def chip_status(self, index: int) -> ChipStatus:
+    def chip(self, index: int) -> Chip:
         # one Chip per index, so its throttle state reads counter deltas
         c = self._chips.get(index)
         if c is None:
             c = self._chips[index] = Chip(self.backend, index)
-        return c.status()
+        return c
+
+    def chip_info(self, index: int) -> ChipInfo:
+        return self.backend.chip_info(index)
+
+    def chip_status(self, index: int) -> ChipStatus:
+        return self.chip(index).status()
+
+    def chip_by_uuid(self, uuid: str) -> Optional[Chip]:
+        for i in self.backend.supported_chips():
+            c = self.chip(i)
+            if c.uuid == uuid:
+                return c
+        return None
+
+    def chip_mode(self, index: int) -> ChipMode:
+        """Occupancy/accounting state (GetDeviceMode analog,
+        nvml.go:582-604)."""
+
+        pids = tuple(p.pid for p in self.backend.processes(index))
+        return ChipMode(held=bool(pids), holder_pids=pids,
+                        accounting=self.processes.is_accounting(pids))
 
     @property
     def processes(self) -> ProcessWatcher:
@@ -76,6 +115,32 @@ class Handle:
 
     def get_process_info(self, pid: int) -> ProcessInfo:
         return self.processes.get_process_info(pid)
+
+    # -- health ---------------------------------------------------------------
+
+    def health_set(self, chip_index: int,
+                   systems: HealthSystem = HealthSystem.ALL) -> None:
+        self.health.set_watch(chip_index, systems)
+
+    def health_check(self, chip_index: int) -> HealthResult:
+        return self.health.check(chip_index)
+
+    # -- policy ---------------------------------------------------------------
+
+    def register_policy(self, chip_index: int,
+                        conditions: PolicyCondition = PolicyCondition.ALL,
+                        thresholds: Optional[Dict[PolicyCondition, float]] = None,
+                        ) -> "queue.Queue[PolicyViolation]":
+        """``Policy(gpuId, conds...) (<-chan, error)`` analog (api.go:91-93)."""
+
+        return self.policy.register(chip_index, conditions, thresholds)
+
+    # -- event sets (nvml NewEventSet analog) ---------------------------------
+
+    def new_event_set(self) -> EventSet:
+        return EventSet(self.watches)
+
+    # -- introspection --------------------------------------------------------
 
     def introspect(self) -> EngineStatus:
         stats = self.watches.stats()
@@ -143,9 +208,33 @@ def shutdown() -> None:
             _handle = None
 
 
+def get_handle() -> Handle:
+    with _lock:
+        if _handle is None:
+            raise BackendError("tpumon_torch not initialized; call "
+                               "tpumon_torch.init()")
+        return _handle
+
+
 __all__ = [
-    "__version__", "init", "shutdown", "Handle", "WATCH_WARMUP_S",
-    "ProcessInfo",
+    "__version__",
+    # façade
+    "init", "shutdown", "get_handle", "Handle",
+    # backends
     "Backend", "BackendError", "ChipNotFound", "LibraryNotFound",
     "make_backend",
+    # device layer
+    "Chip", "status_from_fields",
+    # types
+    "ChipInfo", "ChipMode", "ChipStatus", "EngineStatus", "HealthResult",
+    "HealthStatus", "HealthSystem", "ProcessInfo", "TopologyInfo",
+    "VersionInfo",
+    # events / policy
+    "Event", "EventType", "PolicyCondition", "PolicyViolation",
+    "EventSet", "CRITICAL_EVENTS",
+    # watches
+    "ChipGroup", "FieldGroup", "WatchManager",
+    "DEFAULT_UPDATE_FREQ_US", "DEFAULT_MAX_KEEP_AGE_S", "WATCH_WARMUP_S",
+    # field catalog
+    "fields",
 ]

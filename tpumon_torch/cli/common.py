@@ -9,8 +9,9 @@ plus run-mode selection:
     --connect ADDR               standalone mode (agent run modes)
     --start-agent                fork/exec a local agent (agent run modes)
 
-The agent run modes are not ported yet (ROADMAP.md, Queue 1, item 16b):
-``--connect`` and ``--start-agent`` exit with an error that says so.
+The agent run modes are not ported yet (ROADMAP.md, Queue 1, item 16b,
+part 5): ``--connect`` and ``--start-agent`` exit with an error that says
+so.
 
 The 1 s ticker loop shape (signal-aware, immediate first tick) follows
 ``samples/dcgm/dmon/main.go:39-59``.
@@ -30,7 +31,8 @@ from .. import log
 
 #: what --connect and --start-agent need
 AGENT_MODES_MISSING = ("the agent run modes (--connect, --start-agent) are "
-                       "not ported yet: ROADMAP.md, Queue 1, item 16b")
+                       "not ported yet: ROADMAP.md, Queue 1, item 16b, "
+                       "part 5")
 
 
 def add_connection_flags(p: argparse.ArgumentParser) -> None:

@@ -3,9 +3,9 @@
 The port's copy of ``tpumon/cli/diag.py`` (``python -m
 tpumon_torch.cli.diag``), over the NVML backend by default.  The load of
 ``--evidence-load`` is the reference's 8-deep chain of 512x512 bf16
-products, in torch, on ``cuda`` unless ``--device cpu``.  The health
-check needs the health plane, which is not ported yet (ROADMAP.md, Queue
-1, item 16b): it reports SKIP, never a silent PASS.
+products, in torch, on ``cuda`` unless ``--device cpu``.  The event-path
+check injects a CHIP_RESET where the backend has an injection hook;
+neither port backend has one, so it reports the reference's SKIP.
 
 The ``dcgmi diag`` role — absent from the reference repo (it ships no
 diagnostic tool; operators had to infer stack health from missing
@@ -231,8 +231,18 @@ def _check_watch_roundtrip(h: "tpumon_torch.Handle") -> str:
 
 
 def _check_health(h: "tpumon_torch.Handle") -> str:
-    raise _Skip("the health plane is not ported yet "
-                "(ROADMAP.md, Queue 1, item 16b)")
+    worst = "PASS"
+    for c in h.supported_chips():
+        h.health_set(c)
+        r = h.health_check(c)
+        name = getattr(r.status, "name", str(r.status))
+        if name == "FAIL":
+            raise RuntimeError(
+                f"chip {c} health FAIL: "
+                f"{[i.message for i in r.incidents][:3]}")
+        if name == "WARN":
+            worst = "WARN"
+    return f"all chips {worst}"
 
 
 def _check_introspect(h: "tpumon_torch.Handle") -> str:
@@ -243,12 +253,30 @@ def _check_introspect(h: "tpumon_torch.Handle") -> str:
 
 
 def _check_event_path(h: "tpumon_torch.Handle") -> str:
-    del h
-    # no port backend injects events, and the policy stream is part of
-    # the planes not ported yet: on hardware, events come from NVML's
-    # event set and kmsg
-    raise _Skip("backend has no injection hook, and the policy stream "
-                "is not ported yet (ROADMAP.md, Queue 1, item 16b)")
+    import queue as _q
+
+    from tpumon_torch.events import EventType, PolicyCondition
+
+    q = h.register_policy(0, PolicyCondition.CHIP_RESET)
+    inject = getattr(h.backend, "inject_event", None)
+    if callable(inject):
+        inject(EventType.CHIP_RESET, chip_index=0,
+               message="diag self-test")
+    else:
+        # the port's backends have no hook (its agent, the reference's
+        # other route, is ROADMAP.md, Queue 1, item 16b, part 5)
+        raise _Skip("backend has no injection hook "
+                    "(real hardware: events come from kmsg/vendor)")
+    # the watch pump carries events into the policy engine
+    deadline = time.monotonic() + 5.0
+    while time.monotonic() < deadline:
+        h.watches.update_all(wait=True)
+        try:
+            v = q.get(timeout=0.2)
+            return f"injected CHIP_RESET delivered ({v.condition.name})"
+        except _q.Empty:
+            continue
+    raise RuntimeError("injected event never reached the policy stream")
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

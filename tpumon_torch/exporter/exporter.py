@@ -16,12 +16,14 @@ laid over the snapshot first; then the anomaly engine (``rules``,
 :mod:`tpumon_torch.anomaly`) scores it, draining the kernel-log lines
 :meth:`TpuExporter.anomaly_kmsg` queued; then the flight recorder
 (``blackbox_dir``, :mod:`tpumon_torch.blackbox`) tees the snapshot and
-its findings.  A plane that cannot start fails the constructor.
+its findings; then the live stream (:meth:`TpuExporter.
+set_stream_publisher`, :mod:`tpumon_torch.frameserver`) tees the same
+snapshot and findings to its subscribers.  A plane that cannot start
+fails the constructor.
 
-Not ported yet, and refused when asked for: the stream plane
-(:meth:`TpuExporter.set_stream_publisher`; ROADMAP.md, Queue 1, item 16b)
-and the modeled per-link ICI split (item 7).  There is no native codec:
-the render is the pure-Python path (``tpumon_codec_native 0``).
+Not ported yet, and refused when asked for: the modeled per-link ICI
+split (ROADMAP.md, Queue 1, item 7).  There is no native codec: the
+render is the pure-Python path (``tpumon_codec_native 0``).
 
 Importing this module, and running the daemon over the NVML backend,
 never imports ``torch``.
@@ -95,15 +97,8 @@ def select_chips(all_chips: Sequence[int],
     return list(all_chips)
 
 
-#: where the parts this port does not carry yet are listed
-NOT_PORTED_ITEM = "ROADMAP.md, Queue 1, item 16b"
 #: the modeled per-link ICI split waits for NCCL attribution
 MODELED_LINKS_ITEM = "ROADMAP.md, Queue 1, item 7"
-
-
-def not_ported(what: str, item: str = NOT_PORTED_ITEM) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to tpumon_torch yet "
-                               f"({item})")
 
 
 class TpuExporter:
@@ -147,8 +142,9 @@ class TpuExporter:
         records in the recorder."""
 
         if ici_per_link_modeled:
-            raise not_ported("exporter option 'ici_per_link_modeled'",
-                             MODELED_LINKS_ITEM)
+            raise NotImplementedError(
+                "exporter option 'ici_per_link_modeled' is not ported to "
+                f"tpumon_torch yet ({MODELED_LINKS_ITEM})")
         if interval_ms < MIN_INTERVAL_MS:
             raise ValueError(
                 f"interval {interval_ms} ms below the {MIN_INTERVAL_MS} ms "
@@ -203,6 +199,10 @@ class TpuExporter:
         # by the sweep and laid over the snapshot (so the derived fields
         # ride the renderer and recorder tees like any field)
         self._burst_sampler = None  # acquired at the END of __init__
+        # streaming subscription plane: when a publisher is installed,
+        # every sweep's delta frame is teed to N live subscribers — one
+        # encode, N sends (set_stream_publisher)
+        self._stream = None
         self._burst_stats: Optional[Dict[str, float]] = None
         self._burst_stats_ts = 0.0
         # streaming anomaly detection: scored on the sweep thread
@@ -312,7 +312,15 @@ class TpuExporter:
         self._attributor = attributor
 
     def set_stream_publisher(self, publisher) -> None:
-        raise not_ported("the stream plane (set_stream_publisher)")
+        """Install a live-stream publisher (:class:`tpumon_torch.
+        frameserver.StreamPublisher`): every sweep is teed to its
+        subscribers as already-encoded ``sweep_frame`` delta bytes —
+        keyframe on attach, bounded per-subscriber buffers,
+        drop-to-keyframe on slow readers.  The tee costs one delta-table
+        pass per sweep (the flight recorder's bill), independent of the
+        subscriber count."""
+
+        self._stream = publisher
 
     def anomaly_kmsg(self, line: str, ts: float) -> bool:
         """Queue one kernel-log line for the detection plane (any
@@ -468,6 +476,24 @@ class TpuExporter:
             t1b = time.monotonic()
             phases["record"] = t1b - t1
             t1 = t1b
+        if self._stream is not None:
+            # tee the sweep to live subscribers: the frame is encoded
+            # ONCE against the publisher's delta table and fanned out
+            # as bytes; a slow subscriber is the frameserver's problem
+            # (bounded buffer, drop-to-keyframe), never this loop's
+            try:
+                self._stream.publish(per_chip, now=t)
+                if findings:
+                    from ..blackbox import encode_finding
+                    for rec in findings:
+                        self._stream.publish_record(
+                            encode_finding(rec))
+            except Exception as e:
+                log.warn_every("exporter.stream", 30.0,
+                               "stream tee failed: %r", e)
+            t1s = time.monotonic()
+            phases["stream"] = t1s - t1
+            t1 = t1s
 
         extra = self._self_metrics()
         if self._enricher is None:
@@ -896,8 +922,8 @@ class TpuExporter:
             lines.append("# HELP tpumon_exporter_sweep_phase_seconds Wall "
                          "time of each phase of the previous sweep.")
             lines.append("# TYPE tpumon_exporter_sweep_phase_seconds gauge")
-            for ph in ("collect", "anomaly", "record", "render",
-                       "merge", "publish"):
+            for ph in ("collect", "anomaly", "record", "stream",
+                       "render", "merge", "publish"):
                 if ph in self._last_phases:
                     lines.append(
                         "tpumon_exporter_sweep_phase_seconds{%s,phase=\"%s\"}"
@@ -986,6 +1012,38 @@ class TpuExporter:
                     lines += render_family(fam, ptype, help_txt, lbl,
                                            float(scalar[fam]),
                                            fmt=".0f")
+        # fan-out-plane twin of the blackbox block: is anyone attached
+        # to the live stream, how much is the tee pushing, and is
+        # backpressure biting (drops/resyncs) — answerable from the
+        # same scrape that shows the render cache and the recorder
+        if self._stream is not None:
+            ss = self._stream.stats()
+            lines += rf("tpumon_stream_subscribers", "gauge",
+                        "Live stream subscribers currently attached.",
+                        lbl, ss["subscribers"], fmt=".0f")
+            lines += rf("tpumon_stream_subscribers_total", "counter",
+                        "Stream subscribers ever attached since start.",
+                        lbl, ss["subscribers_total"], fmt=".0f")
+            lines += rf("tpumon_stream_frames_sent_total", "counter",
+                        "Stream frames (deltas + keyframes) queued to "
+                        "subscribers since start.",
+                        lbl, ss["frames_sent_total"], fmt=".0f")
+            lines += rf("tpumon_stream_bytes_sent_total", "counter",
+                        "Stream bytes queued to subscribers since "
+                        "start.",
+                        lbl, ss["bytes_sent_total"], fmt=".0f")
+            lines += rf("tpumon_stream_keyframes_total", "counter",
+                        "Keyframes sent (attaches + resyncs) since "
+                        "start.",
+                        lbl, ss["keyframes_total"], fmt=".0f")
+            lines += rf("tpumon_stream_dropped_frames_total", "counter",
+                        "Frames not queued to a stale (overflowed) "
+                        "subscriber since start.",
+                        lbl, ss["dropped_frames_total"], fmt=".0f")
+            lines += rf("tpumon_stream_resyncs_total", "counter",
+                        "Drop-to-keyframe recoveries of slow "
+                        "subscribers since start.",
+                        lbl, ss["resyncs_total"], fmt=".0f")
         # burst-loop health: overruns climbing because the source is
         # slower than the period show on the scrape
         if self._burst_stats:

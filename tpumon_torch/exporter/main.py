@@ -23,10 +23,12 @@ reference: ``--burst-hz HZ`` (the burst inner loop over NVML; implies
 ``--burst``), ``--blackbox-dir DIR`` (the flight recorder; replay it with
 ``python -m tpumon_torch.cli.replay``) and ``--rules FILE`` (the anomaly
 plane); with either of the last two, kernel-log lines ride in through a
-kmsg watcher where ``/dev/kmsg`` can be read.  Flags of what is not
-ported yet exit 1 with a message that names its ROADMAP.md item:
-``--stream-port`` (Queue 1, item 16b), ``--ici-per-link-modeled`` (item
-7), and ``--connect``/``--start-agent`` (item 16b).
+kmsg watcher where ``/dev/kmsg`` can be read.  ``--stream-port P`` serves
+the live stream plane (subscribe with ``python -m tpumon_torch.cli.stream
+--connect HOST:P`` or ``GET /stream``).  Flags of what is not ported yet
+exit 1 with a message that names its ROADMAP.md item:
+``--ici-per-link-modeled`` (Queue 1, item 7) and
+``--connect``/``--start-agent`` (item 16b, part 5).
 """
 
 from __future__ import annotations
@@ -42,8 +44,7 @@ import tpumon_torch
 from .. import log
 from ..cli.common import add_connection_flags, die, init_from_args
 from .exporter import (DEFAULT_OUTPUT, DEFAULT_PORT, MIN_INTERVAL_MS,
-                       MODELED_LINKS_ITEM, NOT_PORTED_ITEM,
-                       MetricsHTTPServer, TpuExporter)
+                       MODELED_LINKS_ITEM, MetricsHTTPServer, TpuExporter)
 
 
 def main(argv=None) -> int:
@@ -116,8 +117,11 @@ def main(argv=None) -> int:
                         "against recorded history with python -m "
                         "tpumon_torch.cli.replay --backtest FILE")
     p.add_argument("--stream-port", type=int, default=0, metavar="N",
-                   help=f"live streaming plane (not ported yet: "
-                        f"{NOT_PORTED_ITEM}; 0 disables)")
+                   help="live streaming subscription plane: push every "
+                        "sweep's encoded delta frame to N concurrent "
+                        "subscribers on this TCP port (0 disables; "
+                        "subscribe with python -m tpumon_torch.cli.stream "
+                        "or GET /stream)")
     p.add_argument("--oneshot", action="store_true",
                    help="single sweep, print to stdout, exit")
     p.add_argument("--wait-for-tpu", type=float, default=0.0, metavar="S",
@@ -127,9 +131,6 @@ def main(argv=None) -> int:
                         "default 0 fails fast")
     args = p.parse_args(argv)
 
-    if args.stream_port:
-        die(f"--stream-port: the stream plane is not ported to "
-            f"tpumon_torch yet ({NOT_PORTED_ITEM})")
     if args.ici_per_link_modeled:
         die(f"--ici-per-link-modeled: the modeled per-link split is not "
             f"ported to tpumon_torch yet ({MODELED_LINKS_ITEM})")
@@ -158,6 +159,7 @@ def main(argv=None) -> int:
     # was already wired (a constructor raising early leaves the rest None)
     exporter = None
     http = None
+    stream_server = None
     kmsg_watcher = None
     try:
         if args.fields:
@@ -218,6 +220,20 @@ def main(argv=None) -> int:
             http.start()
             log.info("prometheus-tpu: serving /metrics on :%d", args.port)
 
+        # live streaming plane: one selector-driven FrameServer pushes
+        # each sweep's already-encoded delta frame to every subscriber
+        if args.stream_port:
+            from ..frameserver import FrameServer, StreamHub
+            stream_server = FrameServer()
+            hub = StreamHub(stream_server)
+            addr = stream_server.add_tcp_listener(
+                hub, host="", port=args.stream_port)
+            exporter.set_stream_publisher(hub.publisher(""))
+            stream_server.start()
+            log.info("prometheus-tpu: streaming sweep frames on %s "
+                     "(subscribe: python -m tpumon_torch.cli.stream "
+                     "--connect)", addr)
+
         # kernel-log lines ride into the black box next to the sweep
         # frames AND feed the detection plane's incident joins.
         # Best-effort — no /dev/kmsg (an unprivileged container, the
@@ -261,6 +277,8 @@ def main(argv=None) -> int:
         exporter.stop()
         if http:
             http.stop()
+        if stream_server is not None:
+            stream_server.close()
     except BaseException:
         # a failed wiring step (port in use, ...) must not leak what
         # already started: release in the normal teardown order,
@@ -280,6 +298,11 @@ def main(argv=None) -> int:
                 http.stop()
             except Exception as e:
                 log.warning("http stop after failed start: %r", e)
+        if stream_server is not None:
+            try:
+                stream_server.close()
+            except Exception as e:
+                log.warning("stream close after failed start: %r", e)
         raise
     finally:
         tpumon_torch.shutdown()

@@ -1,4 +1,4 @@
-"""Shared minimal HTTP plumbing for the exporter and the pod exporter.
+"""Shared minimal HTTP plumbing for the exporter, pod exporter and REST API.
 
 The port's copy of ``tpumon/httputil.py``, unchanged but for this
 docstring.

@@ -15,9 +15,9 @@ There is no native codec in the port: :class:`SweepFrameEncoder` and
 (:class:`PySweepFrameEncoder`, :class:`PySweepFrameDecoder`), the
 reference's executable spec, held byte-identical to it by
 ``tests/test_torch_sweepframe.py``.  The agent's binary request codec
-(``encode_sweep_request``/``decode_sweep_request``) waits for the agent
-run modes (ROADMAP.md, Queue 1, item 16b).  Low-level emission comes
-from :mod:`tpumon_torch.wire`.
+(:func:`encode_sweep_request`/:func:`decode_sweep_request`) is here too:
+the stream plane's server (:mod:`tpumon_torch.frameserver`) frames on its
+magic.  Low-level emission comes from :mod:`tpumon_torch.wire`.
 
 Number convention: finite integral doubles with ``|v| < 9e15`` travel as
 Python ``int`` (zigzag varints), other finite doubles as fixed64 bits,
@@ -47,6 +47,109 @@ SWEEP_FRAME_MAGIC = 0xA9
 NUM_INT_LIMIT = 9.0e15
 
 _MISSING = object()
+
+# -- request -------------------------------------------------------------------
+#
+# Payload fields:
+#   1 (fixed64)  max_age_s double bits          (absent = any fresh value)
+#   2 (varint)   events_since                   (absent = no event drain)
+#   3 (bytes)*   explicit per-chip request: {1: chip, 2: packed fids}
+#   4 (bytes)    shared packed fids
+#   5 (bytes)    packed chip indices that use the shared fids
+#
+# Fields 4/5 exist because a whole-host sweep asks the SAME field list
+# for every chip: encoding it once turns the per-sweep request from
+# O(chips x fields) varints into O(chips + fields).
+
+
+def encode_sweep_request(
+        requests: Sequence[Tuple[int, Sequence[int]]],
+        max_age_s: Optional[float],
+        events_since: Optional[int]) -> bytes:
+    """One varint-framed binary sweep request (magic + length + payload)."""
+
+    body = bytearray()
+    if max_age_s is not None:
+        write_double_field(body, 1, float(max_age_s))
+    if events_since is not None:
+        write_varint_field(body, 2, int(events_since))
+    groups: Dict[Tuple[int, ...], List[int]] = {}
+    for idx, fids in requests:
+        groups.setdefault(tuple(int(f) for f in fids), []).append(int(idx))
+    shared: Tuple[int, ...] = ()
+    if groups:
+        shared = max(groups, key=lambda k: len(groups[k]))
+    for fids_t, idxs in groups.items():
+        if fids_t == shared:
+            continue
+        for idx in idxs:
+            sub = bytearray()
+            write_varint_field(sub, 1, idx)
+            packed = bytearray()
+            for f in fids_t:
+                write_varint(packed, f)
+            write_bytes_field(sub, 2, packed)
+            write_bytes_field(body, 3, sub)
+    if groups:
+        packed = bytearray()
+        for f in shared:
+            write_varint(packed, f)
+        write_bytes_field(body, 4, packed)
+        packed = bytearray()
+        for idx in groups[shared]:
+            write_varint(packed, idx)
+        write_bytes_field(body, 5, packed)
+    head = bytearray((SWEEP_REQ_MAGIC,))
+    write_varint(head, len(body))
+    return bytes(head + body)
+
+
+def _unpack_varints(data: bytes) -> List[int]:
+    out: List[int] = []
+    pos = 0
+    while pos < len(data):
+        v, pos = read_varint(data, pos)
+        out.append(v)
+    return out
+
+
+def decode_sweep_request(payload: bytes) -> Tuple[
+        List[Tuple[int, List[int]]], Optional[float], Optional[int]]:
+    """Inverse of :func:`encode_sweep_request` (fake-agent/test half)."""
+
+    max_age: Optional[float] = None
+    events_since: Optional[int] = None
+    reqs: List[Tuple[int, List[int]]] = []
+    shared: List[int] = []
+    shared_chips: List[int] = []
+    for fno, wt, v in iter_fields(payload):
+        if fno == 1 and wt == 1:
+            assert isinstance(v, int)
+            max_age = struct.unpack("<d", v.to_bytes(8, "little"))[0]
+        elif fno == 2 and wt == 0:
+            assert isinstance(v, int)
+            events_since = v
+        elif fno == 3 and wt == 2:
+            assert isinstance(v, bytes)
+            idx = -1
+            fids: List[int] = []
+            for f2, w2, v2 in iter_fields(v):
+                if f2 == 1 and w2 == 0:
+                    assert isinstance(v2, int)
+                    idx = v2
+                elif f2 == 2 and w2 == 2:
+                    assert isinstance(v2, bytes)
+                    fids = _unpack_varints(v2)
+            reqs.append((idx, fids))
+        elif fno == 4 and wt == 2:
+            assert isinstance(v, bytes)
+            shared = _unpack_varints(v)
+        elif fno == 5 and wt == 2:
+            assert isinstance(v, bytes)
+            shared_chips = _unpack_varints(v)
+    reqs.extend((c, list(shared)) for c in shared_chips)
+    return reqs, max_age, events_since
+
 
 # -- frame ---------------------------------------------------------------------
 #
