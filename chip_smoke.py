@@ -246,9 +246,9 @@ def device_ms(fn, iters: int, per_call=None, names=None) -> float:
     host's pace between launches does not count.  Only a profiler
     capture that kept every launch counts: ``per_call`` kernels a call
     where it is given (the port's C entries launch one), else the same
-    number in every call.  A capture that lost a record is taken again,
-    up to PROFILE_CAPTURES in all, and then this fails.  The kernels' names
-    are appended to ``names`` when it is given."""
+    number in every call.  A capture that lost a record, or all of them,
+    is taken again, up to PROFILE_CAPTURES in all, and then this fails.
+    The kernels' names are appended to ``names`` when it is given."""
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -268,9 +268,8 @@ def device_ms(fn, iters: int, per_call=None, names=None) -> float:
                   and device_us(e) > 0]
         us = sum(device_us(e) for e in events)
         n = sum(e.count for e in events)
-        if not us > 0:
-            raise AssertionError("the profiler recorded no device time")
-        if not (n % iters or (per_call is not None and n != per_call * iters)):
+        if us > 0 and not (n % iters or (per_call is not None and
+                                         n != per_call * iters)):
             if names is not None:
                 names.extend(e.key for e in events)
             return us / 1e3 / iters
@@ -3401,6 +3400,596 @@ def stream_phase(fields) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# -- the relay tree and the agent run modes ---------------------------------
+
+#: the relay leg: leaves on the relay, subscribers directly on the origin,
+#: and its stretches, s: live, the origin killed, after its restart
+RELAY_LEAVES = 16
+RELAY_DIRECT = 1
+RELAY_LIVE_S = 12.0
+RELAY_DARK_S = 4.0
+RELAY_BACK_S = 8.0
+#: the agent leg's 1 Hz stretch and its burst stretch (B4's square wave,
+#: then idle), s
+AGENT_SCRAPE_S = 12.0
+AGENT_BURST_S = 8.0
+AGENT_BURST_IDLE_S = 3.0
+AGENT_HZ = 100
+#: the in-process measurements after the legs: the burst loop's CPU split
+#: (the exporter's loop, then the agent's), s each, and the agent's collect
+#: by NVML entry point, its watches at COLLECT_HZ for COLLECT_S: enough
+#: sweeps for a p99 (``bench_gpu.tail_ms`` gives none under 100)
+SPLIT_S = 6.0
+COLLECT_HZ = 10.0
+COLLECT_S = 12.0
+#: the families the agent's exporter is held to the in-process read with,
+#: and each one's tolerance (the ``nvml check`` rules)
+AGENT_HELD = {"tpu_power_usage": lambda w: max(15.0, 0.1 * w),
+              "tpu_core_temp": lambda w: 2.0,
+              "tpu_tensorcore_clock": lambda w: 0.05 * w,
+              "tpu_hbm_clock": lambda w: 0.05 * w,
+              "tpu_hbm_total": lambda w: 0.0,
+              "tpu_hbm_used": lambda w: 64.0}
+
+
+def wait_for(cond, timeout: float, what: str, interval: float = 0.1):
+    deadline = time.monotonic() + timeout
+    while True:
+        got = cond()
+        if got:
+            return got
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(interval)
+
+
+def metrics_of(port: int) -> dict:
+    """One scrape as {family: [(labels, float value)]}; {} while nothing
+    listens."""
+
+    try:
+        return _metrics_of(port)
+    except OSError:
+        return {}
+
+
+def _metrics_of(port: int) -> dict:
+    status, _, body, _ = http_get(port, "/metrics")
+    if status != 200:
+        raise AssertionError(f"/metrics on {port}: {status}")
+    out = {}
+    for _, fam, labels, v, ok in samples(body.decode()):
+        if ok:
+            out.setdefault(fam, []).append((labels, float(v)))
+    return out
+
+
+def one(m: dict, fam: str):
+    vals = m.get(fam)
+    return vals[0][1] if vals else None
+
+
+def cpu_share(a: dict, b: dict, dt: float) -> float:
+    return round(100.0 * (b["cpu_s"] - a["cpu_s"]) / dt, 3)
+
+
+def relay_phase(env, work) -> dict:
+    """``relay``: the exporter daemon with ``--stream-port`` and
+    ``--blackbox-dir`` over NVML, ``python -m tpumon_torch.cli.relay`` on
+    its stream (``--metrics-port``), RELAY_LEAVES in-process decoders on
+    the relay and RELAY_DIRECT on the origin, beside the train workload.
+    RELAY_LIVE_S live, then ``kill -9`` of the daemon for RELAY_DARK_S,
+    then the daemon again (same ports, a second recorder directory) for
+    RELAY_BACK_S after the relay is up again.  Fails unless every leaf's
+    sweeps before the kill are the first recorder's for the same stamps (a
+    run of consecutive sweeps opened by the attach keyframe), the leaves
+    get stale heartbeats carrying the last live stamp while the relay
+    reports ``tpumon_relay_up`` 0 and a growing
+    ``tpumon_relay_stale_seconds``, and after the restart every leaf gets
+    exactly one mid-stream keyframe followed by deltas, each sweep the
+    second recorder's.  Printed: the origin's ``stream`` phase ms (p50,
+    max and n: one value a scrape, too few for a p99) with the relay and
+    the direct subscriber on it, the relay's CPU share and RSS, bytes a
+    leaf a tick, and the staleness at reconnect."""
+
+    from tpumon_torch import blackbox as BB
+    from tpumon_torch.loadgen.bench_gpu import tail_ms
+
+    port, sport, rport, mport = (free_port() for _ in range(4))
+    bb1, bb2 = os.path.join(work, "bb1"), os.path.join(work, "bb2")
+    daemon_args = ["tpumon_torch.exporter.main", "-o", "none", "-d", "1000",
+                   "--port", str(port), "--stream-port", str(sport),
+                   "--wait-for-tpu", "30", "--blackbox-dir"]
+    daemon = relay = leaves = direct = None
+    failures, out = [], {}
+
+    def healthy():
+        try:
+            return http_get(port, "/healthz")[0] == 200
+        except OSError:
+            return False
+
+    def relay_metrics():
+        return metrics_of(mport)
+
+    try:
+        daemon = spawn(daemon_args + [bb1], env,
+                       os.path.join(work, "daemon1.err"))
+        wait_for(healthy, 60, "the stream daemon's /healthz")
+        relay = spawn(["tpumon_torch.cli.relay", "--connect",
+                       f"127.0.0.1:{sport}", "--listen-port", str(rport),
+                       "--listen-host", "127.0.0.1", "--metrics-port",
+                       str(mport), "--backoff-base", "0.3", "--backoff-max",
+                       "1.0", "--stale-tick-interval", "0.5",
+                       "--stale-after", "1.5"], env,
+                      os.path.join(work, "relay.err"))
+        wait_for(lambda: one(relay_metrics(), "tpumon_relay_up") == 1.0,
+                 30, "the relay's upstream")
+        leaves, direct = Subscribers(rport), Subscribers(sport)
+        for k in range(RELAY_LEAVES):
+            leaves.attach(f"leaf{k}")
+        for k in range(RELAY_DIRECT):
+            direct.attach(f"direct{k}")
+        # live: the origin scraped at 1 Hz, the relay measured
+        origin_rows, relay_rows = [], []
+        r0, t0 = proc_stat(relay.pid), time.monotonic()
+        end = t0 + RELAY_LIVE_S
+        while time.monotonic() < end:
+            tick = time.monotonic()
+            origin_rows.append(metrics_of(port))
+            relay_rows.append(relay_metrics())
+            time.sleep(max(0.0, 1.0 - (time.monotonic() - tick)))
+        r1, t1 = proc_stat(relay.pid), time.monotonic()
+        # dark: the origin killed
+        t_kill = time.time()
+        daemon.kill()
+        daemon.wait()
+        dark = []
+        end = time.monotonic() + RELAY_DARK_S
+        while time.monotonic() < end:
+            m = relay_metrics()
+            dark.append((one(m, "tpumon_relay_up"),
+                         one(m, "tpumon_relay_stale_seconds")))
+            time.sleep(0.5)
+        # back: a second daemon on the same ports
+        daemon = spawn(daemon_args + [bb2], env,
+                       os.path.join(work, "daemon2.err"))
+        t_back = time.monotonic()
+        wait_for(lambda: one(relay_metrics(), "tpumon_relay_up") == 1.0,
+                 60, "the relay's reconnect", interval=0.2)
+        reconnect_s = time.monotonic() - t_back
+        time.sleep(RELAY_BACK_S)
+        final = relay_metrics()
+        leaves.close()
+        direct.close()
+        rc, _ = stop_proc(relay)
+        stop_proc(daemon)
+        if leaves.errors:
+            failures.append(f"leaves: {leaves.errors[:3]}")
+
+        # -- the leaves against the two recorders -----------------------
+        def ticks_of(d):
+            return [x for x in BB.BlackBoxReader(d).replay()
+                    if isinstance(x, BB.ReplayTick)]
+
+        rec1, rec2 = ticks_of(bb1), ticks_of(bb2)
+        at1 = {tk.timestamp: k for k, tk in enumerate(rec1)}
+        at2 = {tk.timestamp: k for k, tk in enumerate(rec2)}
+
+        def run_of(name, ticks, at, rec, opened_by_keyframe):
+            idx = [at.get(tk.timestamp) for tk in ticks]
+            if not ticks or None in idx or \
+                    idx != list(range(idx[0], idx[0] + len(idx))):
+                failures.append(f"{name}: {len(ticks)} ticks, recorder "
+                                f"indices {idx[:3]}...{idx[-3:]}")
+                return
+            kf = [k for k, tk in enumerate(ticks) if tk.keyframe]
+            if kf != ([0] if opened_by_keyframe else []):
+                failures.append(f"{name}: keyframes at {kf}")
+            for tk, k in zip(ticks, idx):
+                if tk.snapshot != rec[k].snapshot:
+                    failures.append(f"{name}: sweep {tk.timestamp} is not "
+                                    f"the recorder's")
+                    return
+
+        heartbeats, gaps = [], []
+        for name, st in list(leaves.subs.items()) + list(
+                direct.subs.items()):
+            items = [x for x in st["items"] if isinstance(x, BB.ReplayTick)]
+            first_stale = next((k for k, x in enumerate(items) if x.stale),
+                               len(items))
+            live = items[:first_stale]
+            # the kill may cut the recorder's last sweep: the live run is
+            # the recorder's but for its last tick
+            before = [x for x in live if x.timestamp in at1]
+            if len(before) < len(live) - 1:
+                failures.append(f"{name}: {len(live) - len(before)} live "
+                                f"ticks not recorded")
+            run_of(f"{name} (live)", before, at1, rec1, True)
+            if name.startswith("direct"):
+                continue
+            stale = [x for x in items if x.stale]
+            after = [x for x in items[first_stale:] if not x.stale]
+            heartbeats.append(len(stale))
+            if not stale or not live or any(
+                    x.timestamp != live[-1].timestamp for x in stale):
+                failures.append(f"{name}: stale heartbeats "
+                                f"{[x.timestamp for x in stale][:4]}")
+            if any(x.timestamp not in at2 for x in after):
+                failures.append(f"{name}: ticks after the restart not in "
+                                f"the second recorder")
+            run_of(f"{name} (after restart)", after, at2, rec2, True)
+            if live and after:
+                gaps.append(after[0].timestamp - live[-1].timestamp)
+        ups = [u for u, _ in dark if u is not None]
+        stale_s = [v for _, v in dark if v is not None]
+        if not ups or any(u != 0.0 for u in ups[1:]):
+            failures.append(f"relay up while the origin is dead: {dark}")
+        if len(stale_s) < 3 or not stale_s[-1] > stale_s[1]:
+            failures.append(f"stale seconds not growing: {stale_s}")
+        if one(final, "tpumon_relay_reconnects_total") != 1.0 or \
+                (one(final, "tpumon_relay_subtree_resyncs_total") or 0) < 1:
+            failures.append(f"relay counters {final}")
+
+        def phase(rows, name):
+            return [1000.0 * v for m in rows for lb, v in
+                    m.get("tpumon_exporter_sweep_phase_seconds", [])
+                    if lb.get("phase") == name]
+
+        steady = relay_rows[2:]
+        ticks = [one(m, "tpumon_relay_upstream_ticks_total") for m in steady]
+        sent = [one(m, "tpumon_stream_bytes_sent_total") for m in steady]
+        per_leaf_tick = ((sent[-1] - sent[0]) / (ticks[-1] - ticks[0])
+                         / RELAY_LEAVES) if len(steady) > 1 and \
+            ticks[-1] > ticks[0] else None
+        out.update({
+            "leaves": RELAY_LEAVES, "direct": RELAY_DIRECT,
+            "origin_stream_phase_ms": tail_ms(phase(origin_rows, "stream")),
+            "origin_subscribers": one(origin_rows[-1],
+                                      "tpumon_stream_subscribers"),
+            "relay_cpu_percent": cpu_share(r0, r1, t1 - t0),
+            "relay_rss_kib": r1["rss_kib"],
+            "bytes_per_leaf_tick": per_leaf_tick,
+            "dark": {"up": ups, "stale_seconds": stale_s},
+            "reconnect_s": round(reconnect_s, 3),
+            "stale_gap_s": {"min": min(gaps) if gaps else None,
+                            "max": max(gaps) if gaps else None},
+            "heartbeats_per_leaf": {"min": min(heartbeats or [0]),
+                                    "max": max(heartbeats or [0])},
+            "recorded": {"before": len(rec1), "after": len(rec2)},
+            "relay_totals": {k: one(final, f"tpumon_relay_{k}") for k in (
+                "reconnects_total", "subtree_resyncs_total",
+                "upstream_ticks_total", "heartbeats_total")},
+            "relay_exit": rc, "killed_at": t_kill})
+        if failures:
+            raise AssertionError(f"relay check failed: {failures[:10]} {out}")
+        return out
+    finally:
+        for subs in (leaves, direct):
+            if subs is not None:
+                subs.close()
+        for proc in (relay, daemon):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def hostengines() -> list:
+    """The pids of every running ``tpumon_torch.hostengine``."""
+
+    out = []
+    for pid in os.listdir("/proc"):
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                if b"tpumon_torch.hostengine" in f.read():
+                    out.append(int(pid))
+        except (OSError, ValueError):
+            continue
+    return out
+
+
+def agent_phase(K, fields, env, work) -> dict:
+    """``agent``: ``python -m tpumon_torch.hostengine --domain-socket S``
+    over NVML beside the train workload, and its clients: the exporter
+    daemon ``--connect unix:S`` (scraped at 1 Hz for AGENT_SCRAPE_S), the
+    REST API ``--connect``, ``cli.dmon --connect`` and
+    ``cli.hostenginestatus --connect``.  Fails unless the exporter serves
+    at least 20 NVML families for the card, each AGENT_HELD value of every
+    scrape within its tolerance of one of this process's own NVML reads
+    just before and just after that scrape (as ``nvml check`` holds
+    nvidia-smi between two reads); the
+    exporter's sweeps went over binary ``sweep_frame`` (this process's
+    client negotiates it too: binary frames, no JSON sweep); the REST API
+    names the remote engine; neither the agent nor the exporter holds a
+    CUDA context; after ``kill -9`` of the agent and a restart the
+    exporter reconnects and its watch is replayed (the new agent's
+    sampler serves it); ``cli.dmon --start-agent`` starts an agent, prints
+    its rows and leaves no agent behind.  Then the agent again with
+    ``--burst-hz AGENT_HZ`` under B4's square wave for AGENT_BURST_S (this
+    process's launches) and AGENT_BURST_IDLE_S idle: overruns at most
+    OVERRUN_SHARE_MAX of the ticks, and the power integrals of the 1 s
+    windows within ENERGY_RATIO_TOL of the energy counter's delta.
+    Printed: the agent's and the exporter's CPU share at 1 Hz, the
+    agent's at AGENT_HZ, bytes a sweep on the wire after the first
+    keyframe, and the CLIs' outputs."""
+
+    from tpumon_torch.backends.agent import AgentBackend
+
+    F = fields.F
+    sock = os.path.join(work, "agent.sock")
+    addr = f"unix:{sock}"
+    port, rport = free_port(), free_port()
+    b, i = nvml_open(fields)
+    agent = exporter = rest = None
+    failures, out = [], {}
+
+    def start_agent(*extra):
+        proc = spawn(["tpumon_torch.hostengine", "--domain-socket", sock,
+                      *extra], env, os.path.join(work, "agent.err"))
+        probe = AgentBackend(address=addr, connect_retry_s=60.0)
+        probe.open()
+        return proc, probe
+
+    def cli(*args):
+        r = subprocess.run([sys.executable, "-m", *args], cwd=HERE, env=env,
+                           capture_output=True, text=True, timeout=120)
+        if r.returncode != 0:
+            failures.append(f"{args[0]} exited {r.returncode}: "
+                            f"{r.stderr[-500:]}")
+        return r.stdout
+
+    try:
+        agent, client = start_agent()
+        exporter = spawn(["tpumon_torch.exporter.main", "--connect", addr,
+                          "-o", "none", "-d", "1000", "--port", str(port)],
+                         env, os.path.join(work, "exporter.err"))
+        rest = spawn(["tpumon_torch.restapi.main", "--connect", addr, "-p",
+                      str(rport)], env, os.path.join(work, "rest.err"))
+        wait_for(lambda: "tpumon_agent_cpu_percent" in metrics_of(port)
+                 or exporter.poll() is not None, 60,
+                 "the exporter through the agent")
+        if exporter.poll() is not None:
+            with open(os.path.join(work, "exporter.err")) as f:
+                raise AssertionError(f"the exporter exited: "
+                                     f"{f.read()[-2000:]}")
+
+        def rest_up():
+            try:
+                return get_json(rport, "/tpu/status/json")[0] == 200
+            except OSError:
+                return False
+
+        wait_for(rest_up, 30, "the REST API")
+        # the 1 Hz stretch: scrapes, with this process's own NVML read in
+        # the same second, and the CLIs beside it
+        a0, e0, t0 = proc_stat(agent.pid), proc_stat(exporter.pid), \
+            time.monotonic()
+        rows, held = [], []
+        dmon_out = cli("tpumon_torch.cli.dmon", "--connect", addr, "-c", "3")
+        status_out = cli("tpumon_torch.cli.hostenginestatus", "--connect",
+                         addr)
+        engine = (get_json(rport, "/tpu/status/json")[2] or {}).get("engine")
+        held_ids = [fields.by_name(fam).field_id for fam in AGENT_HELD]
+        while time.monotonic() < t0 + AGENT_SCRAPE_S:
+            tick = time.monotonic()
+            before = b.read_fields(i, held_ids)
+            m = metrics_of(port)
+            after = b.read_fields(i, held_ids)
+            rows.append(m)
+            held.append((m, (before, after)))
+            time.sleep(max(0.0, 1.0 - (time.monotonic() - tick)))
+        a1, e1, t1 = proc_stat(agent.pid), proc_stat(exporter.pid), \
+            time.monotonic()
+        for _ in range(3):
+            client.sweep_fields_bulk([(i, [int(F.POWER_USAGE),
+                                           int(F.CORE_TEMP)])])
+        wire = client.sweep_wire_stats()
+        context = {"agent": cuda_context_marks(agent.pid),
+                   "exporter": cuda_context_marks(exporter.pid)}
+        ids = {fam: fields.by_name(fam).field_id for fam in AGENT_HELD}
+        misses = []
+        for m, own in held[1:]:
+            for fam, tol in AGENT_HELD.items():
+                got = [v for lb, v in m.get(fam, [])
+                       if lb.get("chip") == str(i)]
+                wants = [r.get(ids[fam]) for r in own]
+                if not got or not any(
+                        w is not None and
+                        abs(got[0] - float(w)) <= tol(float(w))
+                        for w in wants):
+                    misses.append((fam, got[:1], wants))
+        served = sorted(f for f, v in rows[-1].items() if f.startswith("tpu_")
+                        and any(lb.get("chip") == str(i) for lb, _ in v))
+        sweeps = [one(m, "tpumon_exporter_sweeps_total") for m in rows[1:]]
+        rpc = [one(m, "tpumon_exporter_sweep_rpc_bytes") for m in rows[1:]]
+        per_sweep = ((rpc[-1] - rpc[0]) / (sweeps[-1] - sweeps[0])
+                     if len(rows) > 2 and sweeps[-1] > sweeps[0] else None)
+        if misses:
+            failures.append(f"exporter via the agent vs NVML: {misses[:6]}")
+        if len(served) < 20:
+            failures.append(f"{len(served)} NVML families served")
+        if not wire["binary_frames_total"] or wire["json_sweeps_total"]:
+            failures.append(f"sweep_frame not negotiated: {wire}")
+        if per_sweep is None or per_sweep > 2000:
+            failures.append(f"bytes a sweep {per_sweep}: not delta frames")
+        if engine != "tpu-hostengine (remote)":
+            failures.append(f"REST engine {engine!r}")
+        for k, marks in context.items():
+            if marks["libs"] or marks["uvm_mapped"]:
+                failures.append(f"the {k} maps {marks}")
+        cards = client.chip_count()
+        if len([ln for ln in dmon_out.splitlines()
+                if ln and not ln.startswith("#")]) != 3 * cards:
+            failures.append(f"dmon --connect printed {dmon_out!r}")
+        if not status_out.startswith("Engine       : tpu-hostengine"):
+            failures.append(f"hostenginestatus printed {status_out!r}")
+
+        # kill -9, restart: the exporter reconnects, its watch replayed
+        uptime0 = one(rows[-1], "tpumon_agent_uptime_seconds")
+        agent.kill()
+        agent.wait()
+        client.close()
+        t_kill = time.monotonic()
+        agent, client = start_agent()
+        watched = wait_for(
+            lambda: client.agent_latest(i, [int(F.CORE_TEMP)]).get(
+                int(F.CORE_TEMP)) is not None, 30,
+            "the exporter's watch on the restarted agent")
+        wait_for(lambda: (one(metrics_of(port),
+                              "tpumon_agent_uptime_seconds") or 1e9)
+                 < (uptime0 or 0), 30, "the exporter's reconnect")
+        replay_s = time.monotonic() - t_kill
+
+        # --start-agent: an agent of its own, gone when the CLI exits
+        before = set(hostengines())
+        started_out = cli("tpumon_torch.cli.dmon", "--start-agent", "-c", "2")
+        left = sorted(set(hostengines()) - before)
+        if left or len([ln for ln in started_out.splitlines()
+                        if ln and not ln.startswith("#")]) != 2 * cards:
+            failures.append(f"--start-agent left {left}: {started_out!r}")
+
+        # the burst stretch: the agent at AGENT_HZ under B4's square wave
+        stop_proc(agent)
+        client.close()
+        agent, client = start_agent("--burst-hz", str(AGENT_HZ))
+        integral_id = fields.burst_id(int(F.POWER_USAGE), 3)
+        E = int(F.TOTAL_ENERGY)
+        step, state = K.make_pattern("mxu", device="cuda")
+        drain(step(state))
+        for name in K.LAUNCHES:
+            K.LAUNCHES[name] = 0
+        reads, s = [], state
+        h0 = client._call("hello")
+        b0, tb0 = proc_stat(agent.pid), time.monotonic()
+        end = tb0 + AGENT_BURST_S
+        nxt = tb0
+        while time.monotonic() < end + AGENT_BURST_IDLE_S:
+            now = time.monotonic()
+            if now >= nxt:
+                # each read closes the burst window (over 1 s old)
+                reads.append(client.read_fields(i, [E, integral_id]))
+                nxt = now + 1.05
+            if now < end and (now - tb0) % (2 * SQUARE_HALF_S) < \
+                    SQUARE_HALF_S:
+                for _ in range(8):
+                    s = step(s)
+                drain(s)
+            else:
+                time.sleep(0.01)
+        b1, tb1 = proc_stat(agent.pid), time.monotonic()
+        launches = K.LAUNCHES["mxu_burn"]
+        h1 = client._call("hello")
+        ticks_run = AGENT_HZ * (tb1 - tb0)
+        over = h1["burst_overruns"] - h0["burst_overruns"]
+        integral = sum(r.get(integral_id) or 0.0 for r in reads[2:])
+        energy_j = (reads[-1][E] - reads[1][E]) / 1000.0 \
+            if len(reads) > 2 else 0.0
+        ratio = integral / energy_j if energy_j else None
+        if over > OVERRUN_SHARE_MAX * ticks_run:
+            failures.append(f"burst overruns {over} of {ticks_run:.0f}")
+        if ratio is None or abs(ratio - 1.0) > ENERGY_RATIO_TOL:
+            failures.append(f"burst power integral / energy delta {ratio}")
+        if launches <= 0:
+            failures.append("B4 never launched in the burst stretch")
+        out.update({
+            "families_served": len(served),
+            "held_misses": len(misses), "held_reads": len(held) - 1,
+            "cpu_percent_1hz": {"agent": cpu_share(a0, a1, t1 - t0),
+                                "exporter": cpu_share(e0, e1, t1 - t0)},
+            "rss_kib": {"agent": a1["rss_kib"], "exporter": e1["rss_kib"]},
+            "cpu_percent_burst": cpu_share(b0, b1, tb1 - tb0),
+            "burst_overruns": over,
+            "burst_ticks": round(ticks_run, 1),
+            "energy_ratio": ratio, "energy_j": energy_j,
+            "power_integral_j": integral,
+            "bytes_per_sweep": per_sweep, "client_wire": wire,
+            "rest_engine": engine, "cuda_context_marks": context,
+            "reconnect_replay_s": round(replay_s, 3),
+            "watch_replayed": bool(watched),
+            "dmon_connect": dmon_out.splitlines()[-1:],
+            "hostenginestatus": status_out.splitlines()[:3],
+            "launches": {"mxu_burn": launches}})
+        client.close()
+        if failures:
+            raise AssertionError(f"agent check failed: {failures[:10]} "
+                                 f"{out}")
+        return out
+    finally:
+        b.close()
+        for proc in (rest, exporter, agent):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def relay_agent_phases(K, fields) -> tuple:
+    """The ``relay`` and ``agent`` legs beside one train workload
+    (``python -m tpumon_torch.loadgen.run --size bench --self-monitor
+    --monitor-output <drop> --json``, B1-B3 in its own process, its launch
+    counts from its JSON line), then, while it ends, in this process: the
+    burst loop's CPU split as the exporter daemon runs it and as the agent
+    runs it, and the agent's collect by NVML entry point
+    (``loadgen.bench_gpu.burst_cpu_split``, ``agent_collect``).  Returns
+    the two legs' records and the workload's."""
+
+    import shutil
+    import tempfile
+    from tpumon_torch.loadgen.bench_gpu import (agent_collect,
+                                                burst_cpu_split,
+                                                exporter_fields)
+
+    shm = "/dev/shm" if os.access("/dev/shm", os.W_OK) else None
+    work = tempfile.mkdtemp(prefix="tpumon-relay-agent-", dir=shm)
+    drop = os.path.join(work, "embed.prom")
+    env = dict(os.environ, PYTHONPATH=HERE)
+    for k in ("TPUMON_BACKEND", "TPUMON_CHIPS"):
+        env.pop(k, None)
+    # the legs' stretches and their start-ups, kills and restarts
+    seconds = RELAY_LIVE_S + RELAY_DARK_S + RELAY_BACK_S + AGENT_SCRAPE_S + \
+        AGENT_BURST_S + AGENT_BURST_IDLE_S + 30
+    workload = None
+    try:
+        workload = spawn(["tpumon_torch.loadgen.run", "--size", "bench",
+                          "--self-monitor", "--monitor-output", drop,
+                          "--seconds", str(seconds), "--json"], env,
+                         os.path.join(work, "workload.err"),
+                         stdout=subprocess.PIPE)
+        wait_for(lambda: os.path.exists(drop) or workload.poll() is not None,
+                 180, "the workload's first step")
+        relay = relay_phase(env, work)
+        agent = agent_phase(K, fields, env, work)
+        # while the workload finishes its window
+        b, i = nvml_open(fields)
+        try:
+            fids = [f for f in exporter_fields()
+                    if not fields.CATALOG[f].vector_label]
+            agent["burst_split_in_process"] = [
+                burst_cpu_split(b, i, AGENT_HZ, SPLIT_S, agent=a)
+                for a in (False, True)]
+            agent["collect"] = agent_collect(b, i, fids, COLLECT_S,
+                                             hz=COLLECT_HZ)
+        finally:
+            b.close()
+        try:
+            wl_out, _ = workload.communicate(timeout=180)
+        except subprocess.TimeoutExpired:
+            workload.kill()
+            wl_out, _ = workload.communicate()
+        if workload.returncode != 0:
+            with open(os.path.join(work, "workload.err")) as f:
+                raise AssertionError(f"workload exited {workload.returncode}"
+                                     f": {f.read()[-2000:]}")
+        wl = json.loads(wl_out.strip().splitlines()[-1])
+        return relay, agent, {k: wl.get(k) for k in (
+            "steps_per_sec", "steps", "final_loss", "captures_ok",
+            "captures_failed", "launches")}
+    finally:
+        if workload is not None and workload.poll() is None:
+            workload.kill()
+            workload.wait()
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -3498,6 +4087,20 @@ def main() -> int:
         rows[name]["launches"] += n
         rows[name]["launches_by_path"]["stream"] = n
     print("stream: " + json.dumps(stream))
+
+    relay, agent, workload = relay_agent_phases(K, fields)
+    for name in PATHS["train"]:
+        n = (workload["launches"] or {}).get(name, 0)
+        if n <= 0:
+            return fail(f"kernel {name} never launched on the relay and "
+                        f"agent paths' workload")
+        rows[name]["launches"] += n
+        rows[name]["launches_by_path"]["relay+agent"] = n
+    n = agent["launches"]["mxu_burn"]
+    rows["mxu_burn"]["launches"] += n
+    rows["mxu_burn"]["launches_by_path"]["agent"] = n
+    print("relay: " + json.dumps(relay))
+    print("agent: " + json.dumps(dict(agent, workload=workload)))
 
     # the card again, where a tail of the output keeps it
     print(smi.stdout.strip().splitlines()[0])

@@ -6,7 +6,8 @@ and the train step's CUDA graph on a host without a GPU.
   runner (``bench._run_loadgen``) replaced by canned legs, the port's pure
   functions take the same (bare, monitored) results.  The records must
   agree key for key (the reference's per-process timeout bound aside).
-* The 1 Hz tier over the fake NVML (``tpumon_torch/testlib/fake_nvml.c``).
+* The 1 Hz tier, the burst loop's CPU split and the agent's collect over
+  the fake NVML (``tpumon_torch/testlib/fake_nvml.c``).
 * The runner on the CPU steps eagerly with the same result as
   ``model.train_step``; the graph step refuses the CPU.
 * The trace engine's reading of graph replays (``trace.graph_program``,
@@ -252,6 +253,58 @@ def test_tier_1hz_over_the_fake_nvml(fake_nvml, monkeypatch):
     assert got["call_ms"]["nvmlDeviceGetFieldValues"][1] == 1
     assert "nvmlDeviceGetTotalEnergyConsumption" not in got["call_ms"]
     assert "nvmlDeviceGetNvLinkState" not in got["call_ms"]
+
+
+@pytest.mark.parametrize("agent", [False, True])
+def test_burst_cpu_split_over_the_fake_nvml(fake_nvml, monkeypatch, agent):
+    """The split is taken from outside the loop: the parts are there, the
+    NVML calls are part of the read, and the backend is restored."""
+
+    from tpumon_torch.backends.nvml import NvmlBackend
+
+    monkeypatch.setenv("TPUMON_NVML_PATH", fake_nvml)
+    monkeypatch.setenv("TPUMON_KMSG_PATH", "/nonexistent")
+    monkeypatch.setattr(NvmlBackend, "EVENT_WAIT_MS", 20)
+    b = NvmlBackend()
+    b.open()
+    try:
+        got = B.burst_cpu_split(b, 0, 100, 0.4, agent=agent)
+        assert "read_burst_fields" not in vars(b)
+        assert all(not getattr(f, "__name__", "") == "timed"
+                   for f in b._fn.values())
+    finally:
+        b.close()
+    us = got["us_per_tick"]
+    assert got["loop"] == ("agent" if agent else "exporter")
+    assert got["ticks"] >= 10 and got["overruns"] >= 0
+    assert set(us) == {"read", "nvml_calls", "marshalling", "fold", "wait"}
+    assert us["read"] >= us["nvml_calls"] >= 0.0 and us["fold"] > 0.0
+    assert us["marshalling"] == round(us["read"] - us["nvml_calls"], 2)
+    assert got["calls_per_tick"] and got["thread_cpu_percent"] > 0.0
+
+
+def test_agent_collect_over_the_fake_nvml(fake_nvml, monkeypatch):
+    """The agent's watches sweep the card at the asked rate; a tail has
+    no p99 under 100 sweeps, and has one from 100."""
+
+    from tpumon_torch.backends.nvml import NvmlBackend
+
+    monkeypatch.setenv("TPUMON_NVML_PATH", fake_nvml)
+    monkeypatch.setenv("TPUMON_KMSG_PATH", "/nonexistent")
+    monkeypatch.setattr(NvmlBackend, "EVENT_WAIT_MS", 20)
+    b = NvmlBackend()
+    b.open()
+    try:
+        got = B.agent_collect(b, 1, B.exporter_fields(), 0.5, hz=20.0)
+        assert "read_fields_bulk" not in vars(b)
+    finally:
+        b.close()
+    assert 5 <= got["sweep_ms"]["n"] < 100 and got["sweep_ms"]["p99"] is None
+    assert got["sweep_ms"]["max"] >= got["sweep_ms"]["p50"] > 0.0
+    assert got["call_ms"]["nvmlDeviceGetFieldValues"]["calls"] == 1
+    assert B.tail_ms([float(x) for x in range(100)]) == {
+        "n": 100, "p50": 50.0, "p99": 99.0, "max": 99.0}
+    assert B.tail_ms([]) == {"n": 0, "p50": None, "p99": None, "max": None}
 
 
 def test_tier_1hz_where_no_nvml_is_exposed(monkeypatch):

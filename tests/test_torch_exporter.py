@@ -810,14 +810,15 @@ def test_unported_plane_flags_exit_naming_item_16b(flag, capsys, cli_env,
     ``--rules`` and ``--stream-port`` now run (over the fake NVML; the
     recorder under ``tmp_path``, a real rules file; ``--oneshot`` returns
     before the stream plane binds, as in the reference); the agent run
-    modes exit 1 naming item 16b, part 5, ``--ici-per-link-modeled``
-    item 7."""
+    modes serve and scrape (:func:`_serve_through_an_agent`);
+    ``--ici-per-link-modeled`` exits 1 naming item 7."""
 
     from tpumon_torch.exporter import main
 
-    refused = {"--connect": "item 16b, part 5",
-               "--start-agent": "item 16b, part 5", "--ici-per-link-modeled":
-               "ROADMAP.md, Queue 1, item 7"}
+    if flag[0] in ("--connect", "--start-agent"):
+        _serve_through_an_agent(flag[0], cli_env, tmp_path)
+        return
+    refused = {"--ici-per-link-modeled": "ROADMAP.md, Queue 1, item 7"}
     if flag[0] in refused:
         with pytest.raises(SystemExit) as e:
             main.main([*flag, "--oneshot", "-o", "none"])
@@ -848,6 +849,72 @@ def test_unported_plane_flags_exit_naming_item_16b(flag, capsys, cli_env,
         "--stream-port": lambda: fams.get("tpu_power_usage") == 2 and
         "tpumon_stream_subscribers" not in fams}
     assert want[flag[0]](), r.stdout[-3000:]
+
+
+def _children(pid):
+    out = []
+    for p in os.listdir("/proc"):
+        try:
+            with open(f"/proc/{p}/stat") as f:
+                if int(f.read().rsplit(")", 1)[1].split()[1]) == pid:
+                    out.append(int(p))
+        except (OSError, ValueError, IndexError):
+            continue
+    return out
+
+
+def _serve_through_an_agent(flag, env, tmp_path):
+    """The daemon with ``--connect`` (to the port's agent over the fake
+    NVML) or ``--start-agent`` (which starts one) serves on HTTP the
+    per-card families the in-process daemon serves over the same NVML,
+    with the same values, plus the agent's self-metrics and the sweep
+    RPC's wire counters; its agent-side watch serves the sweep; on
+    SIGTERM a started agent goes with it."""
+
+    agent = None
+    args = ["--start-agent"]
+    if flag == "--connect":
+        sock = str(tmp_path / "agent.sock")
+        agent = subprocess.Popen(
+            [sys.executable, "-m", "tpumon_torch.hostengine",
+             "--domain-socket", sock], cwd=REPO, env=env,
+            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+        args = ["--connect", f"unix:{sock}"]
+        from tpumon_torch.backends.agent import AgentBackend
+        probe = AgentBackend(address=args[1], connect_retry_s=30.0)
+        probe.open()  # the agent answers before the daemon dials it
+        probe.close()
+    try:
+        proc, port = _serve(env, *args, "-o", "none")
+        try:
+            _, _, body = _wait_http(
+                port, "/metrics",
+                lambda r: b"tpumon_agent_cpu_percent" in r[2])
+            if flag == "--start-agent":
+                started = _children(proc.pid)
+                assert len(started) == 1
+            text = body.decode()
+        finally:
+            assert _term(proc) == 0
+        if flag == "--start-agent":
+            assert not os.path.exists(f"/proc/{started[0]}")
+    finally:
+        if agent is not None:
+            agent.terminate()
+            agent.wait(timeout=10)
+    fams = parse_families(text)
+    assert fams["tpumon_exporter_sweep_rpc_bytes"] == 1
+    assert fams["tpumon_agent_memory_kb"] == 1
+
+    def card_samples(t):
+        return sorted(ln for ln in t.splitlines()
+                      if ln.startswith("tpu_") and 'chip="' in ln)
+
+    embedded = _main("--oneshot", "-o", "none", env=env)
+    assert embedded.returncode == 0, embedded.stderr
+    assert card_samples(text) == card_samples(embedded.stdout)
+    per_card = {k for k, n in fams.items() if k.startswith("tpu_") and n}
+    assert len(per_card) >= 20, per_card
 
 
 # ---- the burst, recorder and anomaly planes --------------------------------------

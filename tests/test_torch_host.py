@@ -310,20 +310,99 @@ def test_deviceinfo_render_matches_reference(args):
         RD.render(_handle(RT, *args), 1)
 
 
-# ---- agent run modes: not ported (ROADMAP.md, item 16b) -----------------------
+# ---- agent run modes: each CLI over --connect and --start-agent --------------
+
+#: each CLI's arguments for one deterministic run
+CLI_ARGS = {"dmon": ["-c", "1", "-d", "0.1"], "deviceinfo": [],
+            "topology": [], "processinfo": ["--warmup", "0"],
+            "diag": ["-r", "3", "--json"], "health": [],
+            "policy": ["--duration", "0.3"]}
+#: the port's GPU wording where the reference's names TPU parts
+PORT_WORDS = (("GPUs:", "ICI mesh:"), ("NVL/", "ICI1/"), ("NVL ", "ICI1 "),
+              ("a GPU", "a TPU chip"))
+
+
+@pytest.fixture(scope="module")
+def run_mode_agents(tmp_path_factory):
+    """The native and the port's ``--fake`` agents at one frozen epoch,
+    and the port's agent over the fake NVML library."""
+
+    from test_torch_agent import (FROZEN, PORT_AGENT, agent_env,
+                                  build_fake_nvml, spawn_agent, stop_agent)
+    from test_torch_fake import native_agent
+
+    native = native_agent()
+    d = tmp_path_factory.mktemp("runmodes")
+    lib = build_fake_nvml(d)
+    nvml_env = {"TPUMON_NVML_PATH": lib,
+                "TPUMON_KMSG_PATH": str(d / "no-kmsg")}
+    fake = ("--fake", "--fake-epoch", repr(FROZEN), "--allow-inject")
+    socks = {k: str(d / f"{k}.sock") for k in ("native", "port", "nvml")}
+    procs = [spawn_agent([native], socks["native"], *fake),
+             spawn_agent(PORT_AGENT, socks["port"], *fake),
+             spawn_agent(PORT_AGENT, socks["nvml"],
+                         env=agent_env(**nvml_env))]
+    yield socks, nvml_env
+    for p in procs:
+        stop_agent(p)
+
+
+def _cli_output(pkg, cli, argv, capsys):
+    import importlib
+
+    mod = importlib.import_module(f"{pkg}.cli.{cli}")
+    try:
+        rc = mod.main(argv)
+    except SystemExit as e:
+        rc = e.code
+    out = capsys.readouterr().out
+    if cli == "diag":  # details carry this process's RSS and CPU
+        out = [(d["check"], d["status"]) for d in map(json.loads,
+                                                       out.splitlines())]
+    elif pkg == "tpumon_torch":
+        for port, ref in PORT_WORDS:
+            out = out.replace(port, ref)
+    if cli == "topology":  # the port's link labels are narrower
+        out = [ln.split() for ln in out.splitlines()]
+    return rc, out
+
 
 @pytest.mark.parametrize("cli", ["dmon", "deviceinfo", "topology",
                                  "processinfo", "diag", "health", "policy"])
 @pytest.mark.parametrize("flag", [["--connect", "unix:/tmp/agent.sock"],
                                   ["--start-agent"]])
-def test_agent_run_modes_exit_naming_the_item(cli, flag, capsys):
-    import importlib
-    mod = importlib.import_module(f"tpumon_torch.cli.{cli}")
-    with pytest.raises(SystemExit) as e:
-        mod.main(flag)
-    assert e.value.code == 1
-    err = capsys.readouterr().err
-    assert "agent run modes" in err and "item 16b, part 5" in err
+def test_agent_run_modes_exit_naming_the_item(cli, flag, run_mode_agents,
+                                              capsys, monkeypatch):
+    """Each CLI's agent run modes round-trip.  ``--connect``: the port's
+    CLI on the port's ``--fake`` agent prints what the reference's CLI
+    prints on the native ``--fake`` agent at the same (frozen) epoch.
+    ``--start-agent``: the port's CLI starts the port's agent over NVML
+    (the fake NVML library) and prints what the reference's CLI prints
+    connected to such an agent; no agent process is left behind."""
+
+    from test_torch_agent import agent_children
+
+    socks, nvml_env = run_mode_agents
+    args = CLI_ARGS[cli]
+    if flag[0] == "--connect":
+        port = _cli_output("tpumon_torch", cli,
+                           ["--connect", f"unix:{socks['port']}", *args],
+                           capsys)
+        ref = _cli_output("tpumon", cli,
+                          ["--connect", f"unix:{socks['native']}", *args],
+                          capsys)
+    else:
+        for k, v in nvml_env.items():
+            monkeypatch.setenv(k, v)
+        before = set(agent_children())
+        port = _cli_output("tpumon_torch", cli, ["--start-agent", *args],
+                           capsys)
+        assert set(agent_children()) - before == set()
+        ref = _cli_output("tpumon", cli,
+                          ["--connect", f"unix:{socks['nvml']}", *args],
+                          capsys)
+    assert port == ref
+    assert port[1]
 
 
 # ---- the diag load ------------------------------------------------------------

@@ -18,13 +18,20 @@ guarding one process-wide :class:`Handle` (backend, watches, inventory,
 status, topology, versions, per-process accounting, health watches, the
 policy violation stream, event sets, introspection).  The default
 backend is ``auto``: the out-of-band NVML source (:mod:`.backends.nvml`).
-The reference's agent run modes (``RunMode``, ``--connect``,
-``--start-agent``) are not ported yet: ROADMAP.md, Queue 1, item 16b,
-part 5.
+
+Three run modes, the reference's (``admin.go:26-30``):
+
+* ``RunMode.EMBEDDED``    — read metrics in-process,
+* ``RunMode.STANDALONE``  — connect to a running agent
+  (:mod:`tpumon_torch.hostengine`, or the reference's native
+  ``tpu-hostengine``) over a unix or TCP socket,
+* ``RunMode.START_AGENT`` — start a local agent, connect, and stop it on
+  shutdown.
 """
 
 from __future__ import annotations
 
+import enum
 import queue
 import threading
 from typing import Dict, List, Optional
@@ -48,6 +55,12 @@ from .watch import (DEFAULT_MAX_KEEP_AGE_S, DEFAULT_UPDATE_FREQ_US,
 __version__ = "0.1.0"
 
 
+class RunMode(enum.Enum):
+    EMBEDDED = "embedded"
+    STANDALONE = "standalone"
+    START_AGENT = "start_agent"
+
+
 class Handle:
     """One initialized monitoring session over a backend."""
 
@@ -66,6 +79,7 @@ class Handle:
         # threshold policies are evaluated on every sweep, so background
         # sweeping (watches.start()) drives the violation stream end to end
         self.watches.add_sweep_listener(lambda now: self.policy.evaluate(now))
+        self._agent_proc = None  # set by START_AGENT mode
 
     # -- inventory ------------------------------------------------------------
 
@@ -158,12 +172,19 @@ class Handle:
         return self.backend.topology(index)
 
     def close(self) -> None:
-        # a raising watch stop must not leak the backend
+        # teardown aggregates: a raising watch stop must not leak the
+        # spawned agent process or the backend
         try:
             self.watches.stop()
         finally:
-            if self._own_backend:
-                self.backend.close()
+            try:
+                if self._agent_proc is not None:
+                    from .backends.agent import stop_agent
+                    stop_agent(self._agent_proc)
+                    self._agent_proc = None
+            finally:
+                if self._own_backend:
+                    self.backend.close()
 
 
 _lock = threading.Lock()
@@ -171,25 +192,70 @@ _handle: Optional[Handle] = None
 _refcount = 0
 
 
-def init(*, backend: Optional[Backend] = None,
-         backend_name: Optional[str] = None, clock=None) -> Handle:
+def _close_quietly(b: Backend) -> None:
+    """Best-effort release on a failed init: the init error is the one
+    the caller must see."""
+
+    try:
+        b.close()
+    except Exception:
+        pass  # already failing: the init error is the one that matters
+
+
+def init(mode: RunMode = RunMode.EMBEDDED, *,
+         backend: Optional[Backend] = None,
+         backend_name: Optional[str] = None,
+         address: Optional[str] = None,
+         connect_retry_s: float = 0.0, clock=None) -> Handle:
     """Initialize (refcounted).  Repeated calls share one Handle.  Raises
-    :class:`LibraryNotFound` when the backend has no device to open."""
+    :class:`LibraryNotFound` when the backend has no device to open, or
+    no agent answers at ``address``.
+
+    ``connect_retry_s`` (STANDALONE only) rides out an agent that is still
+    starting: refused or missing-socket connects are retried for that many
+    seconds before failing.  Default 0 = fail fast."""
 
     global _handle, _refcount
     with _lock:
         if _handle is None:
-            b = backend or make_backend(backend_name)
-            try:
-                b.open()
-                h = Handle(b, own_backend=backend is None, clock=clock)
-            except BaseException:
-                if backend is None:
-                    try:
-                        b.close()
-                    except Exception:
-                        pass  # the open error is the one to report
-                raise
+            # each branch releases what it acquired when a later step
+            # raises (a caller-provided backend stays the caller's)
+            if mode is RunMode.EMBEDDED:
+                b = backend or make_backend(backend_name)
+                try:
+                    b.open()
+                    h = Handle(b, own_backend=backend is None, clock=clock)
+                except BaseException:
+                    if backend is None:
+                        _close_quietly(b)
+                    raise
+            elif mode is RunMode.STANDALONE:
+                from .backends.agent import AgentBackend
+                b = AgentBackend(address=address,
+                                 connect_retry_s=connect_retry_s)
+                try:
+                    b.open()
+                    h = Handle(b, clock=clock)
+                except BaseException:
+                    _close_quietly(b)
+                    raise
+            elif mode is RunMode.START_AGENT:
+                from .backends.agent import (AgentBackend, start_agent,
+                                             stop_agent)
+                proc, addr = start_agent(address)
+                b = None
+                try:
+                    b = AgentBackend(address=addr)
+                    b.open()
+                    h = Handle(b, clock=clock)
+                except BaseException:
+                    if b is not None:
+                        _close_quietly(b)
+                    stop_agent(proc)
+                    raise
+                h._agent_proc = proc
+            else:
+                raise BackendError(f"unknown mode {mode}")
             _handle = h
         _refcount += 1
         return _handle
@@ -219,7 +285,7 @@ def get_handle() -> Handle:
 __all__ = [
     "__version__",
     # façade
-    "init", "shutdown", "get_handle", "Handle",
+    "init", "shutdown", "get_handle", "Handle", "RunMode",
     # backends
     "Backend", "BackendError", "ChipNotFound", "LibraryNotFound",
     "make_backend",

@@ -5,13 +5,10 @@ same connection flags, mapping the reference's pattern of a ``-connect
 address`` flag on dcgm samples (``samples/dcgm/deviceInfo/main.go:36-39``)
 plus run-mode selection:
 
-    --backend nvml|cuda|auto     the metrics source (or TPUMON_BACKEND)
-    --connect ADDR               standalone mode (agent run modes)
-    --start-agent                fork/exec a local agent (agent run modes)
-
-The agent run modes are not ported yet (ROADMAP.md, Queue 1, item 16b,
-part 5): ``--connect`` and ``--start-agent`` exit with an error that says
-so.
+    --backend nvml|cuda|fake|auto  embedded-mode source (or TPUMON_BACKEND)
+    --connect ADDR                 standalone mode: unix:/path or host:port
+    --start-agent                  start a local agent (python -m
+                                   tpumon_torch.hostengine) and connect
 
 The 1 s ticker loop shape (signal-aware, immediate first tick) follows
 ``samples/dcgm/dmon/main.go:39-59``.
@@ -29,22 +26,16 @@ from typing import Callable, Iterator, Optional
 import tpumon_torch
 from .. import log
 
-#: what --connect and --start-agent need
-AGENT_MODES_MISSING = ("the agent run modes (--connect, --start-agent) are "
-                       "not ported yet: ROADMAP.md, Queue 1, item 16b, "
-                       "part 5")
-
-
 def add_connection_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--backend", default=None,
-                   help="backend: nvml|cuda|auto (default: "
-                        "$TPUMON_BACKEND or auto, the NVML source)")
+                   help="embedded backend: nvml|cuda|fake|auto "
+                        "(default: $TPUMON_BACKEND or auto, the NVML "
+                        "source)")
     p.add_argument("--connect", default=None, metavar="ADDR",
                    help="connect to a running agent (unix:/path or "
-                        "host:port; not ported yet)")
+                        "host:port)")
     p.add_argument("--start-agent", action="store_true",
-                   help="fork/exec a local agent and connect to it (not "
-                        "ported yet)")
+                   help="start a local agent and connect to it")
     p.add_argument("--v", type=int, default=None, metavar="N",
                    help="log verbosity level (glog-style; default "
                         "$TPUMON_VERBOSITY or 0)")
@@ -55,8 +46,11 @@ def init_from_args(args: argparse.Namespace) -> "tpumon_torch.Handle":
 
     if getattr(args, "v", None) is not None:
         log.set_verbosity(args.v)
-    if getattr(args, "connect", None) or getattr(args, "start_agent", False):
-        die(AGENT_MODES_MISSING)
+    if getattr(args, "connect", None):
+        return tpumon_torch.init(tpumon_torch.RunMode.STANDALONE,
+                                 address=args.connect)
+    if getattr(args, "start_agent", False):
+        return tpumon_torch.init(tpumon_torch.RunMode.START_AGENT)
     return tpumon_torch.init(backend_name=getattr(args, "backend", None))
 
 

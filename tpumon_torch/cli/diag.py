@@ -4,8 +4,9 @@ The port's copy of ``tpumon/cli/diag.py`` (``python -m
 tpumon_torch.cli.diag``), over the NVML backend by default.  The load of
 ``--evidence-load`` is the reference's 8-deep chain of 512x512 bf16
 products, in torch, on ``cuda`` unless ``--device cpu``.  The event-path
-check injects a CHIP_RESET where the backend has an injection hook;
-neither port backend has one, so it reports the reference's SKIP.
+check injects a CHIP_RESET through the fake backend's hook, or through
+an agent run with ``--allow-inject``; over NVML it reports the
+reference's SKIP.
 
 The ``dcgmi diag`` role — absent from the reference repo (it ships no
 diagnostic tool; operators had to infer stack health from missing
@@ -255,16 +256,25 @@ def _check_introspect(h: "tpumon_torch.Handle") -> str:
 def _check_event_path(h: "tpumon_torch.Handle") -> str:
     import queue as _q
 
+    from tpumon_torch.backends.agent import AgentBackend
     from tpumon_torch.events import EventType, PolicyCondition
 
     q = h.register_policy(0, PolicyCondition.CHIP_RESET)
     inject = getattr(h.backend, "inject_event", None)
+    agent_call = (h.backend._call if isinstance(h.backend, AgentBackend)
+                  else None)
     if callable(inject):
         inject(EventType.CHIP_RESET, chip_index=0,
                message="diag self-test")
+    elif callable(agent_call):
+        try:
+            agent_call("inject", chip=0,
+                       etype=int(EventType.CHIP_RESET),
+                       message="diag self-test")
+        except Exception as e:
+            raise _Skip(f"agent refuses injection ({e}); "
+                        "run it with --allow-inject to enable")
     else:
-        # the port's backends have no hook (its agent, the reference's
-        # other route, is ROADMAP.md, Queue 1, item 16b, part 5)
         raise _Skip("backend has no injection hook "
                     "(real hardware: events come from kmsg/vendor)")
     # the watch pump carries events into the policy engine

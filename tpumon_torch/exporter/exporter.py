@@ -190,6 +190,25 @@ class TpuExporter:
         handle.watches.watch_fields(self._cg, self._fg,
                                     update_freq_us=interval_ms * 1000,
                                     max_keep_samples=2)
+        # push the watch into the agent when one is serving us: the
+        # daemon samples the devices once for all clients (hostengine
+        # parity).  Vector fields are left out (the agent's sampler caches
+        # scalars only) and so are burst-derived fields (served from the
+        # burst harvest, not the sampler cache)
+        self._agent_watch_id: Optional[int] = None
+        ensure = getattr(handle.backend, "ensure_watch", None)
+        if callable(ensure):
+            scalar_ids = [f for f in field_ids
+                          if not FF.CATALOG[int(f)].vector_label
+                          and FF.burst_source(int(f)) is None]
+            if scalar_ids:
+                try:
+                    self._agent_watch_id = ensure(scalar_ids,
+                                                  freq_us=interval_ms * 1000)
+                except Exception as e:
+                    # an agent without watch support: live reads work
+                    log.warning("agent-side watch setup failed, falling "
+                                "back to live reads: %r", e)
 
         # flight recorder: tee every sweep's delta frame to bounded
         # on-disk segments
@@ -204,7 +223,12 @@ class TpuExporter:
         # encode, N sends (set_stream_publisher)
         self._stream = None
         self._burst_stats: Optional[Dict[str, float]] = None
-        self._burst_stats_ts = 0.0
+        #: latched after the first None probe: an agent's --burst-hz is
+        #: fixed at its start, so a burst-less agent must not cost one
+        #: hello RPC a second forever
+        self._burst_stats_off = False
+        self._agent_introspect_data: Optional[Dict[str, float]] = None
+        self._agent_introspect_ts = 0.0
         # streaming anomaly detection: scored on the sweep thread
         # (single-owner engine); kmsg lines arrive from the watcher
         # thread via a Queue and are drained HERE, so no engine state is
@@ -277,9 +301,33 @@ class TpuExporter:
         """Start the inner loop (:class:`tpumon_torch.burst.BurstSampler`)
         over the backend's ``read_burst_fields``.  Its first read runs
         here, so a backend that refuses the loop (one whose read would
-        multiply its device work by the inner rate) fails the start."""
+        multiply its device work by the inner rate) fails the start.
+        Over an agent the loop is the agent's (``--burst-hz`` there): the
+        flag is ignored with a warning, as in the reference."""
 
         from ..burst import BurstSampler
+
+        native = getattr(handle.backend, "burst_stats", None)
+        has_native = False
+        if callable(native):
+            try:
+                has_native = native() is not None
+            except Exception:
+                has_native = False
+        if has_native:
+            log.warning(
+                "backend already runs a burst engine; --burst-hz %d "
+                "ignored (derived fields come from the backend)", burst_hz)
+            return
+        if getattr(handle.backend, "name", "") == "agent":
+            # 50-100 socket round trips a second on the shared connection
+            # is the request-rate blow-up the agent's own loop avoids
+            log.warning(
+                "--burst-hz %d ignored: the agent runs no burst loop, and "
+                "sampling it over the RPC socket would multiply the "
+                "request rate by the inner rate — start the agent with "
+                "--burst-hz instead", burst_hz)
+            return
 
         read = handle.backend.read_burst_fields
         burst_reqs = [(c, list(FF.BURST_SOURCE_FIELDS)) for c in self.chips]
@@ -423,12 +471,12 @@ class TpuExporter:
                     merged = dict(base)
                     merged.update(bvals)
                     per_chip[c] = merged
-        # refreshed at most 1 Hz, on the injected clock
-        if t - self._burst_stats_ts >= 1.0:
-            self._burst_stats = (self._burst_sampler.stats()
-                                 if self._burst_sampler is not None
-                                 else None)
-            self._burst_stats_ts = t
+        # fetched inside the timed region so scrape_duration sees its
+        # cost; refreshed at most 1 Hz, on the injected clock
+        if t - self._agent_introspect_ts >= 1.0:
+            self._agent_introspect_data = self._fetch_agent_introspect()
+            self._burst_stats = self._fetch_burst_stats()
+            self._agent_introspect_ts = t
         # inside the timed region: a kubelet refresh stalling the sweep
         # must show in scrape_duration
         self._apply_pod_labels()
@@ -904,7 +952,7 @@ class TpuExporter:
         st = self._self_mon.status()
         lbl = self._host_label
         rf = render_family
-        lines: List[str] = []
+        lines: List[str] = self._agent_metrics(lbl)
         # backend-provided self families, under the same host label;
         # failure must not cost the sweep
         hook = getattr(self.handle.backend, "self_metric_lines", None)
@@ -1055,6 +1103,39 @@ class TpuExporter:
                         "Burst inner-loop periods missed (sampling "
                         "slower than the configured rate) since start.",
                         lbl, bs.get("burst_overruns", 0.0), fmt=".0f")
+        # sweep-RPC bytes and decode time (binary delta frames vs the
+        # JSON path), from the agent client's wire counters
+        wire = getattr(self.handle.backend, "sweep_wire_stats", None)
+        if callable(wire):
+            try:
+                ws = wire()
+            except Exception as e:
+                log.warn_every("exporter.wirestats", 60.0,
+                               "sweep wire stats fetch failed: %r", e)
+                ws = None
+            if ws:
+                lines += rf("tpumon_exporter_sweep_rpc_bytes", "counter",
+                            "Cumulative sweep-RPC response bytes "
+                            "received from the agent.",
+                            lbl, ws.get("rpc_bytes_total", 0.0), fmt=".0f")
+                lines += rf("tpumon_exporter_sweep_decode_seconds",
+                            "counter",
+                            "Cumulative wall time decoding sweep-RPC "
+                            "responses (frame/JSON decode + snapshot "
+                            "materialization).",
+                            lbl, ws.get("decode_seconds_total", 0.0),
+                            fmt=".6f")
+                lines += rf("tpumon_exporter_sweep_last_rpc_bytes",
+                            "gauge",
+                            "Sweep-RPC response bytes of the most "
+                            "recent sweep.",
+                            lbl, ws.get("last_rpc_bytes", 0.0), fmt=".0f")
+                lines += rf("tpumon_exporter_sweep_last_decode_seconds",
+                            "gauge",
+                            "Decode wall time of the most recent "
+                            "sweep's RPC response.",
+                            lbl, ws.get("last_decode_seconds", 0.0),
+                            fmt=".6f")
         with self._lock:
             nbytes = len(self._last_bytes)
             gzbytes = self._gzip_bytes
@@ -1077,6 +1158,63 @@ class TpuExporter:
                         "previous sweep.",
                         lbl, self._merge_series, fmt=".0f")
         return lines
+
+    def _fetch_agent_introspect(self) -> Optional[Dict[str, float]]:
+        """The agent's self-metrics (standalone mode only), as floats.
+        Any failure drops the families, never the sweep."""
+
+        introspect = getattr(self.handle.backend, "agent_introspect", None)
+        if not callable(introspect):
+            return None
+        try:
+            d = introspect()
+            return {k: float(d[k]) for k in
+                    ("cpu_percent", "memory_kb", "uptime_s") if k in d}
+        except Exception as e:
+            log.warn_every("exporter.introspect", 60.0,
+                           "agent introspection failed: %r", e)
+            return None
+
+    def _fetch_burst_stats(self) -> Optional[Dict[str, float]]:
+        """Burst-loop health: the local sampler's own counters, else the
+        backend's (the agent's hello).  The first ``None`` from the
+        backend latches the probe off; a failure drops the gauges, never
+        the sweep."""
+
+        if self._burst_sampler is not None:
+            return self._burst_sampler.stats()
+        if self._burst_stats_off:
+            return None
+        stats = getattr(self.handle.backend, "burst_stats", None)
+        if not callable(stats):
+            self._burst_stats_off = True
+            return None
+        try:
+            out = stats()
+        except Exception as e:
+            log.warn_every("exporter.burststats", 60.0,
+                           "burst stats probe failed: %r", e)
+            return None
+        if out is None:
+            self._burst_stats_off = True
+        return out
+
+    def _agent_metrics(self, lbl: str) -> List[str]:
+        d = self._agent_introspect_data
+        if not d:
+            return []
+        out: List[str] = []
+        for key, fam, help_txt in (
+                ("cpu_percent", "tpumon_agent_cpu_percent",
+                 "tpu-hostengine process CPU percent since start."),
+                ("memory_kb", "tpumon_agent_memory_kb",
+                 "tpu-hostengine process RSS in KB."),
+                ("uptime_s", "tpumon_agent_uptime_seconds",
+                 "tpu-hostengine uptime in seconds.")):
+            if key not in d:
+                continue
+            out += render_family(fam, "gauge", help_txt, lbl, d[key])
+        return out
 
     # -- loop -----------------------------------------------------------------
 
@@ -1124,6 +1262,16 @@ class TpuExporter:
                     log.warn_every("exporter.stop", 30.0,
                                    "flight recorder close failed: %r",
                                    e)
+            # release the agent-side watch (the agent also drops it with
+            # the connection, but a clean stop should not rely on that)
+            if self._agent_watch_id is not None:
+                try:
+                    self.handle.backend.unwatch(self._agent_watch_id)
+                except Exception as e:
+                    log.vlog(1, "agent watch release failed on stop "
+                                "(%r); the agent drops it with the "
+                                "connection", e)
+                self._agent_watch_id = None
 
     # -- accessors ------------------------------------------------------------
 

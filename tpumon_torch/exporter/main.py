@@ -13,8 +13,10 @@ delegated to node-exporter (``/metrics``, ``/tpu/metrics``,
 ``/healthz``), the textfile merge, and kubelet pod attribution.
 
 The source is ``tpumon_torch.init()`` on the default ``auto`` backend,
-which is NVML: the daemon never imports ``torch`` and never creates a
-CUDA context.  ``--wait-for-tpu S`` retries the NVML init every 2 s for
+which is NVML, or the agent with ``--connect ADDR``/``--start-agent``
+(:mod:`tpumon_torch.hostengine`; the device is then read in the agent and
+the daemon samples through its watch): the daemon never imports
+``torch`` and never creates a CUDA context.  ``--wait-for-tpu S`` retries the NVML init every 2 s for
 up to S seconds (-1 = forever) before it exits 1; nothing else is ever
 served in its place.
 
@@ -27,8 +29,7 @@ kmsg watcher where ``/dev/kmsg`` can be read.  ``--stream-port P`` serves
 the live stream plane (subscribe with ``python -m tpumon_torch.cli.stream
 --connect HOST:P`` or ``GET /stream``).  Flags of what is not ported yet
 exit 1 with a message that names its ROADMAP.md item:
-``--ici-per-link-modeled`` (Queue 1, item 7) and
-``--connect``/``--start-agent`` (item 16b, part 5).
+``--ici-per-link-modeled`` (Queue 1, item 7).
 """
 
 from __future__ import annotations

@@ -47,9 +47,10 @@ socket, connection buffer and subscriber table.  ``publish()`` runs
 on the caller's thread and touches only publisher-owned encoder
 state; the fan-out itself is posted to the loop thread, so the sweep
 path never blocks on subscriber sockets.  The relay side of the
-publisher (:meth:`StreamPublisher.forward`, ``forward_heartbeat``) is
-carried for the relay tree, which is not ported yet (ROADMAP.md,
-Queue 1, item 16b).
+publisher (:meth:`StreamPublisher.forward`, ``forward_heartbeat``) serves
+the relay tree (:mod:`tpumon_torch.relay`); the port's agent
+(:mod:`tpumon_torch.hostengine`) serves its op set on a
+:class:`FrameServer` too.
 """
 
 from __future__ import annotations
@@ -159,6 +160,13 @@ class ConnHandler:
 
     def on_close(self, server: "FrameServer", conn: FrameConn) -> None:
         pass
+
+    def on_malformed(self, server: "FrameServer", conn: FrameConn,
+                     line: bytes) -> None:
+        """A request line that starts with ``{`` but is not a JSON
+        object.  Default: close the connection."""
+
+        server.close_conn(conn)
 
 
 class FrameServer:
@@ -572,11 +580,10 @@ class FrameServer:
                     # (op parse, once per request line — the steady
                     # tee path is binary records only)
                 except ValueError:
-                    self._drop(conn)
-                    return
+                    req = None
                 if not isinstance(req, dict):
-                    self._drop(conn)
-                    return
+                    handler.on_malformed(self, conn, line)
+                    continue
                 handler.on_json(self, conn, req)
             else:
                 handler.on_text(self, conn,

@@ -366,23 +366,8 @@ def tier_1hz(backend, index: int, field_ids: Sequence[int],
     spent: Dict[str, float] = {}
     calls: Dict[str, int] = {}
     entries = [0]  # field-values entries asked
-    fn = getattr(backend, "_fn", {})
-    originals = dict(fn)
-    for name, f in originals.items():
-        if f is None or name == "nvmlEventSetWait_v2":
-            continue
-
-        def timed(*args, _f=f, _name=name):
-            if _name == "nvmlDeviceGetFieldValues":
-                entries[0] += args[1]
-            t = time.perf_counter()
-            try:
-                return _f(*args)
-            finally:
-                spent[_name] = spent.get(_name, 0.0) + \
-                    time.perf_counter() - t
-                calls[_name] = calls.get(_name, 0) + 1
-        fn[name] = timed
+    originals = _timed_calls(backend, time.perf_counter, spent, calls,
+                             entries)
     h = tpumon_torch.init(backend=backend)
     try:
         fg = h.watches.create_field_group(list(field_ids), "tier_1hz")
@@ -401,7 +386,7 @@ def tier_1hz(backend, index: int, field_ids: Sequence[int],
         vals = h.watches.latest_values(index, fg.field_ids)
     finally:
         tpumon_torch.shutdown()
-        fn.update(originals)
+        getattr(backend, "_fn", {}).update(originals)
     n = len(wall_ms)
     ranked = sorted(wall_ms)
     return {"tier": getattr(backend, "name", "?"), "index": index,
@@ -414,6 +399,184 @@ def tier_1hz(backend, index: int, field_ids: Sequence[int],
             "call_ms": {k: [round(v / n * 1e3, 3), calls[k] // n]
                         for k, v in sorted(spent.items(),
                                            key=lambda kv: -kv[1])}}
+
+
+def _timed_calls(backend, clock, spent: Dict[str, float],
+                 calls: Dict[str, int],
+                 entries: Optional[List[int]] = None) -> Dict[str, object]:
+    """Wrap each NVML entry point of ``backend`` (its ``_fn`` table, none
+    for another backend) to add ``clock()`` around every call to
+    ``spent[name]`` and count it, and the field-values entries asked to
+    ``entries[0]``; returns the originals, for ``backend._fn.update`` to
+    restore."""
+
+    fn = getattr(backend, "_fn", {})
+    originals = dict(fn)
+    for name, f in originals.items():
+        if f is None or name == "nvmlEventSetWait_v2":
+            continue
+
+        def timed(*args, _f=f, _name=name):
+            if entries is not None and _name == "nvmlDeviceGetFieldValues":
+                entries[0] += args[1]
+            t = clock()
+            try:
+                return _f(*args)
+            finally:
+                spent[_name] = spent.get(_name, 0.0) + clock() - t
+                calls[_name] = calls.get(_name, 0) + 1
+        fn[name] = timed
+    return originals
+
+
+def burst_cpu_split(backend, index: int, hz: int, seconds: float,
+                    agent: bool = False) -> dict:
+    """The burst inner loop's thread CPU, by part, measured from outside
+    the loop: :class:`tpumon_torch.burst.BurstSampler` over
+    ``backend.read_burst_fields`` runs alone in this process for
+    ``seconds`` at ``hz`` as the exporter daemon runs it, or with
+    ``agent`` as the agent's :class:`tpumon_torch.hostengine.Engine` runs
+    it.  The read is wrapped: the thread's CPU (``time.thread_time``) at
+    each read's entry and exit, and around every NVML call in it.  The
+    fold is timed by folding the recorded sweeps again after the loop
+    stops.  Returns microseconds a tick: ``read`` (of which
+    ``nvml_calls``, the foreign calls themselves, and ``marshalling``, the
+    rest: ctypes structures, conversions, the backend's Python),
+    ``fold``, and ``wait``: the thread's CPU between reads less the fold,
+    the sleep's wake-up and the loop's bookkeeping; the thread's share of
+    one CPU; the process's; ticks and overruns."""
+
+    from tpumon_torch import fields as FF
+    from tpumon_torch.burst import BurstAccumulator, BurstSampler
+    from tpumon_torch.introspect import SelfMonitor
+
+    spent: Dict[str, float] = {}
+    calls: Dict[str, int] = {}
+    originals = _timed_calls(backend, time.thread_time, spent, calls)
+    marks: List[Tuple[float, float]] = []  # thread CPU at entry, exit
+    sweeps = []
+    read = backend.read_burst_fields
+
+    def timed_read(reqs):
+        t = time.monotonic()
+        c0 = time.thread_time()
+        try:
+            out = read(reqs)
+            sweeps.append((t, out))
+            return out
+        finally:
+            marks.append((c0, time.thread_time()))
+
+    backend.read_burst_fields = timed_read
+    reqs = [(index, list(FF.BURST_SOURCE_FIELDS))]
+    engine = None
+    mon = SelfMonitor()
+    try:
+        if agent:
+            from tpumon_torch.hostengine import Engine
+
+            engine = Engine(backend, burst_hz=hz)
+            sampler = engine.burst
+        else:
+            sampler = BurstSampler(lambda: backend.read_burst_fields(reqs),
+                                   hz)
+            sampler.start()
+        time.sleep(seconds)
+        proc_pct = mon.status().cpu_percent
+    finally:
+        if engine is not None:
+            engine.close()
+        else:
+            sampler.stop()
+        del backend.read_burst_fields
+        getattr(backend, "_fn", {}).update(originals)
+    n = max(1, len(marks) - 1)  # ticks from the first read to the last
+    thread_s = marks[-1][0] - marks[0][0] if len(marks) > 1 else 0.0
+    read_s = sum(c1 - c0 for c0, c1 in marks[:-1])
+    acc = BurstAccumulator()
+    t0 = time.perf_counter()
+    for t, sweep in sweeps[:-1]:
+        for chip, vals in sweep.items():
+            for fid, v in vals.items():
+                if isinstance(v, (int, float)):
+                    acc.fold(chip, fid, t, v)
+    fold_s = time.perf_counter() - t0
+    wall = sweeps[-1][0] - sweeps[0][0] if len(sweeps) > 1 else seconds
+    us = {"read": read_s, "nvml_calls": sum(spent.values()),
+          "fold": fold_s, "wait": thread_s - read_s - fold_s}
+    us = {k: round(v / n * 1e6, 2) for k, v in us.items()}
+    us["marshalling"] = round(us["read"] - us["nvml_calls"], 2)
+    return {"hz": hz, "loop": "agent" if agent else "exporter",
+            "seconds": round(wall, 3), "ticks": n,
+            "overruns": int(sampler.stats()["burst_overruns"]),
+            "us_per_tick": us,
+            "calls_per_tick": {k: round(v / len(marks), 2)
+                               for k, v in calls.items()},
+            "thread_cpu_percent": round(100.0 * thread_s / wall, 3)
+            if wall > 0 else None,
+            "process_cpu_percent": round(proc_pct, 3)}
+
+
+def tail_ms(xs: Sequence[float]) -> dict:
+    """p50, max and n of ``xs``; p99 only from 100 values or more."""
+
+    xs = sorted(xs)
+    if not xs:
+        return {"n": 0, "p50": None, "p99": None, "max": None}
+    return {"n": len(xs), "p50": round(xs[len(xs) // 2], 3),
+            "p99": (round(xs[int(0.99 * len(xs))], 3) if len(xs) >= 100
+                    else None),
+            "max": round(xs[-1], 3)}
+
+
+def agent_collect(backend, index: int, field_ids: Sequence[int],
+                  seconds: float, hz: float = 1.0) -> dict:
+    """The agent's collect: its watches (a :class:`tpumon_torch.watch.
+    WatchManager` over :class:`tpumon_torch.hostengine.WatchSource`, as
+    the agent runs them) on ``field_ids`` at ``hz`` over ``backend`` in
+    this process for ``seconds``.  Returns each sweep's wall ms and, by
+    NVML entry point, the wall ms a sweep spends in it and its calls a
+    sweep (``call_ms``); each as :func:`tail_ms`."""
+
+    from tpumon_torch.hostengine import WatchSource
+    from tpumon_torch.watch import WatchManager
+
+    spent: Dict[str, float] = {}
+    calls: Dict[str, int] = {}
+    originals = _timed_calls(backend, time.perf_counter, spent, calls)
+    sweeps: List[Tuple[float, Dict[str, float], Dict[str, int]]] = []
+    read = backend.read_fields_bulk
+
+    def timed_read(reqs, now=None, max_age_s=None):
+        spent.clear()
+        calls.clear()
+        t = time.perf_counter()
+        try:
+            return read([r for r in reqs if r[0] == index], now=now)
+        finally:
+            sweeps.append(((time.perf_counter() - t) * 1e3, dict(spent),
+                           dict(calls)))
+
+    backend.read_fields_bulk = timed_read
+    wm = WatchManager(WatchSource(backend))
+    try:
+        wm.watch_fields(wm.all_chips_group(),
+                        wm.create_field_group(field_ids),
+                        int(1e6 / hz), 5.0)
+        wm.start(tick_s=None)
+        time.sleep(seconds)
+    finally:
+        wm.stop()
+        del backend.read_fields_bulk
+        getattr(backend, "_fn", {}).update(originals)
+    names = sorted({k for _, sp, _ in sweeps for k in sp},
+                   key=lambda k: -sum(sp.get(k, 0.0) for _, sp, _ in sweeps))
+    return {"hz": hz, "sweep_ms": tail_ms([w for w, _, _ in sweeps]),
+            "call_ms": {k: dict(tail_ms([sp.get(k, 0.0) * 1e3
+                                         for _, sp, _ in sweeps]),
+                                calls=max(c.get(k, 0)
+                                          for _, _, c in sweeps))
+                        for k in names}}
 
 
 def exporter_fields() -> List[int]:

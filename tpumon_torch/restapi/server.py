@@ -278,9 +278,9 @@ class RestApi:
     def _engine_status(self, m: re.Match[str],
                        as_json: bool) -> Tuple[int, Any]:
         st = self.h.introspect()
-        # the port has no agent backend yet (ROADMAP.md, Queue 1, item
-        # 16b, part 5): every engine is the embedded one
-        engine = "embedded"
+        from ..backends.agent import AgentBackend
+        engine = ("tpu-hostengine (remote)"
+                  if isinstance(self.h.backend, AgentBackend) else "embedded")
         if as_json:
             d = _to_jsonable(st)
             d["engine"] = engine

@@ -72,12 +72,15 @@ class ChipGroup:
 class _Series:
     """Ring buffer of samples for one (chip, field) key."""
 
-    __slots__ = ("samples", "max_age", "max_samples")
+    __slots__ = ("samples", "max_age", "max_samples", "period")
 
-    def __init__(self, max_age: float, max_samples: int) -> None:
+    def __init__(self, max_age: float, max_samples: int,
+                 period: float = 0.0) -> None:
         self.samples: Deque[Sample] = deque()
         self.max_age = max_age
         self.max_samples = max_samples
+        #: the slowest covering watch's period, s (``latest(fresh=True)``)
+        self.period = period
 
     def add(self, s: Sample) -> None:
         self.samples.append(s)
@@ -181,23 +184,47 @@ class WatchManager:
                 for f in field_group.field_ids:
                     key = (c, f)
                     if key not in self._series:
-                        self._series[key] = _Series(max_keep_age_s,
-                                                    max_keep_samples)
+                        self._series[key] = _Series(
+                            max_keep_age_s, max_keep_samples,
+                            update_freq_us / 1e6)
                     else:
                         # widen retention if the new watch wants more
                         # (0 samples = unlimited, so it wins outright)
                         s = self._series[key]
                         s.max_age = max(s.max_age, max_keep_age_s)
+                        s.period = max(s.period, update_freq_us / 1e6)
                         if s.max_samples and (
                                 not max_keep_samples
                                 or max_keep_samples > s.max_samples):
                             s.max_samples = max_keep_samples
             return wid
 
-    def unwatch(self, watch_id: int) -> None:
+    def unwatch(self, watch_id: int, purge: bool = False) -> bool:
+        """Remove a watch; False when there was none.  With ``purge``, the
+        series no remaining watch covers go (their last value is never
+        served again) and the rest keep the remaining watches' retention
+        and period (the agent's ``unwatch``, ``sampler.hpp``)."""
+
         with self._lock:
-            self._watches.pop(watch_id, None)
+            if self._watches.pop(watch_id, None) is None:
+                return False
             self._all_due_cache = None
+            if purge:
+                bounds: Dict[Tuple[int, int], Tuple[float, float]] = {}
+                for w in self._watches.values():
+                    for c in w.chip_group.chip_indices:
+                        for f in w.field_group.field_ids:
+                            age, period = bounds.get((c, f), (0.0, 0.0))
+                            bounds[(c, f)] = (
+                                max(age, w.max_keep_age_s),
+                                max(period, w.update_freq_us / 1e6))
+                for key in list(self._series):
+                    if key not in bounds:
+                        del self._series[key]
+                    else:
+                        s = self._series[key]
+                        s.max_age, s.period = bounds[key]
+            return True
 
     # -- sampling -------------------------------------------------------------
 
@@ -302,10 +329,19 @@ class WatchManager:
 
     # -- queries --------------------------------------------------------------
 
-    def latest(self, chip_index: int, field_id: int) -> Optional[Sample]:
+    def latest(self, chip_index: int, field_id: int,
+               fresh: bool = False) -> Optional[Sample]:
+        """The newest sample, or None.  With ``fresh``, also None when it
+        is older than its retention or twice the slowest covering watch's
+        period, whichever is longer (a stalled sweep blanks)."""
+
         with self._lock:
             s = self._series.get((chip_index, int(field_id)))
-            return s.latest() if s else None
+            last = s.latest() if s else None
+            if fresh and last is not None and last.timestamp < \
+                    self._clock() - max(s.max_age, 2.0 * s.period):
+                return None
+            return last
 
     def latest_values(self, chip_index: int,
                       field_ids: Sequence[int]) -> Dict[int, FieldValue]:
@@ -345,8 +381,10 @@ class WatchManager:
 
     # -- background sweep thread ----------------------------------------------
 
-    def start(self, tick_s: float = 0.1) -> None:
-        """Start the background sweep thread (agent/exporter mode)."""
+    def start(self, tick_s: Optional[float] = 0.1) -> None:
+        """Start the background sweep thread (agent/exporter mode): a
+        sweep every ``tick_s``, or with None every quarter of the fastest
+        watch's period (0.2 s while there is none)."""
 
         with self._lock:
             if self._thread is not None:
@@ -365,8 +403,15 @@ class WatchManager:
             self._stop.set()
             th.join(timeout=5.0)
 
-    def _run(self, tick_s: float) -> None:
-        while not self._stop.wait(tick_s):
+    def _tick(self) -> float:
+        with self._lock:
+            periods = [w.update_freq_us for w in self._watches.values()
+                       if w.active]
+        return min(periods) / 4e6 if periods else 0.2
+
+    def _run(self, tick_s: Optional[float]) -> None:
+        while not self._stop.wait(tick_s if tick_s is not None
+                                  else self._tick()):
             try:
                 self.update_all(wait=False)
             except Exception as e:
