@@ -64,11 +64,20 @@
    before it and read just after: ``tpumon_torch.loadgen.run --size bench
    --self-monitor --seconds 3`` (the graph step; fails unless the loss is
    finite) and ``--pattern P --self-monitor --seconds 2`` for each of mxu, hbm, mixed,
-   flash and conv.  Each fails unless steps ran, the HBM families (used
-   and total) were non-blank, the path's kernels launched and the
-   runner's forced trace capture landed; the train run also unless the
-   trace-only families (achieved TFLOP/s, MFU, vector active) were
-   non-blank.
+   flash and conv, then ``--seconds 6`` for each multi-device pattern
+   (ringattn, allreduce, dcn, pp, moe) in a 1-rank NCCL group.  Each fails
+   unless steps ran, the HBM families (used and total) were non-blank,
+   the path's kernels launched and the runner's forced trace capture
+   landed; the train run also unless the trace-only families (achieved
+   TFLOP/s, MFU, vector active) were non-blank; a multi-device one also
+   unless its final capture read NCCL's events (allreduce, dcn, moe; at
+   one rank ringattn's and pp's hops are the identity and call none) and
+   attributed 0 ICI bytes to them, served as ``tpu_ici_tx_throughput``.
+   ``multi``: those runs' steps/s, collective events and ICI bytes; ring
+   attention at the ringattn pattern's shape against the dense oracle on
+   the card (``RING_BF16_TOL``, and ``RING_F32_TOL`` in f32); the NCCL
+   version; and whether NCCL takes two ranks on the one card (two
+   processes, one all-reduce: it refuses a duplicate GPU).
 6. The metric-semantics check (the reference's
    ``tests/test_real_tpu_semantics.py``) on the port's ``CudaBackend``,
    with the ``mxu`` pattern as the load on a worker thread and the trace
@@ -141,6 +150,11 @@
    subscriber, the stream CLI and a late decoder: every subscriber's
    sweeps are the recorder's (``stream_phase`` says each check).  The
    workload's B1-B3 launches join the kernels line as path ``stream``.
+   ``relay`` and ``agent`` beside one train workload: the relay tree, the
+   agent run modes (``agent_phase``) and the agent serving ``/metrics``
+   itself with ``--prom-port 0 --merge-textfile`` (``agent_prom_phase``:
+   30 scrapes at 1 Hz, each held to NVML reads, the drop file merged,
+   ``/healthz`` 200; scrape wall ms, the agent's CPU and RSS).
 12. Prints each load pattern's busy share (its kernel's device time over
    its self-monitored step), the card's name and power limit again, then
    one ``{"kernels": [...], "backward":
@@ -213,7 +227,18 @@ PATHS = {
     "mixed": ("mxu_burn", "hbm_stream"),
     "flash": ("flash_fwd",),
     "conv": (),
+    "ringattn": (),
+    "allreduce": (),
+    "dcn": (),
+    "pp": (),
+    "moe": (),
 }
+#: the multi-device patterns (``multi`` leg), each run this long, s, in a
+#: 1-rank NCCL group; the ones whose step calls NCCL at one rank (the
+#: others' hops are the identity there)
+MULTI_PATHS = ("ringattn", "allreduce", "dcn", "pp", "moe")
+MULTI_S = 6.0
+MULTI_NCCL = ("allreduce", "dcn", "moe")
 
 
 def fail(msg: str) -> int:
@@ -885,7 +910,8 @@ def drive_path(K, R, fields, path: str) -> tuple:
     result, the counts)."""
 
     args = (["--size", "bench", "--seconds", "3"] if path == "train"
-            else ["--pattern", path, "--seconds", "2"])
+            else ["--pattern", path, "--seconds",
+                  str(MULTI_S if path in MULTI_PATHS else 2)])
     for name in K.LAUNCHES:
         K.LAUNCHES[name] = 0
     buf = io.StringIO()
@@ -919,7 +945,129 @@ def drive_path(K, R, fields, path: str) -> tuple:
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"kernel {name} never launched on main "
                                  f"path {path}")
+    if path in MULTI_PATHS:
+        # the final forced capture's attribution: the NCCL calls it saw,
+        # and the bytes they moved at one rank (none)
+        att = (result.get("attribution") or {}).get("0") or {}
+        events = att.get("collective_events")
+        if events is None or (events > 0) != (path in MULTI_NCCL):
+            raise AssertionError(f"{path}: {events} collective events in "
+                                 f"the capture: {att}")
+        if att.get("ici_bytes") != 0 or att.get("suspect"):
+            raise AssertionError(f"{path}: ICI bytes at one rank: {att}")
+        if "tpu_ici_tx_throughput" not in result.get("families", []):
+            raise AssertionError(f"{path}: tpu_ici_tx_throughput blank")
     return result, launches
+
+
+#: the ring attention check at the pattern's shape: bf16 in and out, both
+#: sides summing in f32 and rounding the output once, so within one bf16
+#: ulp (rtol 2**-7) and 1e-3; in f32 the reference's own 2e-5
+RING_BF16_TOL = (2.0 ** -7, 1e-3)
+RING_F32_TOL = 2e-5
+
+#: the two-ranks-on-one-card probe: two NCCL ranks on cuda:0, one
+#: all-reduce; NCCL refuses them (a duplicate GPU), or the pair times out
+DUP_PROBE = r"""
+import os, sys, torch, torch.distributed as dist
+rank = int(sys.argv[1])
+torch.cuda.set_device(0)
+dist.init_process_group("nccl", init_method="tcp://127.0.0.1:" + sys.argv[2],
+                        rank=rank, world_size=2)
+x = torch.ones(1, device="cuda")
+dist.all_reduce(x)
+print("sum", x.item(), flush=True)
+dist.destroy_process_group()
+"""
+DUP_PROBE_S = 60.0
+
+
+def two_ranks_probe_start():
+    """Start the two-ranks-on-one-card probe: two processes."""
+
+    port = str(free_port())
+    return [subprocess.Popen([sys.executable, "-c", DUP_PROBE, str(r), port],
+                             cwd=HERE, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True)
+            for r in range(2)]
+
+
+def two_ranks_probe_end(procs) -> dict:
+    """The probe's outcome: ``refused`` with NCCL's message, ``accepted``
+    with the sums, or ``timeout`` (both killed)."""
+
+    outs, timed_out = [], False
+    deadline = time.monotonic() + DUP_PROBE_S
+    for p in procs:
+        try:
+            out, err = p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, err = p.communicate()
+            timed_out = True
+        outs.append((p.returncode, out, err))
+    if all(rc == 0 for rc, _, _ in outs):
+        return {"outcome": "accepted",
+                "sums": [o.strip() for _, o, _ in outs]}
+    lines = [ln for _, _, err in outs for ln in err.splitlines()
+             if re.search(r"(?i)nccl|duplicate|error", ln)]
+    msg = next((ln for ln in lines if "uplicate" in ln), None) or \
+        (lines[-1] if lines else "")
+    return {"outcome": "timeout" if timed_out else "refused",
+            "returncodes": [rc for rc, _, _ in outs], "message": msg[-400:]}
+
+
+def ring_check() -> dict:
+    """Ring attention at the ``ringattn`` pattern's full shape (seq 512 a
+    rank, batch 1, 4 heads of 128, bf16) in a 1-rank NCCL group against
+    ``ring_attention_reference`` on the card (``RING_BF16_TOL``), and the
+    same inputs in f32 (``RING_F32_TOL``)."""
+
+    import torch
+    import torch.distributed as dist
+    from tpumon_torch.loadgen import ring as RG
+
+    RG.init_process_group(torch.device("cuda"))
+    try:
+        mesh = RG.make_seq_mesh()
+        _, (q, k, v) = RG.make_ring_attention_pattern(mesh, device="cuda")
+        out = {"shape": list(q.shape)}
+        rtol, atol = RING_BF16_TOL
+        got = RG.ring_attention(q, k, v, mesh).float()
+        want = RG.ring_attention_reference(q, k, v).float()
+        excess = ((got - want).abs() / (atol + rtol * want.abs())).max()
+        out["bf16_max_abs_err"] = (got - want).abs().max().item()
+        out["bf16_excess"] = excess.item()
+        qf, kf, vf = (t.float() for t in (q, k, v))
+        err = (RG.ring_attention(qf, kf, vf, mesh)
+               - RG.ring_attention_reference(qf, kf, vf)).abs().max().item()
+        out["f32_max_abs_err"] = err
+        out["nccl_version"] = ".".join(map(str, torch.cuda.nccl.version()))
+        if not excess.item() <= 1.0 or not err <= RING_F32_TOL:
+            raise AssertionError(f"ring attention against dense: {out}")
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def multi_summary(results, probe, ring) -> dict:
+    """The ``multi`` line: each multi-device pattern's steps/s, the
+    collective events its final capture read and their ICI bytes, the
+    ring check, the NCCL version and the two-ranks probe."""
+
+    rows = {}
+    for path in MULTI_PATHS:
+        att = (results[path].get("attribution") or {}).get("0") or {}
+        rows[path] = {"steps_per_sec": results[path]["steps_per_sec"],
+                      "steps": results[path]["steps"],
+                      "collective_events": att.get("collective_events"),
+                      "ici_bytes": att.get("ici_bytes"),
+                      "ici_mb_per_s": att.get("ici_mb_per_s"),
+                      "gate": att.get("gate"),
+                      "captures_ok": results[path].get("captures_ok")}
+    return {"world": 1, "patterns": rows, "ring_check": ring,
+            "two_ranks_one_card": probe}
 
 
 @contextlib.contextmanager
@@ -1637,13 +1785,13 @@ def samples(text: str) -> list:
     """(series id, family, labels, value, valid) of every sample line; a
     line the exporter's merge would drop as malformed has valid False."""
 
-    from tpumon_torch.exporter.exporter import TpuExporter
+    from tpumon_torch.exporter.textmerge import parse_sample
 
     out = []
     for ln in text.splitlines():
         if not ln or ln.startswith("#"):
             continue
-        sid = TpuExporter._parse_sample(ln)
+        sid = parse_sample(ln)
         if sid is None:
             out.append((ln, ln.split("{", 1)[0], {}, None, False))
             continue
@@ -2243,6 +2391,11 @@ def spreads(series, bounds) -> dict:
     return out
 
 
+#: a burst window's mean may stand this far (relative) outside its min
+#: and max: a few float64 roundings of sum / n, no more
+MEAN_ULPS = 1e-12
+
+
 def planes_phase(K, fields, daemon_cpu_percent=None) -> dict:
     """``planes``: the exporter daemon with its three planes on, over
     NVML, while this process drives B4 (the ``mxu`` pattern) through
@@ -2514,7 +2667,11 @@ def planes_phase(K, fields, daemon_cpu_percent=None) -> dict:
             for src in BURST_SERVED:
                 lo, hi, mean = (vals.get(fields.burst_id(src, a_))
                                 for a_ in range(3))
-                if None not in (lo, hi, mean) and not lo <= mean <= hi:
+                # the mean of a window of equal samples may round an ulp
+                # past them (sum / n in floating point)
+                ulps = MEAN_ULPS * max(abs(lo or 0.0), abs(hi or 0.0), 1.0)
+                if None not in (lo, hi, mean) and \
+                        not lo - ulps <= mean <= hi + ulps:
                     failures.append(f"tick {tk.timestamp}: window of "
                                     f"{src}: {lo} <= {mean} <= {hi} fails")
         span = [tk for tk in ticks if first[0] - 1.0 <= tk.timestamp
@@ -3922,6 +4079,119 @@ def agent_phase(K, fields, env, work) -> dict:
                 proc.wait()
 
 
+#: the agent's own /metrics (--prom-port): scrapes at 1 Hz
+AGENT_PROM_SCRAPES = 30
+
+
+def agent_prom_phase(fields, env, work, drop) -> dict:
+    """``agent`` with ``--prom-port``: ``python -m tpumon_torch.hostengine
+    --prom-port 0 --merge-textfile <drop>`` over NVML beside the train
+    workload, its ``/metrics`` scraped at 1 Hz AGENT_PROM_SCRAPES times,
+    no exporter process.  Fails unless every scrape is 200 and holds each
+    AGENT_HELD family within its tolerance of one of this process's NVML
+    reads just before and just after it (no miss), at least 20 families
+    that NVML fills are served for the card, every family of the
+    workload's drop file is merged (one file, its series counted), and
+    ``/healthz`` is 200.  Printed: scrape wall ms p50 and max with n, the
+    agent's CPU share and RSS over the stretch, families served and
+    merged."""
+
+    from tpumon_torch.hostengine import SCRAPE_FIELDS
+
+    F = fields.F
+    sock = os.path.join(work, "agent-prom.sock")
+    log_path = os.path.join(work, "agent-prom.err")
+    b, i = nvml_open(fields)
+    agent = None
+    failures = []
+    try:
+        agent = spawn(["tpumon_torch.hostengine", "--domain-socket", sock,
+                       "--prom-port", "0", "--merge-textfile", drop], env,
+                      log_path)
+
+        def announced():
+            with open(log_path) as f:
+                m = re.search(r"/metrics on port (\d+)", f.read())
+            if m:
+                return int(m.group(1))
+            return -1 if agent.poll() is not None else None
+
+        port = wait_for(announced, 60, "the agent's prom port")
+        if port < 0:
+            with open(log_path) as f:
+                raise AssertionError(f"the agent exited: {f.read()[-2000:]}")
+        nvml_fams = {fields.CATALOG[f].prom_name
+                     for f, v in b.read_fields(i, SCRAPE_FIELDS).items()
+                     if v is not None}
+        held_ids = {fam: fields.by_name(fam).field_id for fam in AGENT_HELD}
+        a0, t0 = proc_stat(agent.pid), time.monotonic()
+        walls, misses, scrapes = [], [], []
+        for _ in range(AGENT_PROM_SCRAPES):
+            tick = time.monotonic()
+            before = b.read_fields(i, list(held_ids.values()))
+            status, _, body, wall = http_get(port, "/metrics")
+            after = b.read_fields(i, list(held_ids.values()))
+            walls.append(wall)
+            if status != 200:
+                failures.append(f"/metrics {status}")
+                continue
+            m = {}
+            for _, fam, labels, v, ok in samples(body.decode()):
+                if ok:
+                    m.setdefault(fam, []).append((labels, float(v)))
+            scrapes.append(m)
+            for fam, tol in AGENT_HELD.items():
+                got = [v for lb, v in m.get(fam, [])
+                       if lb.get("chip") == str(i)]
+                wants = [r.get(held_ids[fam]) for r in (before, after)]
+                if not got or not any(
+                        w is not None and
+                        abs(got[0] - float(w)) <= tol(float(w))
+                        for w in wants):
+                    misses.append((fam, got[:1], wants))
+            time.sleep(max(0.0, 1.0 - (time.monotonic() - tick)))
+        a1, t1 = proc_stat(agent.pid), time.monotonic()
+        healthz = http_get(port, "/healthz")[0]
+        last = scrapes[-1] if scrapes else {}
+        served = sorted(f for f, v in last.items()
+                        if any(lb.get("chip") == str(i) for lb, _ in v))
+        nvml_served = sorted(set(served) & nvml_fams)
+        dropped = read_drop(drop)
+        drop_fams = sorted(dropped[0]) if dropped else []
+        missing = [f for f in drop_fams if f not in last]
+        merged_files = one(last, "tpumon_agent_merged_files")
+        merged_series = one(last, "tpumon_agent_merged_series")
+        if misses:
+            failures.append(f"agent /metrics vs NVML: {misses[:6]}")
+        if len(nvml_served) < 20:
+            failures.append(f"{len(nvml_served)} NVML families served")
+        if not drop_fams or missing or merged_files != 1 or \
+                not merged_series:
+            failures.append(f"drop file not merged: missing {missing}, "
+                            f"files {merged_files}, series {merged_series}")
+        if healthz != 200:
+            failures.append(f"/healthz {healthz}")
+        out = {"scrapes": len(walls),
+               "scrape_wall_ms": {"p50": quantile(walls, 0.5),
+                                  "max": max(walls) if walls else None,
+                                  "n": len(walls)},
+               "cpu_percent_1hz": cpu_share(a0, a1, t1 - t0),
+               "rss_kib": a1["rss_kib"],
+               "families_served": len(served),
+               "nvml_families_served": len(nvml_served),
+               "drop_families_merged": len(drop_fams) - len(missing),
+               "merged_series": merged_series, "held_misses": len(misses),
+               "healthz": healthz}
+        if failures:
+            raise AssertionError(f"agent --prom-port check failed: "
+                                 f"{failures[:10]} {out}")
+        return out
+    finally:
+        b.close()
+        if agent is not None:
+            stop_proc(agent)
+
+
 def relay_agent_phases(K, fields) -> tuple:
     """The ``relay`` and ``agent`` legs beside one train workload
     (``python -m tpumon_torch.loadgen.run --size bench --self-monitor
@@ -3946,7 +4216,7 @@ def relay_agent_phases(K, fields) -> tuple:
         env.pop(k, None)
     # the legs' stretches and their start-ups, kills and restarts
     seconds = RELAY_LIVE_S + RELAY_DARK_S + RELAY_BACK_S + AGENT_SCRAPE_S + \
-        AGENT_BURST_S + AGENT_BURST_IDLE_S + 30
+        AGENT_BURST_S + AGENT_BURST_IDLE_S + AGENT_PROM_SCRAPES + 45
     workload = None
     try:
         workload = spawn(["tpumon_torch.loadgen.run", "--size", "bench",
@@ -3958,6 +4228,7 @@ def relay_agent_phases(K, fields) -> tuple:
                  180, "the workload's first step")
         relay = relay_phase(env, work)
         agent = agent_phase(K, fields, env, work)
+        agent["prom"] = agent_prom_phase(fields, env, work, drop)
         # while the workload finishes its window
         b, i = nvml_open(fields)
         try:
@@ -4050,6 +4321,11 @@ def main() -> int:
             rows[name]["launches"] += launches[name]
             rows[name]["launches_by_path"][path] = launches[name]
     print("patterns: " + json.dumps(pattern_table(rows, rates)))
+    # NCCL's answer to two ranks on one card, while the ring check runs
+    probe = two_ranks_probe_start()
+    ring = ring_check()
+    print("multi: " + json.dumps(multi_summary(
+        results, two_ranks_probe_end(probe), ring)))
 
     print("semantics check: " + json.dumps(semantics_check(K, fields)))
     print("trace check: " + json.dumps(trace_check(K, M, R,

@@ -735,3 +735,340 @@ def test_status_cli_and_rest_name_the_remote_engine(agents, capsys):
         assert json.loads(body)["engine"] == "tpu-hostengine (remote)"
     finally:
         tpumon_torch.shutdown()
+
+
+# ---- the --prom-port plane against the native agent's -------------------------
+# tests/test_agent.py:315, :878, :944, :993, :1028, each run against both
+# agents at one frozen epoch; the two bodies must be equal line for line
+# (:func:`same_scrape`)
+
+#: self families whose values are timings or process stats
+AGENT_SELF = ("tpumon_agent_cpu_percent", "tpumon_agent_memory_kb",
+              "tpumon_agent_uptime_seconds", "tpumon_agent_scrape_render_ms",
+              "tpumon_agent_scrape_merge_ms")
+
+
+def prom_agent(cmd, sock, *args, env=None):
+    """Start an agent with ``--prom-port 0``; return (process, port) once
+    it has announced the port on stderr."""
+
+    import re
+
+    proc = subprocess.Popen(list(cmd) + ["--domain-socket", sock,
+                                         "--prom-port", "0", *args],
+                            cwd=REPO, env=env or agent_env(),
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                            text=True)
+    deadline = time.monotonic() + 30.0
+    while time.monotonic() < deadline:
+        line = proc.stderr.readline()
+        m = re.search(r"/metrics on port (\d+)", line or "")
+        if m:
+            return proc, int(m.group(1))
+        if not line and proc.poll() is not None:
+            break
+    stop_agent(proc)
+    raise AssertionError("the agent never announced its prom port")
+
+
+def http_get(port, path, timeout=30):
+    """(status, body) of one GET."""
+
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=timeout) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def same_scrape(native: str, port: str) -> None:
+    """The port's scrape equals the native agent's: the same lines in the
+    same order, HELP/TYPE and series identities exactly, values equal
+    within the fakes' golden tolerances (the native renders ``%.10g``, the
+    port the shortest repr; its fake rounds 155 and the profiling gauges)
+    but for the self families' timings and process stats and the native
+    fake's clock-driven link vectors (``SHAPE_ONLY``)."""
+
+    from tpumon_torch import fields as FF
+    from tpumon_torch.exporter.textmerge import parse_sample
+
+    fid_of = {m.prom_name: fid for fid, m in FF.CATALOG.items()}
+    a, b = native.splitlines(), port.splitlines()
+    assert len(a) == len(b), (len(a), len(b))
+    for x, y in zip(a, b):
+        if x.startswith("#"):
+            assert x == y
+            continue
+        sx, sy = parse_sample(x), parse_sample(y)
+        assert sx == sy and sx is not None, (x, y)
+        fam = sx.split("{", 1)[0]
+        fid = fid_of.get(fam)
+        if fam in AGENT_SELF or fid in SHAPE_ONLY:
+            continue
+        vx, vy = float(x[len(sx):]), float(y[len(sy):])
+        assert math.isclose(vx, vy, rel_tol=1e-9,
+                            abs_tol=GOLDEN.get(fid, 0) or 0.0), (x, y)
+
+
+def scrape_both(tmp_path, *args, chips="2", env=None, path="/metrics",
+                ready=None):
+    """(native body, port body) of one scrape of each ``--fake`` agent at
+    one frozen epoch, with the same extra arguments; with ``ready``, each
+    agent is scraped again (for up to 10 s) until ``ready(body)``."""
+
+    out = {}
+    for side, cmd in (("native", [native_agent()]), ("port", PORT_AGENT)):
+        proc, port = prom_agent(cmd, str(tmp_path / f"{side}.sock"),
+                                "--fake", "--fake-chips", chips,
+                                "--fake-epoch", repr(FROZEN), *args, env=env)
+        try:
+            deadline = time.monotonic() + 10.0
+            while True:
+                status, out[side] = http_get(port, path)
+                assert status == 200, (side, status)
+                if ready is None or ready(out[side]) or \
+                        time.monotonic() > deadline:
+                    break
+                time.sleep(0.2)
+        finally:
+            stop_agent(proc)
+    return out["native"], out["port"]
+
+
+def test_prom_scrape_serves_the_catalog_like_the_native_agent(tmp_path):
+    import re
+
+    from tpumon_torch import fields as FF
+
+    native, body = scrape_both(tmp_path)
+    same_scrape(native, body)
+    served = {ln.split("{", 1)[0].split(" ", 1)[0]
+              for ln in body.splitlines() if ln and not ln.startswith("#")}
+    scrape = {FF.CATALOG[f].prom_name for f in
+              set(map(int, FF.EXPORTER_BASE_FIELDS))
+              | set(map(int, FF.EXPORTER_PROFILING_FIELDS))
+              | set(map(int, FF.EXPORTER_DCN_FIELDS))}
+    dcn = {FF.CATALOG[int(f)].prom_name for f in FF.EXPORTER_DCN_FIELDS}
+    assert served - scrape - set(AGENT_SELF) == set()
+    assert (scrape - dcn) - served == set()
+    assert set(AGENT_SELF) <= served
+    m = re.search(r"tpumon_agent_scrape_merge_ms ([0-9.]+)", body)
+    assert m and float(m.group(1)) == pytest.approx(0.0, abs=1.0)
+    assert re.search(r'tpu_ici_link_tx_throughput\{.*link="0"\} ', body)
+    # health, exact path matching, 404
+    proc, port = prom_agent(PORT_AGENT, str(tmp_path / "p2.sock"), "--fake")
+    try:
+        assert http_get(port, "/healthz") == (200, "ok\n")
+        for path in ("/nope", "/metricsfoo", "/healthzz"):
+            assert http_get(port, path)[0] == 404, path
+        assert http_get(port, "/metrics?x=1")[0] == 200
+    finally:
+        stop_agent(proc)
+
+
+def _hostile_drop_dir(d):
+    drop = d / "workload.prom"
+    drop.write_text(
+        "# HELP tpu_workload_step_time Embedded workload step time.\n"
+        "# TYPE tpu_workload_step_time gauge\n"
+        'tpu_workload_step_time{chip="0",uuid="GPU-0"} 8432.5\n'
+        "tpu_workload_torn_li\n"
+        "# HELP tpu_power_usage duplicate help\n"
+        'tpu_power_usage{chip="0"} 9999.9\n'
+        'tpumon_agent_merged_files{evil="1"} 7\n')
+    stale = d / "dead.prom"
+    stale.write_text('tpu_workload_dead{chip="0"} 1\n')
+    os.utime(stale, (time.time() - 600, time.time() - 600))
+    os.mkfifo(str(d / "trap.prom"))
+    os.symlink("/dev/zero", str(d / "link.prom"))
+
+
+def test_prom_scrape_merges_textfiles_like_the_native_agent(tmp_path):
+    import re
+
+    d = tmp_path / "drop"
+    d.mkdir()
+    _hostile_drop_dir(d)
+    native, body = scrape_both(tmp_path, "--merge-textfile",
+                               str(d / "*.prom"))
+    same_scrape(native, body)
+    assert 'tpu_workload_step_time{chip="0",uuid="GPU-0"} 8432.5' in body
+    assert "tpu_workload_torn_li\n" not in body
+    assert "duplicate help" not in body and "tpu_workload_dead" not in body
+    assert 'tpu_power_usage{chip="0"} 9999.9' in body
+    lines = body.splitlines()
+    fam = [i for i, ln in enumerate(lines) if ln.startswith("tpu_power_usage{")]
+    assert fam == list(range(fam[0], fam[0] + len(fam)))
+    assert re.search(r"tpumon_agent_merged_files 1\b", body)
+    assert re.search(r"tpumon_agent_merged_series 3\b", body)
+    assert body.index("# HELP tpumon_agent_merged_files") < \
+        body.index('tpumon_agent_merged_files{evil="1"}')
+
+
+def test_prom_scrape_survives_an_echoed_scrape_like_the_native(tmp_path):
+    import re
+
+    _, captured = scrape_both(tmp_path)
+    d = tmp_path / "drop"
+    d.mkdir()
+    (d / "echo.prom").write_text(
+        captured + "# TYPE tpumon_agent_merged_files gauge\n"
+        "tpumon_agent_merged_files 42\n")
+    native, body = scrape_both(tmp_path, "--merge-textfile",
+                               str(d / "*.prom"))
+    same_scrape(native, body)
+    metas = {}
+    for ln in body.splitlines():
+        parts = ln.split(None, 3)
+        if ln.startswith("# ") and len(parts) >= 3:
+            metas[(parts[1], parts[2])] = metas.get((parts[1], parts[2]),
+                                                    0) + 1
+    assert not {k: v for k, v in metas.items() if v > 1}
+    assert "tpumon_agent_merged_files 42" not in body
+    assert re.search(r"tpumon_agent_merged_files 1\b", body)
+
+
+def test_prom_scrape_truncates_an_oversized_drop_like_the_native(tmp_path):
+    import re
+
+    d = tmp_path / "drop"
+    d.mkdir()
+    with open(d / "big.prom", "w") as f:
+        for i in range(200_000):               # ~5.3 MiB of samples
+            f.write(f'tpu_workload_big{{i="{i}"}} {i}\n')
+    native, body = scrape_both(tmp_path, "--merge-textfile",
+                               str(d / "*.prom"), "--kmsg", "/nonexistent",
+                               chips="1")
+    same_scrape(native, body)
+    kept = [ln for ln in body.splitlines()
+            if ln.startswith("tpu_workload_big")]
+    assert kept and len(kept) < 200_000
+    pat = re.compile(r'tpu_workload_big\{i="\d+"\} \d+$')
+    assert all(pat.match(ln) for ln in kept), kept[-1]
+    assert sum(len(ln) + 1 for ln in kept) <= (4 << 20)
+
+
+def test_merge_only_mode_without_nvml_like_the_native(tmp_path):
+    """No device library on the host and a merge glob: zero devices, the
+    drop file and the self families (the native agent without libtpu);
+    without the glob both exit 3 naming merge-only mode.  An NVML library
+    that loads and fails is never masked: exit 3 even with the glob."""
+
+    d = tmp_path / "drop"
+    d.mkdir()
+    (d / "embed.prom").write_text(
+        "# HELP tpu_step_time Embedded step time.\n"
+        "# TYPE tpu_step_time gauge\n"
+        'tpu_step_time{chip="0",uuid="GPU-0"} 1234.5\n')
+    env = agent_env(TPUMON_LIBTPU_PATH="/nonexistent/libtpu.so",
+                    TPUMON_SHIM_SYSFS_ROOT=str(tmp_path),
+                    TPUMON_SHIM_DEV_ROOT=str(tmp_path),
+                    TPUMON_NVML_PATH=str(tmp_path / "no-nvml.so"))
+    bodies = {}
+    for side, cmd in (("native", [native_agent()]), ("port", PORT_AGENT)):
+        proc, port = prom_agent(cmd, str(tmp_path / f"{side}.sock"),
+                                "--merge-textfile", str(d / "*.prom"),
+                                "--kmsg", "/nonexistent", env=env)
+        try:
+            status, bodies[side] = http_get(port, "/metrics")
+            assert status == 200
+            # no device: the liveness probe fails, as the native's does
+            assert http_get(port, "/healthz")[0] == 503
+        finally:
+            stop_agent(proc)
+        r = subprocess.run(cmd + ["--domain-socket",
+                                  str(tmp_path / f"{side}2.sock"),
+                                  "--kmsg", "/nonexistent"],
+                           capture_output=True, text=True, timeout=60,
+                           env=env, cwd=REPO)
+        assert r.returncode == 3 and "merge-only" in r.stderr, side
+    same_scrape(bodies["native"], bodies["port"])
+    body = bodies["port"]
+    assert 'tpu_step_time{chip="0",uuid="GPU-0"} 1234.5' in body
+    assert "tpumon_agent_merged_files 1" in body
+    assert "tpu_power_usage" not in body
+    # a library that loads but is not NVML: still exit 3
+    r = subprocess.run(PORT_AGENT + [
+        "--domain-socket", str(tmp_path / "p3.sock"), "--merge-textfile",
+        str(d / "*.prom")], capture_output=True, text=True, timeout=60,
+        env=agent_env(TPUMON_NVML_PATH="libc.so.6"), cwd=REPO)
+    assert r.returncode == 3 and "no metric source" in r.stderr
+
+
+def test_prom_scrape_splices_pod_labels_like_the_native(tmp_path):
+    """``--kubelet-socket`` over the port's fake kubelet
+    (``tests/test_torch_pod.py``): both agents label card 1 by its uuid
+    with the pod of the resource asked for, and no other card."""
+
+    from test_torch_pod import _fake_kubelet
+    from tpumon_torch.exporter import podresources as TR
+
+    server, sock = _fake_kubelet(TR.encode_pod_resources([
+        ("train-abc", "ml", [("worker", "example.com/gpu",
+                              ["TPU-agentfake-01"])]),
+        ("other", "default", [("c", "nvidia.com/gpu",
+                               ["TPU-agentfake-00"])])]))
+    try:
+        # the native agent reads the kubelet on a thread of its own: its
+        # first scrapes may come before the first answer
+        native, body = scrape_both(tmp_path, "--kubelet-socket", sock,
+                                   "--pod-resource", "example.com/gpu",
+                                   ready=lambda b: "pod_name=" in b)
+    finally:
+        server.stop(0)
+    same_scrape(native, body)
+    labeled = [ln for ln in body.splitlines() if 'pod_name="' in ln]
+    assert labeled and all(
+        'chip="1",uuid="TPU-agentfake-01",model="TPU v5e",'
+        'pod_name="train-abc",pod_namespace="ml",container_name="worker"'
+        in ln for ln in labeled)
+    assert 'pod_name="other"' not in body
+
+
+def test_kmsg_flag_feeds_the_nvml_source(tmp_path):
+    """``--kmsg FILE`` over the fake NVML built without the event set: an
+    ``NVRM: Xid 79`` line
+    appended while the agent runs gives one event, naming the fake's card
+    on that bus; an unreadable path leaves the watcher silently off."""
+
+    # an NVML without the event set (a VM that refuses it): Xids arrive
+    # by the kernel log alone, which the NVML source then reads
+    cc = shutil.which("cc") or shutil.which("gcc")
+    if cc is None:
+        pytest.skip("no C compiler on this host")
+    lib = str(tmp_path / "libfake_nvml_noevents.so")
+    subprocess.run([cc, "-shared", "-fPIC", "-DOMIT_EVENTS", "-I", TESTLIB,
+                    "-o", lib, os.path.join(TESTLIB, "fake_nvml.c"),
+                    "-lpthread"], check=True, capture_output=True,
+                   timeout=120)
+    kmsg = tmp_path / "kmsg"
+    kmsg.write_text("")
+    env = agent_env(TPUMON_NVML_PATH=lib,
+                    TPUMON_KMSG_PATH=str(tmp_path / "not-this-one"))
+    sock = str(tmp_path / "k.sock")
+    proc = spawn_agent(PORT_AGENT, sock, "--kmsg", str(kmsg), env=env)
+    try:
+        with open(kmsg, "a") as f:
+            f.write("3,1,1,-;NVRM: Xid (PCI:0000:28:00): 79, pid=1, GPU "
+                    "has fallen off the bus.\n")
+        c = Raw(sock)
+        try:
+            deadline = time.monotonic() + 20.0
+            while True:
+                ev = c.ask({"op": "events", "since_seq": 0})["events"]
+                if ev or time.monotonic() > deadline:
+                    break
+                time.sleep(0.1)
+        finally:
+            c.close()
+    finally:
+        stop_agent(proc)
+    assert len(ev) == 1 and ev[0]["chip_index"] == 1
+    assert "Xid" in ev[0]["message"]
+    proc = spawn_agent(PORT_AGENT, str(tmp_path / "k2.sock"), "--kmsg",
+                       str(tmp_path / "missing"), env=env)
+    stop_agent(proc)

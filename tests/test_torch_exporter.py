@@ -157,8 +157,8 @@ def case_malformed_lines_dropped(p):
     assert 'tpu_workload_ok{chip="0"} 1.5' in text
     assert 'tpu_workload_inf{chip="0"} +Inf' in text
     assert "tpu_workload_step_t\n" not in text and "12notanum" not in text
-    port = p.exps["port"]
-    assert (port._merge_files, port._merge_series) == (1, 2)
+    merge = p.exps["port"]._merge
+    assert (merge.files, merge.series) == (1, 2)
 
 
 def case_help_dedup_across_files(p):
@@ -203,8 +203,8 @@ def case_fifo_and_symlink_skipped(p):
 
 
 def case_oversized_truncated_at_line(p):
-    for exp in p.exps.values():
-        exp.MERGE_MAX_BYTES = 1024
+    p.exps["ref"].MERGE_MAX_BYTES = 1024
+    p.exps["port"]._merge.max_bytes = 1024
     p.write("big.prom", "".join(f'tpu_workload_big{{i="{i}"}} {i}\n'
                                 for i in range(200)))
     text = p.sweep()
@@ -227,10 +227,13 @@ def case_same_family_samples_grouped(p):
 
 def case_parse_cache_hit(p):
     parses = []
-    for exp in p.exps.values():
-        real = type(exp)._parse_merge_content
-        exp._parse_merge_content = (
-            lambda content, real=real: parses.append(1) or real(content))
+    ref = p.exps["ref"]
+    real = type(ref)._parse_merge_content
+    ref._parse_merge_content = (
+        lambda content: parses.append(1) or real(content))
+    merge = p.exps["port"]._merge
+    real_port = merge.parse
+    merge.parse = lambda content: parses.append(1) or real_port(content)
     p.write("cached.prom", 'tpu_workload_v{chip="0"} 1\n')
     assert 'tpu_workload_v{chip="0"} 1' in p.sweep()
     assert len(parses) == 2  # one parse a side
@@ -245,10 +248,17 @@ def case_cache_eviction(p):
     p.write("gone.prom", 'tpu_workload_gone{chip="0"} 1\n')
     assert "tpu_workload_gone" in p.sweep()
     for side, d in p.dirs.items():
-        assert str(d / "gone.prom") in p.exps[side]._merge_cache
+        assert str(d / "gone.prom") in _merge_cache(p.exps[side])
         os.unlink(d / "gone.prom")
     assert "tpu_workload_gone" not in p.sweep()
-    assert all(exp._merge_cache == {} for exp in p.exps.values())
+    assert all(_merge_cache(exp) == {} for exp in p.exps.values())
+
+
+def _merge_cache(exp):
+    """The drop-file parse cache of either package's exporter."""
+
+    merge = getattr(exp, "_merge", None)
+    return merge.cache if merge is not None else exp._merge_cache
 
 
 MERGE_CASES = {
@@ -348,18 +358,18 @@ def test_failing_pod_map_keeps_the_sweep(tmp_path, monkeypatch):
     ("blackbox_max_bytes", 1 << 20), ("rules", object()),
     ("ici_per_link_modeled", True)])
 def test_unported_planes_name_item_16b(opt, val, tmp_path):
-    """Each plane option of the reference's exporter: the burst, recorder
-    and anomaly planes (ROADMAP.md item 16b, parts 1-3) now run; the
-    modeled per-link split is still refused, naming its item (item 7).
-    The recorder writes under ``tmp_path``, the rules are a real set."""
+    """Each plane option of the reference's exporter runs: the burst,
+    recorder and anomaly planes (ROADMAP.md item 16b, parts 1-3) and the
+    modeled per-link split (item 7), whose sweep equals the reference
+    exporter's over the same backend (:func:`_modeled_pair`).  The
+    recorder writes under ``tmp_path``, the rules are a real set."""
 
     from tpumon_torch import anomaly as TA
 
     h = tpumon_torch.Handle(_stub_backend(Backend, TT,
                                           {c: _values(c) for c in range(2)}))
     if opt == "ici_per_link_modeled":
-        with pytest.raises(NotImplementedError, match="item 7"):
-            TE.TpuExporter(h, output_path=None, **{opt: val})
+        _modeled_pair()
         return
     if opt == "blackbox_dir":
         val = str(tmp_path / "bb")
@@ -385,6 +395,58 @@ def test_unported_planes_name_item_16b(opt, val, tmp_path):
         assert exp.last_findings
     else:
         assert exp.blackbox is None and "tpumon_blackbox" not in text
+
+
+def _modeled_pair():
+    """``ici_per_link_modeled`` over a backend serving the NVLink aggregate
+    (1200 MB/s on card 0, 0 on card 1) and blank per-link fields, with
+    three NVLink peers a card: the port's sweep equals the reference's,
+    three ``source="modeled"`` links a family a card at a third of the
+    aggregate each; a real per-link value on any card stops the split."""
+
+    from tpumon_torch import fields as TF
+
+    tx, rx = int(TF.F.ICI_TX_THROUGHPUT), int(TF.F.ICI_RX_THROUGHPUT)
+    link_tx, link_rx = int(TF.F.ICI_LINK_TX), int(TF.F.ICI_LINK_RX)
+    values = {c: _values(c) for c in range(2)}
+    for c, agg in ((0, 1200), (1, 0)):
+        values[c].update({tx: agg, rx: agg, link_tx: None, link_rx: None})
+
+    def with_topology(base, types_mod):
+        stub = _stub_backend(base, types_mod, values)
+
+        def topology(index):
+            links = [types_mod.P2PLink(
+                chip_index=i, bus_id="",
+                link=types_mod.P2PLinkType.ICI_NEIGHBOR, hops=1)
+                for i in range(3)]
+            return types_mod.TopologyInfo(
+                coords=types_mod.ChipCoords(x=index), links=links)
+
+        stub.topology = topology
+        return stub
+
+    exps = {side: mod.TpuExporter(handle(with_topology(base, types_mod)),
+                                  output_path=None, ici_per_link_modeled=True)
+            for side, mod, handle, base, types_mod in (
+                ("ref", JE, tpumon.Handle, JaxBackend, JT),
+                ("port", TE, tpumon_torch.Handle, Backend, TT))}
+    try:
+        texts = {k: e.sweep(now=T0) for k, e in exps.items()}
+        assert without_timings(texts["port"]) == \
+            without_timings(texts["ref"])
+        lines = [ln for ln in texts["port"].splitlines()
+                 if 'source="modeled"' in ln]
+        assert len(lines) == 2 * 2 * 3  # tx/rx x cards x links
+        assert sum(ln.endswith(" 400.000") for ln in lines) == 6
+        values[1][link_tx] = [5.0]
+        texts = {k: e.sweep(now=T0 + 1) for k, e in exps.items()}
+        assert without_timings(texts["port"]) == \
+            without_timings(texts["ref"])
+        assert 'source="modeled"' not in texts["port"]
+    finally:
+        for e in exps.values():
+            e.stop()
 
 
 # ---- HTTP --------------------------------------------------------------------
@@ -805,25 +867,16 @@ def test_wait_for_gpu_gives_up_within_its_bound(cli_env, tmp_path):
     ["--connect", "unix:/tmp/agent.sock"], ["--start-agent"]])
 def test_unported_plane_flags_exit_naming_item_16b(flag, capsys, cli_env,
                                                    tmp_path):
-    """Each plane flag of the reference's CLI: ``--burst``,
+    """Each plane flag of the reference's CLI runs: ``--burst``,
     ``--burst-hz``, ``--blackbox-dir``, ``--blackbox-max-bytes``,
-    ``--rules`` and ``--stream-port`` now run (over the fake NVML; the
-    recorder under ``tmp_path``, a real rules file; ``--oneshot`` returns
-    before the stream plane binds, as in the reference); the agent run
-    modes serve and scrape (:func:`_serve_through_an_agent`);
-    ``--ici-per-link-modeled`` exits 1 naming item 7."""
-
-    from tpumon_torch.exporter import main
+    ``--rules``, ``--stream-port`` and ``--ici-per-link-modeled`` (over
+    the fake NVML; the recorder under ``tmp_path``, a real rules file;
+    ``--oneshot`` returns before the stream plane binds, as in the
+    reference); the agent run modes serve and scrape
+    (:func:`_serve_through_an_agent`)."""
 
     if flag[0] in ("--connect", "--start-agent"):
         _serve_through_an_agent(flag[0], cli_env, tmp_path)
-        return
-    refused = {"--ici-per-link-modeled": "ROADMAP.md, Queue 1, item 7"}
-    if flag[0] in refused:
-        with pytest.raises(SystemExit) as e:
-            main.main([*flag, "--oneshot", "-o", "none"])
-        assert e.value.code == 1
-        assert refused[flag[0]] in capsys.readouterr().err
         return
     bb = tmp_path / "bb"
     rules = tmp_path / "rules.yaml"
@@ -847,7 +900,11 @@ def test_unported_plane_flags_exit_naming_item_16b(flag, capsys, cli_env,
             r'^tpumon_anomaly_findings_total\{[^}]*rule="warm"\} 2$',
             r.stdout, re.M) is not None,
         "--stream-port": lambda: fams.get("tpu_power_usage") == 2 and
-        "tpumon_stream_subscribers" not in fams}
+        "tpumon_stream_subscribers" not in fams,
+        # NVML serves no NVLink aggregate here (nor on the H100): the
+        # split has nothing to divide, and nothing is invented
+        "--ici-per-link-modeled": lambda: 'source="modeled"' not in
+        r.stdout and fams.get("tpu_ici_links_up") == 2}
     assert want[flag[0]](), r.stdout[-3000:]
 
 

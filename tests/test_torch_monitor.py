@@ -397,6 +397,9 @@ class _StubEngine:
     def stats(self):
         return dict(self._stats)
 
+    def latest(self):
+        return {}
+
     def poll(self):
         self.polls += 1
 
@@ -569,8 +572,9 @@ def test_exporter_families_match_reference_exporter():
 
 
 def test_exporter_refuses_unported_planes(tmp_path):
-    """What is still unported is refused by name: the modeled per-link
-    split (ROADMAP.md item 7).  The burst, recorder and anomaly planes
+    """Nothing of the reference exporter's planes is refused any more: the
+    modeled per-link split (ROADMAP.md item 7) runs over a backend without
+    topology and splits nothing.  The burst, recorder and anomaly planes
     run (their byte-for-byte cases are in ``tests/test_torch_exporter.py``),
     and so do the stream plane (``tests/test_torch_stream.py``), the
     textfile merge, the enricher and pod attribution; ``anomaly_kmsg``
@@ -583,8 +587,11 @@ def test_exporter_refuses_unported_planes(tmp_path):
 
     h = tpumon_torch.Handle(_stub_backend(
         Backend, TT, {c: _values(c) for c in range(2)}))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TpuExporter(h, ici_per_link_modeled=True)
+    modeled = TpuExporter(h, output_path=None, ici_per_link_modeled=True)
+    try:
+        assert 'source="modeled"' not in modeled.sweep()
+    finally:
+        modeled.stop()
     rules = Rules.from_dict({"version": 1, "detectors": [
         {"name": "any", "field": 203, "type": "threshold", "above": -1}]})
     planes = TpuExporter(h, output_path=None, burst_hz=50,
@@ -697,10 +704,17 @@ def test_runner_cli_on_cpu():
 @pytest.mark.parametrize("pattern", ["ringattn", "allreduce", "dcn", "pp",
                                      "moe"])
 def test_runner_refuses_unported_patterns(capsys, pattern):
+    """No pattern is refused any more: each multi-device one runs in a
+    1-rank gloo group in this process (the group torn down after)."""
+
+    import torch.distributed as dist
+
     from tpumon_torch.loadgen import run
-    with pytest.raises(SystemExit):
-        run.main(["--pattern", pattern, "--device", "cpu"])
-    assert "not yet ported" in capsys.readouterr().err
+    assert run.main(["--pattern", pattern, "--device", "cpu", "--seconds",
+                     "0.05", "--json"]) == 0
+    d = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert d["pattern"] == pattern and d["steps"] >= 1
+    assert not dist.is_initialized()
 
 
 def test_runner_never_falls_back_to_cpu(monkeypatch):

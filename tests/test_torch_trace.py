@@ -56,10 +56,13 @@ def _two_torch_threads():
 # ---- the capability table --------------------------------------------------
 
 def test_gpu_caps_table():
-    assert gpu_caps(H100) == (80 * 1024, 3350.0, 989.0)
+    # NVLink totals from the data sheets: the SXM5 part, the NVL's
+    # bridge, none on the PCIe card
+    assert gpu_caps(H100) == (80 * 1024, 3350.0, 989.0, 900.0)
     assert gpu_caps("NVIDIA H100 PCIe").bf16_tflops == 756.0
     assert gpu_caps("NVIDIA H100 PCIe").hbm_gbps == 2000.0
-    assert gpu_caps("NVIDIA H100 NVL") == (94 * 1024, 3900.0, 835.0)
+    assert gpu_caps("NVIDIA H100 PCIe").nvlink_gbps is None
+    assert gpu_caps("NVIDIA H100 NVL") == (94 * 1024, 3900.0, 835.0, 600.0)
     assert gpu_caps("NVIDIA A100-SXM4-80GB") is None
     assert len(GPU_CAPS) == 3
 

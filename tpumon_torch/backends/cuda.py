@@ -27,8 +27,14 @@ Sources, per field:
   ``PROF_STEP_TIME`` is the real step-time EWMA, and the trace engine
   closes a capture the stepping thread holds as soon as its window ends.
 
-The ICI/DCN traffic and HBM read/write families stay blank under the nil
-convention until the NCCL attribution is ported.
+* the collective attribution (:mod:`tpumon_torch.collectives`, read by
+  the trace engine) — ``tpu_ici_tx/rx_throughput`` (ICI is NVLink here):
+  the bytes the window's collectives moved, a measured 0 when it held
+  none, clamped to the card's NVLink ceiling; the DCN families once the
+  workload registers a slice axis (:meth:`CudaBackend.set_slice_axis`).
+
+The per-link NVLink and the HBM read/write families stay blank under the
+nil convention: the profiler counts neither.
 
 ``torch`` is imported lazily at ``open()``.
 """
@@ -342,11 +348,50 @@ class CudaBackend(Backend):
             return []
         return self._trace.capture_spans()
 
-    def attribution_stats(self) -> Optional[Dict[str, object]]:
-        """The wire-byte attribution's cross-check: None until the NCCL
-        attribution is ported."""
+    def set_slice_axis(self, n_slices: int) -> None:
+        """Register the job's slice count (the counterpart of the
+        reference's ``set_participant_slices``): with more than one, the
+        bytes of the groups that cross slices are served as DCN."""
 
-        return None
+        self._engine().set_slices(n_slices)
+
+    def attribution_stats(self) -> Optional[Dict[str, object]]:
+        """Latest wire-byte-attribution cross-check per device (the
+        reference's keys, and the collective events read and bytes
+        attributed): None before any trace sample exists."""
+
+        if self._trace is None:
+            return None
+        latest = self._trace.latest()
+        if not latest:
+            return None
+        out: Dict[str, object] = {}
+        for idx, s in sorted(latest.items()):
+            eligible = s.gate_eligible_bytes
+            # a window with no collective bytes checks nothing: "not
+            # exercised", never a pass; bytes under an unknown ceiling ran
+            # neither gate
+            gate = ("suspect" if s.attribution_suspect
+                    else "not_exercised" if not eligible
+                    else "clean" if s.attribution_consistency is not None
+                    else "unavailable")
+            out[str(idx)] = {
+                "ici_mb_per_s": (round(s.ici_bytes_per_s / 1e6, 1)
+                                 if s.ici_bytes_per_s is not None else None),
+                "dcn_mb_per_s": (round(s.dcn_bytes_per_s / 1e6, 1)
+                                 if s.dcn_bytes_per_s is not None else None),
+                "ici_ceiling_gbps": s.ici_ceiling_gbps,
+                "consistency": (round(s.attribution_consistency, 4)
+                                if s.attribution_consistency is not None
+                                else None),
+                "suspect": s.attribution_suspect,
+                "gate_eligible_bytes": eligible,
+                "gate": gate,
+                "collective_events": s.collective_events,
+                "ici_bytes": (round(s.ici_bytes_per_s * s.window_s)
+                              if s.ici_bytes_per_s is not None else None),
+            }
+        return out
 
     def self_metric_lines(self, label: str = "") -> List[str]:
         """Exporter hook: trace-engine health as scrape families (the
@@ -493,6 +538,25 @@ class CudaBackend(Backend):
                 if (tr is not None and tr.achieved_tflops is not None
                         and peak_tf):
                     v = min(1.0, tr.achieved_tflops / peak_tf)
+            elif fid in (int(F.ICI_TX_THROUGHPUT),
+                         int(F.ICI_RX_THROUGHPUT)):
+                # the window's collective bytes (ring traffic is symmetric,
+                # tx == rx), a measured 0 without collectives, clamped to
+                # the NVLink ceiling: a rate no link could carry is an
+                # attribution fault (tpumon_trace_attribution_suspect)
+                if tr is not None and tr.ici_bytes_per_s is not None:
+                    v = int(round(tr.ici_bytes_per_s / 1e6))
+                    if tr.ici_ceiling_gbps:
+                        v = min(v, int(tr.ici_ceiling_gbps * 1000))
+            elif fid in (int(F.DCN_TX_THROUGHPUT),
+                         int(F.DCN_RX_THROUGHPUT)):
+                if tr is not None and tr.dcn_bytes_per_s is not None:
+                    v = int(round(tr.dcn_bytes_per_s / 1e6))
+            elif fid == int(F.DCN_TRANSFER_LATENCY):
+                # the mean host span of the window's cross-slice
+                # collectives (field 502 is integer microseconds)
+                if tr is not None and tr.dcn_op_latency_us is not None:
+                    v = int(round(tr.dcn_op_latency_us))
             elif fid == int(F.PROF_VECTOR_ACTIVE) and tr is not None:
                 v = tr.vector_frac       # trace-only: probes can't see it
             elif fid == int(F.PROF_INFEED_STALL) and tr is not None:

@@ -252,6 +252,8 @@ class BurstSampler:
         self._fold_seq = 0
         self._overruns = 0
         self._stop = threading.Event()
+        #: set once the loop's first burst has folded (see :meth:`start`)
+        self._first = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._last_harvest_t: Optional[float] = None
         self._last_harvest: Dict[int, Dict[int, FieldValue]] = {}
@@ -265,6 +267,11 @@ class BurstSampler:
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="tpumon-burst")
         self._thread.start()
+        # the first burst folds before the caller's first harvest: a sweep
+        # right after the start (``--oneshot``) reads that sample instead
+        # of racing the thread for it (bounded: a wedged source only
+        # delays the start)
+        self._first.wait(max(1.0, 2.0 / self.hz))
 
     def stop(self) -> None:
         self._stop.set()
@@ -323,6 +330,7 @@ class BurstSampler:
         sample_fn = self._sample_fn
         stop_wait = self._stop.wait
         deadline = time.monotonic() + period
+        first = False
         while not self._stop.is_set():
             t = time.monotonic()
             try:
@@ -348,6 +356,9 @@ class BurstSampler:
                     if isinstance(v, (int, float)):
                         fold(chip, fid, t, v)
             self._fold_seq += 1
+            if not first:
+                self._first.set()
+                first = True
             now = time.monotonic()
             if now > deadline + period:
                 # missed at least one whole period: count every missed

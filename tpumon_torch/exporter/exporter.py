@@ -21,9 +21,10 @@ set_stream_publisher`, :mod:`tpumon_torch.frameserver`) tees the same
 snapshot and findings to its subscribers.  A plane that cannot start
 fails the constructor.
 
-Not ported yet, and refused when asked for: the modeled per-link ICI
-split (ROADMAP.md, Queue 1, item 7).  There is no native codec: the
-render is the pure-Python path (``tpumon_codec_native 0``).
+``ici_per_link_modeled`` splits the measured NVLink aggregate (the
+collective attribution) evenly over the card's NVLink peers, labeled
+``source="modeled"``.  There is no native codec: the render is the
+pure-Python path (``tpumon_codec_native 0``).
 
 Importing this module, and running the daemon over the NVML backend,
 never imports ``torch``.
@@ -35,11 +36,10 @@ import gzip
 import os
 import queue
 import re
-import stat
 import threading
 import time
 from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
-                    Set, Tuple)
+                    Tuple)
 
 from .. import fields as FF
 from .. import log
@@ -48,6 +48,7 @@ from ..httputil import TextHTTPServer, accepts_gzip
 from ..introspect import SelfMonitor
 from .promtext import (SweepRenderer, atomic_write, render_family,
                        render_family_samples)
+from .textmerge import TextfileMerge, index_lines, splice_lines
 
 F = FF.F
 
@@ -97,10 +98,6 @@ def select_chips(all_chips: Sequence[int],
     return list(all_chips)
 
 
-#: the modeled per-link ICI split waits for NCCL attribution
-MODELED_LINKS_ITEM = "ROADMAP.md, Queue 1, item 7"
-
-
 class TpuExporter:
     """Owns the watch, the sweep loop, and the rendered output."""
 
@@ -141,10 +138,6 @@ class TpuExporter:
         ``tpumon_anomaly_*``/``tpumon_incident_*`` families and as 0xB3
         records in the recorder."""
 
-        if ici_per_link_modeled:
-            raise NotImplementedError(
-                "exporter option 'ici_per_link_modeled' is not ported to "
-                f"tpumon_torch yet ({MODELED_LINKS_ITEM})")
         if interval_ms < MIN_INTERVAL_MS:
             raise ValueError(
                 f"interval {interval_ms} ms below the {MIN_INTERVAL_MS} ms "
@@ -182,6 +175,26 @@ class TpuExporter:
             info = handle.chip_info(c)
             self._labels[c] = {"chip": str(c), "uuid": info.uuid,
                                "model": info.name}
+
+        # modeled split requires the per-link fields to be IN the sweep:
+        # otherwise "real source exists but wasn't collected" would be
+        # indistinguishable from "collected and blank", and synthesis
+        # could shadow genuine hardware counters
+        self._ici_modeled = bool(ici_per_link_modeled) and \
+            {int(F.ICI_LINK_TX), int(F.ICI_LINK_RX)} <= self._fid_set
+        #: chip -> NVLink peer count, gathered once (topology is static);
+        #: 0/missing disables the modeled split for that chip
+        self._neighbor_links: Dict[int, int] = {}
+        if self._ici_modeled:
+            from ..types import P2PLinkType
+            for c in self.chips:
+                try:
+                    topo = handle.topology(c)
+                    self._neighbor_links[c] = sum(
+                        1 for l in topo.links
+                        if l.link is P2PLinkType.ICI_NEIGHBOR)
+                except Exception:  # noqa: BLE001 — no topology: no model
+                    self._neighbor_links[c] = 0
 
         self._fg = handle.watches.create_field_group(field_ids, "exporter")
         self._cg = handle.watches.create_chip_group(self.chips, "exporter")
@@ -242,19 +255,13 @@ class TpuExporter:
             # the backend's GPU bus map: kmsg evidence names the card
             self.anomaly = AnomalyEngine(rules, handle.backend.bus_index())
 
-        self._merge_globs = list(merge_globs or [])
-        self._merge_max_age = merge_max_age_s
-        self._merge_files = 0
-        self._merge_series = 0
-        self._merged_families: Set[str] = set()
+        #: the drop-file merge (:mod:`.textmerge`); its glob may match
+        #: this exporter's own output, which is never merged back in
+        self._merge = TextfileMerge(merge_globs or [], merge_max_age_s,
+                                    exclude=output_path)
         self._self_mon = SelfMonitor()
         self._host_label = f'host="{os.uname().nodename}"'
         self._not_idle_since: Dict[int, Optional[float]] = {}
-        #: drop-file parse cache: path -> ((mtime_ns, size, inode),
-        #: parsed entries) — an unchanged workload drop file costs a
-        #: stat per sweep, not a re-parse
-        self._merge_cache: Dict[str, Tuple[Tuple[int, int, int],
-                                           List[tuple]]] = {}
         self._lock = threading.Lock()
         self._last_bytes = b""
         #: gzip variant of the published body, compressed at most once
@@ -417,6 +424,57 @@ class TpuExporter:
             if any(base.get(k) != v for k, v in new.items()):
                 base.update(new)
 
+    def _modeled_link_lines(self, per_chip) -> List[str]:
+        """Opt-in per-link split of the measured NVLink aggregate
+        (``tpumon/exporter/exporter.py`` ``_modeled_link_lines``).
+
+        Emitted only for cards whose backend left the per-link fields
+        BLANK while serving an aggregate (embedded mode); every sample
+        carries ``source="modeled"``.  The split is even across the card's
+        NVLink peers, the balanced-ring assumption the attributed
+        collectives make.  If any card has a real per-link source this
+        sweep, synthesis is skipped entirely, and so it is when per-link
+        series arrive in a merged drop file (one sweep late: the merge
+        runs after the render)."""
+
+        from .promtext import _escape_label
+
+        link_tx, link_rx = int(F.ICI_LINK_TX), int(F.ICI_LINK_RX)
+        agg_by_fid = {link_tx: int(F.ICI_TX_THROUGHPUT),
+                      link_rx: int(F.ICI_RX_THROUGHPUT)}
+        if any(per_chip.get(c, {}).get(f) is not None
+               for c in self.chips for f in (link_tx, link_rx)):
+            return []
+        if {FF.CATALOG[link_tx].prom_name,
+                FF.CATALOG[link_rx].prom_name} & self._merge.families:
+            return []
+        out: List[str] = []
+        for fid, agg_fid in agg_by_fid.items():
+            meta = FF.CATALOG[fid]
+            wrote_header = False
+            for c in self.chips:
+                agg = per_chip.get(c, {}).get(agg_fid)
+                links = self._neighbor_links.get(c, 0)
+                if agg is None or links <= 0:
+                    continue
+                if not wrote_header:
+                    out.append(f"# HELP {meta.prom_name} {meta.help} "
+                               f"(source=modeled: even split of the "
+                               f"measured aggregate)")
+                    out.append(f"# TYPE {meta.prom_name} "
+                               f"{meta.ftype.value}")
+                    wrote_header = True
+                labels = ",".join(
+                    f'{k}="{_escape_label(str(v))}"'
+                    for k, v in self._labels[c].items())
+                share = float(agg) / links
+                for i in range(links):
+                    out.append(
+                        f'{meta.prom_name}{{{labels},'
+                        f'{meta.vector_label}="{i}",source="modeled"}} '
+                        f"{share:.3f}")
+        return out
+
     # -- one sweep ------------------------------------------------------------
 
     def sweep(self, now: Optional[float] = None) -> str:
@@ -544,11 +602,13 @@ class TpuExporter:
             t1 = t1s
 
         extra = self._self_metrics()
+        if self._ici_modeled:
+            extra = list(extra) + self._modeled_link_lines(per_chip)
         if self._enricher is None:
             # hot path: delta-aware bytes render; the merge works from
             # the renderer's series index instead of re-parsing the text
             parts = self.renderer.render_parts(per_chip, self._labels)
-            if self._merge_globs:
+            if self._merge.globs:
                 t2 = time.monotonic()
                 phases["render"] = t2 - t1
                 body = self._merge_textfiles_parts(parts, extra, t)
@@ -573,8 +633,8 @@ class TpuExporter:
                                "unenriched metrics: %r", e)
             t2 = time.monotonic()
             phases["render"] = t2 - t1
-            if self._merge_globs:
-                text = self._merge_textfiles(text, t)
+            if self._merge.globs:
+                text = self._merge.merge_text(text, t)
             body = text.encode("utf-8")
         t3 = time.monotonic()
         phases["merge"] = t3 - t2
@@ -596,271 +656,6 @@ class TpuExporter:
 
     # -- textfile merge (node-exporter textfile-collector role) ---------------
 
-    _VALUE_RE = re.compile(
-        r"^[+-]?(?:Inf|NaN|[0-9]*\.?[0-9]+(?:[eE][+-]?[0-9]+)?)$")
-    _TS_RE = re.compile(r"^[+-]?[0-9]+$")
-
-    @classmethod
-    def _parse_sample(cls, ln: str) -> Optional[str]:
-        """Validate one exposition sample line -> its series identity
-        (name + label set), or None if malformed.
-
-        Quote-aware: label values may legally contain ``{``/``}``/spaces,
-        so the label section ends at the first unquoted ``}``.  Torn
-        writes and garbage return None and are dropped per line — one
-        bad file must not poison the whole scrape."""
-
-        n = len(ln)
-        if not n or not (ln[0].isalpha() or ln[0] in "_:"):
-            return None
-        i = 1
-        while i < n and (ln[i].isalnum() or ln[i] in "_:"):
-            i += 1
-        sid_end = i
-        if i < n and ln[i] == "{":
-            i += 1
-            in_q = False
-            esc = False
-            while i < n:
-                c = ln[i]
-                if esc:
-                    esc = False
-                elif c == "\\":
-                    esc = True
-                elif c == '"':
-                    in_q = not in_q
-                elif c == "}" and not in_q:
-                    break
-                i += 1
-            if i >= n:
-                return None  # unterminated label set (torn write)
-            i += 1
-            sid_end = i
-        if i >= n or ln[i] not in " \t":
-            return None
-        parts = ln[i:].split()
-        if not parts or len(parts) > 2:
-            return None
-        if not cls._VALUE_RE.match(parts[0]):
-            return None
-        if len(parts) == 2 and not cls._TS_RE.match(parts[1]):
-            return None
-        return ln[:sid_end]
-
-    @classmethod
-    def _series_id(cls, line: str) -> str:
-        """Series identity of a known-good sample line (base text)."""
-
-        sid = cls._parse_sample(line)
-        if sid is not None:
-            return sid
-        brace = line.find("}")
-        if brace >= 0:
-            return line[:brace + 1]
-        return line.split(None, 1)[0]
-
-    #: per-file byte cap for merged textfiles: the drop dir is
-    #: workload-writable, and a multi-GB file must not be slurped whole
-    #: into the sweep loop
-    MERGE_MAX_BYTES = 4 << 20
-
-    def _read_merge_file(self, path: str) -> Optional[str]:
-        """Bounded, non-blocking read of one workload drop file.
-
-        O_NONBLOCK so a FIFO cannot park the sweep loop in open(2),
-        O_NOFOLLOW + S_ISREG so a symlink (to /dev/zero, say) is skipped,
-        and a hard byte cap with the truncated tail cut at a line
-        boundary.  Returns None when the file should be skipped."""
-
-        flags = os.O_RDONLY | getattr(os, "O_NONBLOCK", 0) | \
-            getattr(os, "O_NOFOLLOW", 0)
-        fd = os.open(path, flags)
-        try:
-            st = os.fstat(fd)
-            if not stat.S_ISREG(st.st_mode):
-                log.warn_every("exporter.merge.notreg", 60.0,
-                               "merge path %s is not a regular file "
-                               "(mode %o); skipped", path, st.st_mode)
-                return None
-            chunks: List[bytes] = []
-            remaining = self.MERGE_MAX_BYTES + 1
-            while remaining > 0:
-                chunk = os.read(fd, min(remaining, 1 << 20))
-                if not chunk:
-                    break
-                chunks.append(chunk)
-                remaining -= len(chunk)
-            data = b"".join(chunks)
-        finally:
-            os.close(fd)
-        if len(data) > self.MERGE_MAX_BYTES:
-            cut = data.rfind(b"\n", 0, self.MERGE_MAX_BYTES)
-            data = data[:cut + 1 if cut >= 0 else 0]
-            log.warn_every("exporter.merge.truncated", 60.0,
-                           "merge textfile %s exceeds %d bytes; "
-                           "truncated", path, self.MERGE_MAX_BYTES)
-        return data.decode("utf-8", "replace")
-
-    @classmethod
-    def _parse_merge_content(cls, content: str) -> List[tuple]:
-        """Classify one drop file's lines once; the result is cached on
-        the file's stat signature.
-
-        Entry shapes: ``("m", kind, family, line)`` HELP/TYPE metadata,
-        ``("c", line)`` other comment, ``("s", sid, family, line)``
-        valid sample, ``("x",)`` malformed (counted as dropped when
-        applied)."""
-
-        entries: List[tuple] = []
-        for ln in content.splitlines():
-            if ln.startswith("#"):
-                parts = ln.split(None, 3)
-                if len(parts) >= 3 and parts[1] in ("HELP", "TYPE"):
-                    entries.append(("m", parts[1], parts[2], ln))
-                else:
-                    entries.append(("c", ln))
-                continue
-            if not ln.strip():
-                continue
-            sid = cls._parse_sample(ln)
-            if sid is None:
-                entries.append(("x",))
-                continue
-            entries.append(("s", sid, sid.split("{", 1)[0], ln))
-        return entries
-
-    def _load_merge_files(self, now: float) -> Tuple[int, List[List[tuple]]]:
-        """Fresh drop files' parsed entries, with the parse cached on
-        ``(path, mtime_ns, size, inode)``."""
-
-        import glob as _glob
-
-        files = 0
-        out: List[List[tuple]] = []
-        seen_paths: Set[str] = set()
-        for pattern in self._merge_globs:
-            for path in sorted(_glob.glob(pattern)):
-                if self.output_path and \
-                        os.path.abspath(path) == os.path.abspath(
-                            self.output_path):
-                    continue  # never merge our own output back in
-                try:
-                    st = os.stat(path, follow_symlinks=False)
-                    if not stat.S_ISREG(st.st_mode):
-                        # FIFO/symlink planted in the workload-writable
-                        # drop dir: never even open it
-                        log.warn_every("exporter.merge.notreg", 60.0,
-                                       "merge path %s is not a regular "
-                                       "file (mode %o); skipped",
-                                       path, st.st_mode)
-                        continue
-                    age = now - st.st_mtime
-                    if age > self._merge_max_age:
-                        log.warn_every("exporter.merge.stale", 60.0,
-                                       "stale textfile %s (%.0fs old) "
-                                       "skipped", path, age)
-                        continue
-                    sig = (st.st_mtime_ns, st.st_size, st.st_ino)
-                    cached = self._merge_cache.get(path)
-                    if cached is not None and cached[0] == sig:
-                        entries = cached[1]
-                    else:
-                        content = self._read_merge_file(path)
-                        if content is None:
-                            continue
-                        entries = self._parse_merge_content(content)
-                        self._merge_cache[path] = (sig, entries)
-                except OSError as e:
-                    log.warn_every("exporter.merge.read", 60.0,
-                                   "merge textfile %s unreadable: %r",
-                                   path, e)
-                    continue
-                seen_paths.add(path)
-                files += 1
-                out.append(entries)
-        # evict entries whose file left the glob (pod churn names drop
-        # files by pod UID — the cache must not grow without bound)
-        for path in [p for p in self._merge_cache if p not in seen_paths]:
-            del self._merge_cache[path]
-        return files, out
-
-    def _apply_merge(self, series: Set[str], decl: Set[str],
-                     files_entries: List[List[tuple]],
-                     ) -> Tuple[Dict[str, List[str]], List[str]]:
-        """Dedup parsed drop-file entries against the base exposition's
-        series/family index.  Returns ``(by_family, tail_lines)``:
-        merged samples joining a family the base already emits land
-        inside that family's block; everything else appends."""
-
-        by_family: Dict[str, List[str]] = {}
-        tail_lines: List[str] = []
-        seen_meta: Set[Tuple[str, str]] = set()  # (kind, family)
-        merged_fams: Set[str] = set()
-        merged = 0
-        dropped = 0
-        for entries in files_entries:
-            for e in entries:
-                kind = e[0]
-                if kind == "s":
-                    _, sid, fam, ln = e
-                    if sid in series:
-                        continue  # exporter's own sample wins
-                    series.add(sid)
-                    merged += 1
-                    merged_fams.add(fam)
-                    if fam in decl:
-                        by_family.setdefault(fam, []).append(ln)
-                    else:
-                        tail_lines.append(ln)
-                elif kind == "m":
-                    # a family the base text already declared or sampled
-                    # keeps ITS metadata; across merged files the first
-                    # (kind, family) wins
-                    _, mkind, fam, ln = e
-                    key = (mkind, fam)
-                    if fam in decl or key in seen_meta:
-                        continue
-                    seen_meta.add(key)
-                    tail_lines.append(ln)
-                elif kind == "c":
-                    tail_lines.append(e[1])
-                else:
-                    dropped += 1
-        if dropped:
-            log.warn_every("exporter.merge.malformed", 60.0,
-                           "%d malformed merge line(s) dropped "
-                           "(non-atomic writer?)", dropped)
-        self._merge_series = merged
-        self._merged_families = merged_fams
-        return by_family, tail_lines
-
-    def _merge_textfiles(self, text: str, now: float) -> str:
-        """Full-text merge (enricher fallback): the base index is
-        re-parsed from the rendered text because an enricher may have
-        rewritten it arbitrarily."""
-
-        series: Set[str] = set()
-        decl: Set[str] = set()  # families declared OR sampled by base
-        for ln in text.splitlines():
-            if ln.startswith("#"):
-                parts = ln.split(None, 3)
-                if len(parts) >= 3 and parts[1] in ("HELP", "TYPE"):
-                    decl.add(parts[2])
-            elif ln.strip():
-                sid = self._series_id(ln)
-                series.add(sid)
-                decl.add(sid.split("{", 1)[0])
-        files, fe = self._load_merge_files(now)
-        by_family, tail_lines = self._apply_merge(series, decl, fe)
-        # reported via self-metrics with one-sweep lag
-        self._merge_files = files
-        if not by_family and not tail_lines:
-            return text
-        out = self._splice_by_family(text, by_family) if by_family else text
-        if tail_lines:
-            out = out + "\n".join(tail_lines) + "\n"
-        return out
-
     def _merge_textfiles_parts(self, parts: List[Tuple[str, bytes]],
                                extra_lines: Sequence[str],
                                now: float) -> bytes:
@@ -868,25 +663,15 @@ class TpuExporter:
         re-parse of the exporter's own exposition; only the per-sweep
         extra-line block is indexed by line walk."""
 
-        files, fe = self._load_merge_files(now)
+        merge = self._merge
+        fe = merge.load(now)
         if not fe:
             # quiet drop dir: merge nothing, pay no index copy
-            self._merge_files, self._merge_series = files, 0
-            self._merged_families = set()
             return self.renderer.compose(parts, extra_lines)
         series = set(self.renderer.series_set)
         decl = {fam for fam, _ in parts}
-        for ln in extra_lines:
-            if ln.startswith("#"):
-                p = ln.split(None, 3)
-                if len(p) >= 3 and p[1] in ("HELP", "TYPE"):
-                    decl.add(p[2])
-            elif ln.strip():
-                sid = self._series_id(ln)
-                series.add(sid)
-                decl.add(sid.split("{", 1)[0])
-        by_family, tail_lines = self._apply_merge(series, decl, fe)
-        self._merge_files = files
+        index_lines(extra_lines, series, decl)
+        by_family, tail_lines = merge.apply(series, decl, fe)
         if not by_family and not tail_lines:
             return self.renderer.compose(parts, extra_lines)
         segs: List[bytes] = []
@@ -900,53 +685,12 @@ class TpuExporter:
         # exactly where the full-text walk would put them
         extra_out = list(extra_lines)
         if by_family:
-            extra_out = self._splice_lines(extra_out, by_family)
+            extra_out = splice_lines(extra_out, by_family)
         if extra_out:
             segs.append("\n".join(extra_out).encode("utf-8"))
         if tail_lines:
             segs.append("\n".join(tail_lines).encode("utf-8"))
         return b"\n".join(segs) + b"\n"
-
-    def _splice_lines(self, lines: List[str],
-                      by_family: Dict[str, List[str]]) -> List[str]:
-        """Insert merged samples at the close of their family's block in
-        a line list, keeping each sample group contiguous; families the
-        base declared but never sampled this sweep append at the end.
-        Consumes ``by_family``."""
-
-        out: List[str] = []
-        cur_fam: Optional[str] = None
-
-        def close_family() -> None:
-            nonlocal cur_fam
-            if cur_fam is not None and cur_fam in by_family:
-                out.extend(by_family.pop(cur_fam))
-            cur_fam = None
-
-        for ln in lines:
-            fam: Optional[str] = None
-            if ln.startswith("#"):
-                parts = ln.split(None, 3)
-                if len(parts) >= 3 and parts[1] in ("HELP", "TYPE"):
-                    fam = parts[2]
-            elif ln.strip():
-                fam = self._series_id(ln).split("{", 1)[0]
-            if fam is not None and fam != cur_fam:
-                close_family()
-                cur_fam = fam
-            out.append(ln)
-        close_family()
-        for rest in by_family.values():
-            out.extend(rest)
-        by_family.clear()
-        return out
-
-    def _splice_by_family(self, text: str,
-                          by_family: Dict[str, List[str]]) -> str:
-        """Full-text splice (enricher fallback path)."""
-
-        return "\n".join(self._splice_lines(text.splitlines(),
-                                            by_family)) + "\n"
 
     def _self_metrics(self) -> List[str]:
         st = self._self_mon.status()
@@ -1149,14 +893,14 @@ class TpuExporter:
                         "Accept-Encoding: gzip scrapers (0 until one "
                         "asks; compressed once per sweep).",
                         lbl, gzbytes, fmt=".0f")
-        if self._merge_globs:
+        if self._merge.globs:
             lines += rf("tpumon_exporter_merged_files", "gauge",
                         "Fresh textfiles merged into the previous sweep.",
-                        lbl, self._merge_files, fmt=".0f")
+                        lbl, self._merge.files, fmt=".0f")
             lines += rf("tpumon_exporter_merged_series", "gauge",
                         "Sample series merged from textfiles in the "
                         "previous sweep.",
-                        lbl, self._merge_series, fmt=".0f")
+                        lbl, self._merge.series, fmt=".0f")
         return lines
 
     def _fetch_agent_introspect(self) -> Optional[Dict[str, float]]:

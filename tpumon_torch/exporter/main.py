@@ -27,9 +27,9 @@ reference: ``--burst-hz HZ`` (the burst inner loop over NVML; implies
 plane); with either of the last two, kernel-log lines ride in through a
 kmsg watcher where ``/dev/kmsg`` can be read.  ``--stream-port P`` serves
 the live stream plane (subscribe with ``python -m tpumon_torch.cli.stream
---connect HOST:P`` or ``GET /stream``).  Flags of what is not ported yet
-exit 1 with a message that names its ROADMAP.md item:
-``--ici-per-link-modeled`` (Queue 1, item 7).
+--connect HOST:P`` or ``GET /stream``).  ``--ici-per-link-modeled``
+serves the per-link NVLink families as an even split of the measured
+aggregate (the collective attribution), labeled ``source="modeled"``.
 """
 
 from __future__ import annotations
@@ -45,7 +45,7 @@ import tpumon_torch
 from .. import log
 from ..cli.common import add_connection_flags, die, init_from_args
 from .exporter import (DEFAULT_OUTPUT, DEFAULT_PORT, MIN_INTERVAL_MS,
-                       MODELED_LINKS_ITEM, MetricsHTTPServer, TpuExporter)
+                       MetricsHTTPServer, TpuExporter)
 
 
 def main(argv=None) -> int:
@@ -96,8 +96,11 @@ def main(argv=None) -> int:
     p.add_argument("--ici-per-link-modeled", action="store_true",
                    default=os.environ.get(
                        "TPUMON_ICI_PER_LINK_MODELED") == "1",
-                   help="modeled per-link split (not ported yet: "
-                        f"{MODELED_LINKS_ITEM})")
+                   help="synthesize per-link NVLink families as an even "
+                        "split of the measured aggregate over the card's "
+                        "NVLink peers, labeled source=\"modeled\" (no "
+                        "real per-link source in embedded mode; off by "
+                        "default)")
     p.add_argument("--blackbox-dir", default=None, metavar="DIR",
                    help="flight recorder: tee every sweep's delta frame "
                         "(plus kmsg lines) into bounded on-disk segments "
@@ -132,9 +135,6 @@ def main(argv=None) -> int:
                         "default 0 fails fast")
     args = p.parse_args(argv)
 
-    if args.ici_per_link_modeled:
-        die(f"--ici-per-link-modeled: the modeled per-link split is not "
-            f"ported to tpumon_torch yet ({MODELED_LINKS_ITEM})")
     if args.delay < MIN_INTERVAL_MS:
         die(f"minimum collect interval is {MIN_INTERVAL_MS} ms")
 
@@ -191,6 +191,8 @@ def main(argv=None) -> int:
                                    output_path=output,
                                    merge_globs=args.merge_textfile,
                                    merge_max_age_s=args.merge_max_age,
+                                   ici_per_link_modeled=(
+                                       args.ici_per_link_modeled),
                                    blackbox_dir=args.blackbox_dir,
                                    blackbox_max_bytes=args.blackbox_max_bytes,
                                    rules=rules)

@@ -36,6 +36,27 @@ integer, a non-finite one as blank.
 backend's ``read_burst_fields`` and serves the derived fields (ids
 ``2000 + 4 * source + agg``) from its 1 s harvests; ``hello`` then carries
 ``burst_hz`` and ``burst_overruns``.
+
+The data plane of a DaemonSet, with no exporter process (the native
+agent's flags, ``native/agent/main.cc:1625-1680``):
+
+* ``--prom-port N`` serves ``/metrics`` and ``/healthz`` over HTTP on every
+  interface (0: a kernel-assigned port, announced on stderr as
+  ``serving /metrics on port N``): every scrape family of the catalog from
+  the watches' cache or a live read, rendered by the port's
+  :mod:`.exporter.promtext` (HELP/TYPE once a family, ``{chip,uuid,model}``
+  labels, blank values omitted), then the agent's self-metrics.
+  ``/healthz`` fails (503) once the source has no device or its first
+  device stops answering.
+* ``--merge-textfile GLOB`` (repeatable) and ``--merge-max-age S``: fresh
+  drop files merged into every scrape (:mod:`.exporter.textmerge`, the
+  exporter's merge).  Without NVML's library on the host, merge globs
+  start merge-only mode: no device, the drop files and the self-metrics.
+  An NVML that is present but fails still exits 3.
+* ``--kubelet-socket PATH`` and ``--pod-resource NAME``: pod labels by GPU
+  UUID from the kubelet's pod-resources API (default ``nvidia.com/gpu``).
+* ``--kmsg PATH``: the kernel log of the NVML source's Xid watcher,
+  silently off where it cannot be read (the fake source reads none).
 """
 
 from __future__ import annotations
@@ -57,14 +78,19 @@ from . import log
 from .backends.agent import DEFAULT_SOCKET
 from .backends.base import (Backend, BackendError, ChipNotFound, FieldValue,
                             LibraryNotFound)
+from .exporter.promtext import SweepRenderer, render_family
+from .exporter.textmerge import TextfileMerge, index_lines, splice_lines
 from .backends.fake import FakeBackend, FakeSliceConfig
 from .burst import BurstSampler
 from .events import Event, EventType
+from .exporter.podresources import DEFAULT_RESOURCE
 from .frameserver import ConnHandler, FrameConn, FrameServer
+from .httputil import TextHTTPServer
 from .introspect import _read_proc_stat
 from .sweepframe import (NUM_INT_LIMIT, SweepFrameEncoder,
                          decode_sweep_request)
-from .types import ChipCoords, ChipInfo, P2PLink, P2PLinkType, TopologyInfo
+from .types import (ChipCoords, ChipInfo, P2PLink, P2PLinkType, TopologyInfo,
+                    VersionInfo)
 from .watch import WatchManager
 
 AGENT_VERSION = "tpumon_torch-hostengine 0.1.0"
@@ -186,6 +212,46 @@ class AgentFakeBackend(FakeBackend):
             mesh_shape=(mx, my), wrap=(mx > 2, my > 2))
 
 
+class EmptySource(Backend):
+    """Merge-only mode's source: no device (the native agent's
+    ``FakeSource(0)``)."""
+
+    name = "none"
+
+    def open(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+    def chip_count(self) -> int:
+        return 0
+
+    def chip_info(self, index: int) -> ChipInfo:
+        raise ChipNotFound(f"no such chip {index}")
+
+    def versions(self) -> VersionInfo:
+        return VersionInfo()
+
+    def read_fields(self, index: int, field_ids: Sequence[int],
+                    now: Optional[float] = None) -> Dict[int, FieldValue]:
+        raise ChipNotFound(f"no such chip {index}")
+
+
+#: the scrape's families: the exporter's base, profiling and DCN sets
+SCRAPE_FIELDS = sorted(set(int(f) for f in (
+    list(FF.EXPORTER_BASE_FIELDS) + list(FF.EXPORTER_PROFILING_FIELDS)
+    + list(FF.EXPORTER_DCN_FIELDS))))
+#: the self families the merge must never take from a drop file
+_AGENT_MERGE_FAMILIES = ("tpumon_agent_merged_files",
+                         "tpumon_agent_merged_series",
+                         "tpumon_agent_scrape_render_ms",
+                         "tpumon_agent_scrape_merge_ms")
+#: how long a scrape's chip labels stand before they are read again (a
+#: card replaced at the same index must not keep its old uuid)
+LABEL_TTL_S = 10.0
+
+
 class WatchSource:
     """The backend as the agent's watches read it (``sampler.hpp``): every
     chip read at the sweep's stamp, numbers only (a blank, string or
@@ -228,8 +294,17 @@ class Engine:
 
     def __init__(self, backend: Backend, *, allow_inject: bool = False,
                  burst_hz: int = 0,
-                 on_term: Optional[Any] = None) -> None:
+                 on_term: Optional[Any] = None,
+                 merge: Optional[TextfileMerge] = None,
+                 pods: Optional[Any] = None) -> None:
         self.backend = backend
+        #: the scrape's drop-file merge (``--merge-textfile``) and pod
+        #: attribution (``--kubelet-socket``)
+        self.merge = merge
+        self.pods = pods
+        self._prom_lock = threading.Lock()
+        self._prom_labels: List[Dict[str, str]] = []
+        self._prom_labels_t = -1e18
         self.allow_inject = allow_inject
         #: agent-side watches: one sweep thread at the fastest watched
         #: rate, age-bounded series every connection reads (``latest``,
@@ -546,6 +621,112 @@ class Engine:
                   if events_since is not None else None)
         return enc.encode_frame(chips, events)
 
+    # -- the Prometheus plane (--prom-port) ------------------------------------
+
+    def _scrape_labels(self, n: int) -> List[Dict[str, str]]:
+        """Each chip's labels, read again when the count changes or
+        :data:`LABEL_TTL_S` has passed: chip, uuid, model and, with pod
+        attribution, the owning pod's."""
+
+        now = time.monotonic()
+        if len(self._prom_labels) == n and \
+                now - self._prom_labels_t <= LABEL_TTL_S:
+            return self._prom_labels
+        self._prom_labels_t = now
+        mapping = self.pods.device_map() if self.pods is not None else {}
+        out = []
+        for c in range(n):
+            lbl = {"chip": str(c)}
+            try:
+                info = self.backend.chip_info(c)
+            except BackendError:
+                info = None
+            if info is not None:
+                lbl.update(uuid=info.uuid, model=info.name)
+            pod = (self.pods.lookup(mapping, lbl.get("uuid", ""), str(c))
+                   if mapping else None)
+            if pod is not None:
+                lbl.update(pod_name=pod.pod, pod_namespace=pod.namespace,
+                           container_name=pod.container)
+            out.append(lbl)
+        self._prom_labels = out
+        return out
+
+    def render_prom(self) -> str:
+        """One scrape (``main.cc`` ``render_prom``): the catalog's scrape
+        families, numbers only (the burst-derived ones while the burst
+        loop runs), then the self-metrics, the merged drop files and the
+        scrape's own render and merge times.  One scrape at a time."""
+
+        with self._prom_lock:
+            t_begin = time.monotonic()
+            n = self._chips()
+            labels = self._scrape_labels(n)
+            fids = SCRAPE_FIELDS + (sorted(
+                int(f) for f in FF.EXPORTER_BURST_FIELDS)
+                if self.burst is not None else [])
+            chips, _ = self._sweep([(c, fids) for c in range(n)], None)
+            per_chip = {c: {f: v for f, v in vals.items()
+                            if isinstance(v, (int, float, list))}
+                        for c, vals in chips.items()}
+            cpu_s, rss_kb = _read_proc_stat(os.getpid())
+            up = time.time() - self.start_time
+            lines = [ln for ln in SweepRenderer(fids).render(
+                per_chip, dict(enumerate(labels))).splitlines() if ln]
+            lines += render_family(
+                "tpumon_agent_cpu_percent", "gauge",
+                "Daemon lifetime-average CPU percent.", "",
+                100.0 * (cpu_s - self._cpu0) / up if up > 0 else 0.0)
+            lines += render_family("tpumon_agent_memory_kb", "gauge",
+                                   "Daemon RSS in KB.", "", rss_kb, ".0f")
+            lines += render_family("tpumon_agent_uptime_seconds", "gauge",
+                                   "Daemon uptime.", "", up, ".1f")
+            t_rendered = time.monotonic()
+            if self.merge is not None:
+                lines = self._merged(lines)
+            t_merged = time.monotonic()
+            lines += render_family(
+                "tpumon_agent_scrape_render_ms", "gauge",
+                "Catalog+self render time of this scrape.", "",
+                (t_rendered - t_begin) * 1e3)
+            lines += render_family(
+                "tpumon_agent_scrape_merge_ms", "gauge",
+                "Drop-file merge time of this scrape.", "",
+                (t_merged - t_rendered) * 1e3)
+            return "\n".join(lines) + "\n"
+
+    def _merged(self, lines: List[str]) -> List[str]:
+        """``main.cc`` ``append_merged``: the fresh drop files into the
+        scrape, the merge's gauges after the scrape's families; merged
+        samples of a family the scrape emits inside its block."""
+
+        series = set(_AGENT_MERGE_FAMILIES)
+        decl = set(_AGENT_MERGE_FAMILIES)
+        index_lines(lines, series, decl)
+        merge = self.merge
+        by_family, tail = merge.apply(series, decl, merge.load(time.time()))
+        lines = lines + render_family(
+            "tpumon_agent_merged_files", "gauge",
+            "Fresh textfiles merged into this scrape.", "", merge.files,
+            ".0f") + render_family(
+            "tpumon_agent_merged_series", "gauge",
+            "Sample series merged from textfiles.", "", merge.series, ".0f")
+        if by_family:
+            lines = splice_lines(lines, by_family)
+        return lines + tail
+
+    def health_ok(self) -> bool:
+        """``/healthz`` (``main.cc`` ``health_ok``): the source still has
+        a device and its first device still answers."""
+
+        try:
+            if self._chips() < 1:
+                return False
+            self.backend.chip_info(0)
+        except BackendError:
+            return False
+        return True
+
     def close(self) -> None:
         try:
             self.watches.stop()
@@ -644,10 +825,30 @@ class AgentHandler(ConnHandler):
             self.engine.watches.unwatch(wid, purge=True)
 
 
+def _prom_dispatch(engine: Engine):
+    """The agent's HTTP routes: ``/metrics``, ``/healthz``, else 404 (the
+    path matched exactly: ``/metricsfoo`` is not ``/metrics``)."""
+
+    ctype = "text/plain; version=0.0.4; charset=utf-8"
+
+    def dispatch(path: str):
+        if path == "/metrics":
+            return 200, ctype, engine.render_prom()
+        if path == "/healthz":
+            if engine.health_ok():
+                return 200, ctype, "ok\n"
+            return 503, ctype, "metric source unhealthy\n"
+        return 404, ctype, "not found\n"
+
+    return dispatch
+
+
 def open_source(fake: bool, fake_chips: int = 4,
-                fake_epoch: float = 0.0) -> Backend:
+                fake_epoch: float = 0.0,
+                kmsg_path: Optional[str] = None) -> Backend:
     """The agent's source, opened: the fake only when asked for, else
-    NVML, which must see at least one device."""
+    NVML (its Xid watcher on ``kmsg_path``), which must see at least one
+    device."""
 
     if fake:
         b: Backend = AgentFakeBackend(fake_chips, fake_epoch)
@@ -655,7 +856,7 @@ def open_source(fake: bool, fake_chips: int = 4,
         return b
     from .backends.nvml import NvmlBackend
 
-    b = NvmlBackend()
+    b = NvmlBackend(kmsg_path=kmsg_path)
     b.open()
     if b.chip_count() < 1:
         b.close()
@@ -683,22 +884,64 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     p.add_argument("--burst-hz", type=int, default=0, metavar="HZ",
                    help="sample the burst sources at HZ into 1 s "
                         "min/max/mean/integral windows (0 = off)")
+    p.add_argument("--prom-port", type=int, default=-1, metavar="N",
+                   help="serve Prometheus /metrics + /healthz over HTTP "
+                        "(0 = kernel-assigned, printed to stderr) straight "
+                        "from the agent, no exporter process")
+    p.add_argument("--merge-textfile", action="append", default=[],
+                   metavar="GLOB",
+                   help="merge fresh .prom drop files (a workload's "
+                        "self-monitor output) into every scrape; "
+                        "repeatable")
+    p.add_argument("--merge-max-age", type=float, default=60.0, metavar="S",
+                   help="skip merge files older than S seconds (default 60)")
+    p.add_argument("--kubelet-socket", default=None, metavar="PATH",
+                   help="pod labels by GPU UUID from the kubelet "
+                        "pod-resources API on PATH")
+    p.add_argument("--pod-resource", default=None, metavar="NAME",
+                   help="device-plugin resource to match (default "
+                        f"{DEFAULT_RESOURCE})")
+    p.add_argument("--kmsg", default=None, metavar="PATH",
+                   help="kernel-log stream of the NVML source's Xid "
+                        "watcher (default TPUMON_KMSG_PATH or /dev/kmsg)")
     p.add_argument("--v", type=int, default=None, metavar="N",
                    help="log verbosity")
     args = p.parse_args(argv)
     if args.v is not None:
         log.set_verbosity(args.v)
 
+    from .backends.nvml import LibraryAbsent
+
     try:
-        backend = open_source(args.fake, args.fake_chips, args.fake_epoch)
+        backend = open_source(args.fake, args.fake_chips, args.fake_epoch,
+                              args.kmsg)
+    except LibraryAbsent as e:
+        if not args.merge_textfile:
+            print(f"tpumon-hostengine: no metric source: {e}; use --fake "
+                  f"for the simulated source, or --merge-textfile for "
+                  f"merge-only mode", file=sys.stderr)
+            return 3
+        # merge-only mode: no NVML on this host, but drop files to serve
+        # (a library that loads and fails still exits, never masked)
+        backend = EmptySource()
+        log.info("tpumon-hostengine: no NVML (%s); merge-only mode", e)
     except (LibraryNotFound, BackendError) as e:
         print(f"tpumon-hostengine: no metric source: {e}", file=sys.stderr)
         return 3
     stop = threading.Event()
-    engine = server = None
+    engine = server = prom = None
     try:
+        pods = None
+        if args.kubelet_socket:
+            from .exporter.pod_attrib import PodAttributor
+            pods = PodAttributor(socket_path=args.kubelet_socket,
+                                 resource=args.pod_resource)
         engine = Engine(backend, allow_inject=args.allow_inject,
-                        burst_hz=args.burst_hz, on_term=stop.set)
+                        burst_hz=args.burst_hz, on_term=stop.set,
+                        merge=(TextfileMerge(args.merge_textfile,
+                                             args.merge_max_age)
+                               if args.merge_textfile else None),
+                        pods=pods)
         server = FrameServer()
         handler = AgentHandler(engine)
         if args.domain_socket or not args.port:
@@ -712,11 +955,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         signal.signal(signal.SIGTERM, lambda *_: stop.set())
         signal.signal(signal.SIGINT, lambda *_: stop.set())
         server.start()
+        if args.prom_port >= 0:
+            prom = TextHTTPServer(_prom_dispatch(engine), args.prom_port)
+            prom.start()
+            print(f"tpumon-hostengine: serving /metrics on port "
+                  f"{prom.port}", file=sys.stderr, flush=True)
         log.info("tpumon-hostengine: %s source, %d device(s), serving on "
                  "%s", "fake" if args.fake else "nvml",
                  backend.chip_count(), address)
         stop.wait()
     finally:
+        if prom is not None:
+            prom.stop()
         if server is not None:
             server.close()
         try:

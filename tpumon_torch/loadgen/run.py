@@ -1,7 +1,9 @@
 """Load-generator runner: step the model on the card while being monitored.
 
-Counterpart of ``tpumon/loadgen/run.py`` for its single-device patterns
-(``train``, ``mxu``, ``hbm``, ``mixed``, ``flash``, ``conv``):
+Counterpart of ``tpumon/loadgen/run.py``, every pattern of it: the train
+step, the single-device shapes (``mxu``, ``hbm``, ``mixed``, ``flash``,
+``conv``) and the multi-device ones over ``torch.distributed``
+(``ringattn``, ``allreduce``, ``dcn``, ``pp``, ``moe``):
 
 * generate device load (``python -m tpumon_torch.loadgen.run --seconds 30
   [--pattern P]``);
@@ -11,7 +13,11 @@ Counterpart of ``tpumon/loadgen/run.py`` for its single-device patterns
   (``--monitor-output``) another process can consume.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without CUDA and
-without ``--device cpu`` it fails rather than run on the CPU.
+without ``--device cpu`` it fails rather than run on the CPU.  A
+multi-device pattern joins a process group first: with ``--coordinator
+HOST:PORT --num-processes N --process-id R`` one process per rank (NCCL
+on ``cuda``, one card a rank; gloo on the CPU), else a 1-rank group in
+this process, where every neighbour hop is the identity.
 """
 
 from __future__ import annotations
@@ -29,8 +35,8 @@ DEFAULT_BATCH = 8
 #: load shapes of the reference runner
 PATTERNS = ("train", "mxu", "hbm", "mixed", "flash", "conv", "ringattn",
             "allreduce", "dcn", "pp", "moe")
-#: the ones ported so far; the multi-device shapes are not
-PORTED = PATTERNS[:6]
+#: the ones that run over a process group
+MULTI = PATTERNS[6:]
 
 
 def capture_step_cost(blocks, spans, t0: float, t1: float):
@@ -160,21 +166,62 @@ def tensor_leaves(state):
             yield from tensor_leaves(part)
 
 
+def multi_pattern(pattern: str, device, slices: int = 2):
+    """(step_fn, state, slice count) of a multi-device pattern over the
+    process group this process has joined (the reference runner's
+    dispatch, ``tpumon/loadgen/run.py:140-162``); ``slices`` is the
+    ``dcn`` pattern's slice count, cut to the ranks there are (1 for the
+    other patterns)."""
+
+    import torch.distributed as dist
+
+    from . import parallel as PP
+    from . import ring as R
+
+    if pattern == "pp":
+        return (*PP.pipeline_load(device=device), 1)
+    if pattern == "moe":
+        return (*PP.moe_alltoall_load(device=device), 1)
+    if pattern == "ringattn":
+        return (*R.make_ring_attention_pattern(device=device), 1)
+    if pattern == "dcn":
+        n_dev = dist.get_world_size()
+        n_slices = max(1, min(slices, n_dev))
+        ms = R.make_multislice_mesh(n_slices)
+        used = n_slices * ms.chips
+        if used < n_dev:
+            print(f"warning: {n_dev} ranks not divisible by {n_slices} "
+                  f"slices; {n_dev - used} ranks idle", file=sys.stderr)
+        return (*R.dcn_allreduce_load(ms, device=device), n_slices)
+    if pattern == "allreduce":
+        return (*R.ring_allreduce_load(R.make_seq_mesh(axis="data"),
+                                       device=device), 1)
+    raise ValueError(f"unknown multi-device pattern {pattern!r}")
+
+
 class Workload:
     """What the runner steps: the bench train step (a
     :class:`.graph.GraphStep` on a CUDA device, :func:`.model.train_step`
-    on the CPU) or a load pattern (:func:`.kernels.make_pattern`), with a
-    barrier that drains the steps in flight."""
+    on the CPU) or a load pattern (:func:`.kernels.make_pattern`,
+    :func:`multi_pattern`), with a barrier that drains the steps in
+    flight."""
 
     def __init__(self, pattern: str, size: str = "bench",
-                 batch: int = DEFAULT_BATCH, device=None) -> None:
+                 batch: int = DEFAULT_BATCH, device=None,
+                 slices: int = 2) -> None:
         from . import kernels as K
 
         self.pattern = pattern
+        self.device = device
         self.loss = None
         #: the train step's CUDA graph (None eager or for a pattern)
         self.graph = None
-        if pattern == "train":
+        #: the job's slice count (the ``dcn`` pattern's; 1 otherwise)
+        self.slices = 1
+        if pattern in MULTI:
+            self._step, self.state, self.slices = multi_pattern(
+                pattern, device, slices)
+        elif pattern == "train":
             from . import model as M
             from .graph import GraphStep
 
@@ -209,9 +256,34 @@ class Workload:
         return self.loss.item() if self.loss is not None else None
 
 
+def _group_size() -> int:
+    """Ranks of the process group this process has joined (1 without
+    one)."""
+
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _agree(flag: bool, device) -> bool:
+    """True on every rank once any rank's ``flag`` is True (an all-reduce
+    of the largest)."""
+
+    import torch
+    import torch.distributed as dist
+
+    from .. import collectives as C
+
+    t = torch.tensor([float(flag)], device=device)
+    with C.group_scope(dist.get_world_size()):
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
 def run_window(work: Workload, seconds: float, sync_every: int = 32,
                self_monitor: bool = False, monitor_output=None,
-               device_name: str = "cpu", final_capture: bool = True) -> dict:
+               device_name: str = "cpu", final_capture: bool = True
+               ) -> dict:
     """Step ``work`` for ``seconds`` and return the runner's JSON result.
     With ``self_monitor`` the process samples its own CUDA device through
     the port's backend and exporter at 1 Hz while stepping, started for
@@ -221,8 +293,18 @@ def run_window(work: Workload, seconds: float, sync_every: int = 32,
     a fresh capture before that sweep, so the count does not depend on
     whether a capture landed in the window (the paired bench's windows
     skip it: the warm-up's sample is still fresh, and only the window's
-    steps/s are compared)."""
+    steps/s are compared).  A job of more than one slice registers its
+    slice axis with the backend, so the DCN families are measured.
 
+    In a process group of more ranks, every rank must step the same
+    count, or one waits forever in a collective its peers never call: the
+    window then ends where the ranks agree (an all-reduce of "my time is
+    up" at each sync point), and the forced captures, which step each
+    rank until its own window closes, are skipped."""
+
+    lockstep = _group_size() > 1
+    if lockstep:
+        final_capture = False
     exporter = None
     h = None
     monitor_samples = 0
@@ -235,6 +317,8 @@ def run_window(work: Workload, seconds: float, sync_every: int = 32,
             # what a replay runs, for the trace engine (once a process)
             work.graph.describe()
         h = tpumon_torch.init(backend_name="cuda")
+        if work.slices > 1:
+            h.backend.set_slice_axis(work.slices)
         # profiling=True: the utilization/step-time families are what the
         # embedded path measures; dcn=True reads blank on one host and the
         # renderer omits blank families
@@ -261,9 +345,16 @@ def run_window(work: Workload, seconds: float, sync_every: int = 32,
             if sync_every > 0 and extra % sync_every == 0:
                 work.sync()
 
+        if lockstep:
+            return False
         ok = h.backend.force_trace_capture(timeout_s=30.0, step=one_step)
         work.sync()
         return ok
+
+    def time_is_up(now: float) -> bool:
+        if not lockstep:
+            return now - t0 >= seconds
+        return _agree(now - t0 >= seconds, work.device)
 
     # first step outside the timed loop; the probes calibrate here too,
     # so the measured window pays sweep cost, not set-up cost
@@ -293,7 +384,8 @@ def run_window(work: Workload, seconds: float, sync_every: int = 32,
     t0 = time.monotonic()
     next_sample = t0
     block_start, block_steps = t0, 0
-    while time.monotonic() - t0 < seconds:
+    check_every = max(1, sync_every) if lockstep else 1
+    while steps % check_every or not time_is_up(time.monotonic()):
         work.step()
         note_step()
         steps += 1
@@ -336,6 +428,7 @@ def run_window(work: Workload, seconds: float, sync_every: int = 32,
             # included: landed, and refused (a lost-records capture)
             run_cost = trace_cost()
             capture_error = h.backend.trace_last_error()
+            attribution = h.backend.attribution_stats()
         finally:
             tpumon_torch.shutdown()
         nonblank = sorted(k for k, v in counts.items()
@@ -347,6 +440,7 @@ def run_window(work: Workload, seconds: float, sync_every: int = 32,
                         "captures_failed": int(
                             run_cost.get("captures_failed", 0)),
                         "capture_last_error": capture_error,
+                        "attribution": attribution,
                         "monitor_cost": monitor_cost(
                             cost0, cost1, sweep_s, elapsed, blocks,
                             win_spans, t0)}
@@ -382,8 +476,15 @@ def main(argv=None) -> int:
                    help="load shape: transformer training steps; a kernel "
                         "pinning tensor-core duty / device-memory bandwidth "
                         "/ the two alternating; causal flash attention "
-                        "forward; a CNN forward (conv2d).  The multi-device "
-                        "shapes are not ported yet")
+                        "forward; a CNN forward (conv2d); ring attention "
+                        "(sequence-parallel K/V rotation by P2P); a "
+                        "sustained all-reduce; hierarchical multi-slice "
+                        "gradient sync (reduce-scatter, all-reduce across "
+                        "slices, all-gather); a GPipe-style stage pipeline "
+                        "(a neighbour hop a tick); or MoE expert "
+                        "dispatch/combine (all-to-all)")
+    p.add_argument("--slices", type=int, default=2,
+                   help="slice count for --pattern dcn (outer group axis)")
     p.add_argument("--sync-every", type=int, default=32,
                    help="force a host-visible sync every N steps; bounds "
                         "the async launch backlog and makes steps/sec an "
@@ -397,16 +498,40 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; cpu only "
                         "when asked for)")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="process-group rendezvous: run one loadgen process "
+                        "per rank (one card a rank; gloo ranks with "
+                        "--device cpu) and the multi-device patterns span "
+                        "all of them")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="total loadgen processes (with --coordinator)")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's rank (with --coordinator)")
     args = p.parse_args(argv)
-    if args.pattern not in PORTED:
-        p.error(f"--pattern {args.pattern}: not yet ported "
-                f"(ported: {', '.join(PORTED)})")
+    if args.coordinator and (args.num_processes is None
+                             or args.process_id is None):
+        p.error("--coordinator requires --num-processes and --process-id")
+    grouped = args.pattern in MULTI
+    if args.coordinator and not grouped:
+        p.error(f"--coordinator: --pattern {args.pattern} runs on one "
+                f"device (the multi-device patterns: {', '.join(MULTI)})")
 
     device = resolve_device(args.device)
-    work = Workload(args.pattern, args.size, args.batch, device)
-    result = run_window(work, args.seconds, args.sync_every,
-                        args.self_monitor, args.monitor_output,
-                        device_name(device))
+    if grouped:
+        import torch.distributed as dist
+
+        from .ring import init_process_group
+        device = init_process_group(device, args.coordinator,
+                                    args.num_processes, args.process_id)
+    try:
+        work = Workload(args.pattern, args.size, args.batch, device,
+                        args.slices)
+        result = run_window(work, args.seconds, args.sync_every,
+                            args.self_monitor, args.monitor_output,
+                            device_name(device))
+    finally:
+        if grouped:
+            dist.destroy_process_group()
     from . import kernels as K
     # the process's kernel launches (its graph's replays counted): what a
     # caller in another process reads to see the path ran the kernels

@@ -26,13 +26,19 @@ records which op launches each record of a replay, and the ops' FLOPs
 (:class:`GraphProgram`); :func:`kineto_records` then reads each graph
 launch whose records match a recorded program by it.
 
+* **collective wire bytes** — the bytes the window's collectives moved
+  (:mod:`tpumon_torch.collectives`, read from the process group backend's
+  own events), split ICI (NVLink) and DCN by the group each ran over, with
+  the reference's two gates (``xplane.py:782-972``; :func:`wire_fields`):
+  the physics ceiling (the card's NVLink total from the capability table)
+  and the timeline (the bytes at that ceiling must fit in the collective
+  time the same capture saw).
+
 Not ported: the XSpace protobuf parser and the profiler options of
 ``xplane.py:62-530`` and ``:1362-1430`` — Kineto hands its events over in
 process (:func:`kineto_records`) or as a Chrome trace
-(:func:`analyze_kineto_file`); the collective wire-byte attribution, its
-physics and timeline gates and the slice and participant maps
-(``:782-972``, ``:1526-1650``), which wait for the NCCL attribution and a
-multi-device slice.  Their ``TraceSample`` fields stay None.
+(:func:`analyze_kineto_file`, which carries no shapes, so its wire-byte
+fields stay None).
 
 **The session's thread.**  ``torch.profiler`` attaches its op callbacks to
 the thread that opens the session (autograd's worker threads inherit
@@ -60,6 +66,7 @@ from dataclasses import dataclass
 from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 from . import log
+from .collectives import CommRecord, comm_records, split_bytes
 from .types import gpu_caps
 
 # -- categories ----------------------------------------------------------------
@@ -231,7 +238,8 @@ class TraceSample:
     #: (the port's kernels, copies by direction, the launching aten op) —
     #: the category split is then exact, not a name-match lower bound
     exact_categories: bool = False
-    #: the wire-byte attribution's fields: None until the NCCL attribution
+    #: the wire-byte attribution's fields (:func:`wire_fields`): None
+    #: where the capture was not attributed
     ici_bytes_per_s: Optional[float] = None
     dcn_bytes_per_s: Optional[float] = None
     ici_ceiling_gbps: Optional[float] = None
@@ -239,6 +247,8 @@ class TraceSample:
     attribution_suspect: bool = False
     dcn_op_latency_us: Optional[float] = None
     gate_eligible_bytes: Optional[int] = None
+    #: the backend's collective events the attribution read
+    collective_events: Optional[int] = None
 
 
 # -- analysis ------------------------------------------------------------------
@@ -262,9 +272,62 @@ class TraceRecord(NamedTuple):
     flops: int = 0
 
 
+#: slack of the timeline gate for skew between host and device clocks
+#: (the reference's, ``xplane.py:731``)
+ATTRIBUTION_MARGIN = 1.25
+
+
+def wire_fields(comms: List[CommRecord], busy: List[Tuple[int, int]],
+                window_s: float, ceiling_gbps: Optional[float],
+                slices: bool) -> Dict[str, object]:
+    """The wire-byte fields of a :class:`TraceSample` from one capture's
+    collectives (``xplane.py:888-972``).
+
+    ``busy``: (start_ns, end_ns) of the collective time the capture saw
+    (the backend events' host spans, and the collective kernels on the
+    device).  ``slices``: the job registered a slice axis, so the bytes
+    of groups that cross slices are the DCN share (else every byte is
+    ICI and the DCN fields are blank, the nil rule).  Two gates, as the
+    reference's: physics (the ICI rate above the card's NVLink ceiling)
+    and timeline (the wire-seconds the bytes need at that ceiling, over
+    the collective time observed, above :data:`ATTRIBUTION_MARGIN`; zero
+    observed time with bytes is the extreme over-count).  Every event is
+    a whole synchronous execution inside the window, so all its bytes are
+    gate-eligible.  No ceiling (an unknown card, or one without NVLink):
+    neither gate runs."""
+
+    if slices:
+        ici, dcn = split_bytes(comms)
+    else:  # no slice axis: nothing classifies as DCN
+        ici, dcn = sum(c.wire for c in comms), 0
+    gate_bytes = ici + dcn
+    dcn_spans = [c.end_ns - c.start_ns for c in comms
+                 if c.dcn and slices]
+    consistency = None
+    suspect = False
+    if ceiling_gbps and gate_bytes > 0:
+        ceiling_bps = ceiling_gbps * 1e9
+        coll_s = union_ps([(s * 1000, e * 1000) for s, e in busy]) / 1e12
+        consistency = (gate_bytes / ceiling_bps) / max(coll_s, 1e-9)
+        # the physics gate is ICI-only: DCN bytes ride no NVLink
+        suspect = (ici / window_s > ceiling_bps or
+                   consistency > ATTRIBUTION_MARGIN)
+    return dict(
+        ici_bytes_per_s=ici / window_s,
+        dcn_bytes_per_s=(dcn / window_s) if slices else None,
+        ici_ceiling_gbps=ceiling_gbps or None,
+        attribution_consistency=consistency,
+        attribution_suspect=suspect,
+        dcn_op_latency_us=((sum(dcn_spans) / len(dcn_spans)) / 1e3
+                           if dcn_spans else None),
+        gate_eligible_bytes=gate_bytes,
+        collective_events=len(comms))
+
+
 def _device_sample(recs: List[TraceRecord], window_s: float,
                    flops: Optional[List[int]], name: Optional[str],
-                   ts: float) -> TraceSample:
+                   ts: float, comms: Optional[List[CommRecord]] = None,
+                   slices: bool = False) -> TraceSample:
     window_ps = max(window_s, 1e-9) * 1e12
     ivals = [(r.start_ns * 1000, r.end_ns * 1000) for r in recs]
     busy = union_ps(ivals)
@@ -283,6 +346,13 @@ def _device_sample(recs: List[TraceRecord], window_s: float,
         return min(1.0, cat_ps.get(cat, 0) / window_ps)
 
     caps = gpu_caps(name) if name else None
+    wire: Dict[str, object] = {}
+    if comms is not None:
+        coll = [(c.start_ns, c.end_ns) for c in comms]
+        coll += [(r.start_ns, r.end_ns) for r, (_, _, cat)
+                 in zip(recs, tagged) if cat == "collective"]
+        wire = wire_fields(comms, coll, max(window_s, 1e-9),
+                           caps.nvlink_gbps if caps else None, slices)
     return TraceSample(
         ts=ts,
         window_s=window_s,
@@ -301,11 +371,14 @@ def _device_sample(recs: List[TraceRecord], window_s: float,
         peak_hbm_gbps=caps.hbm_gbps if caps else None,
         device_type=name,
         n_ops=len(recs),
+        **wire,
     )
 
 
 def analyze(records: List[TraceRecord], window_s: float,
-            devices: Dict[int, str]
+            devices: Dict[int, str],
+            comms: Optional[List[CommRecord]] = None,
+            comm_device: int = 0, slices: bool = False
             ) -> Dict[int, TraceSample]:
     """Records of one capture -> {device ordinal: sample}.
 
@@ -314,6 +387,11 @@ def analyze(records: List[TraceRecord], window_s: float,
     but recorded no device work at all reads duty 0 on each of them —
     idle, not missing data (the counterpart of the reference's ``#ChipN``
     rule, and like it only for the all-idle capture).
+
+    ``comms``: the capture's collectives (:func:`tpumon_torch.collectives.
+    comm_records`), run on ``comm_device`` (this process's card; its
+    other cards moved nothing of this process's); None leaves the
+    wire-byte fields blank.  ``slices``: see :func:`wire_fields`.
     """
 
     now = time.monotonic()
@@ -330,11 +408,17 @@ def analyze(records: List[TraceRecord], window_s: float,
                     acc[1] += r.flops
         else:
             by_dev.setdefault(r.device, []).append(r)
+    def mine(d: int) -> Optional[List[CommRecord]]:
+        if comms is None:
+            return None
+        return comms if d == comm_device else []
+
     if not by_dev:
-        return {d: _device_sample([], window_s, None, name, now)
+        return {d: _device_sample([], window_s, None, name, now, mine(d),
+                                  slices)
                 for d, name in devices.items()}
     return {d: _device_sample(recs, window_s, flops.get(d), devices.get(d),
-                              now)
+                              now, mine(d), slices)
             for d, recs in by_dev.items()}
 
 
@@ -861,6 +945,10 @@ class TraceEngine:
         self._session: Optional[_Session] = None
         #: name of each device a CUDA capture covers, read at the first one
         self._devices: Optional[Dict[int, str]] = None
+        #: the card this process's collectives run on (read at each open)
+        self._comm_device = 0
+        #: the job's slice count (:meth:`set_slices`)
+        self.slices = 1
         self._atexit_registered = False
         #: a session has been opened (see _open)
         self._started = False
@@ -1053,16 +1141,29 @@ class TraceEngine:
         if self._devices is None:
             self._devices = {i: torch.cuda.get_device_name(i)
                              for i in range(torch.cuda.device_count())}
+        self._comm_device = torch.cuda.current_device()
+        # the collectives' sizes are their recorded shapes; a process with
+        # no process group runs none, and records no shapes
         prof = profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA], with_flops=True)
+                                   ProfilerActivity.CUDA], with_flops=True,
+                       record_shapes=torch.distributed.is_available()
+                       and torch.distributed.is_initialized())
         prof.start()
         return prof
 
     _stop_profiler = staticmethod(close_session)
 
+    def set_slices(self, n_slices: int) -> None:
+        """Register the job's slice count: with more than one, the DCN
+        share of the attribution is served (:func:`wire_fields`)."""
+
+        self.slices = int(n_slices)
+
     def _collect(self, result, window_s: float) -> Dict[int, TraceSample]:
-        return analyze(kineto_records(result.events()), window_s,
-                       self._devices or {})
+        events = result.events()
+        return analyze(kineto_records(events), window_s,
+                       self._devices or {}, comm_records(events),
+                       self._comm_device, self.slices > 1)
 
     def _capture(self, window_ms: Optional[float], forced: bool,
                  step=None) -> None:

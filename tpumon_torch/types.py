@@ -43,16 +43,22 @@ class GpuCaps(NamedTuple):
     hbm_gbps: float
     #: dense bf16 tensor-core peak (no sparsity)
     bf16_tflops: float
+    #: total NVLink bandwidth in GB/s, the collective attribution's
+    #: physics ceiling (the counterpart of ``ARCH_ICI_CAPS``); None where
+    #: the card has no NVLink, and the gate is off there
+    nvlink_gbps: Optional[float] = None
 
 
 #: NVIDIA's public H100 data sheet, keyed on the name CUDA reports
-#: (``torch.cuda.get_device_name``).  A profiler trace carries no
-#: capability stats, so the trace engine's peaks come from here; an
-#: unknown card gets None and the fields needing a peak stay blank.
+#: (``torch.cuda.get_device_name``): data-sheet figures, not
+#: measurements.  A profiler trace carries no capability stats, so the
+#: trace engine's peaks come from here; an unknown card gets None and the
+#: fields needing a peak stay blank.  NVLink: 900 GB/s on the SXM5 part,
+#: the 600 GB/s bridge on the NVL; the PCIe card has none unless bridged.
 GPU_CAPS: Dict[str, GpuCaps] = {
-    "NVIDIA H100 80GB HBM3": GpuCaps(80 * 1024, 3350.0, 989.0),  # SXM5
-    "NVIDIA H100 PCIe": GpuCaps(80 * 1024, 2000.0, 756.0),
-    "NVIDIA H100 NVL": GpuCaps(94 * 1024, 3900.0, 835.0),
+    "NVIDIA H100 80GB HBM3": GpuCaps(80 * 1024, 3350.0, 989.0, 900.0),
+    "NVIDIA H100 PCIe": GpuCaps(80 * 1024, 2000.0, 756.0, None),
+    "NVIDIA H100 NVL": GpuCaps(94 * 1024, 3900.0, 835.0, 600.0),
 }
 
 
