@@ -78,6 +78,17 @@
    the card (``RING_BF16_TOL``, and ``RING_F32_TOL`` in f32); the NCCL
    version; and whether NCCL takes two ranks on the one card (two
    processes, one all-reduce: it refuses a duplicate GPU).
+   ``sharded``: the bench config's dp x tp train step
+   (``model.sharded_train_step``) over a 1-rank NCCL group, driven as a
+   main path (the launch counts set to 0 just before its first step and
+   read just after), against ``train_step`` from the same parameters and
+   tokens, both eager: the loss within rtol 2e-2, the q, k, v and o
+   updates within ``UPDATE_RTOL``, B1-B3 launched; each eager step's
+   wall ms beside the other's and the NCCL version.  Then the harness
+   entry points (``tpumon_torch.entry``): ``entry()``'s logits finite
+   and (4, 32, 128) on the card, ``dryrun_multichip(1)`` passing on the
+   card (one NCCL rank process) and ``dryrun_multichip(2)`` refused (one
+   card: NCCL runs one rank a card).
 6. The metric-semantics check (the reference's
    ``tests/test_real_tpu_semantics.py``) on the port's ``CudaBackend``,
    with the ``mxu`` pattern as the load on a worker thread and the trace
@@ -1068,6 +1079,121 @@ def multi_summary(results, probe, ring) -> dict:
                       "captures_ok": results[path].get("captures_ok")}
     return {"world": 1, "patterns": rows, "ring_check": ring,
             "two_ranks_one_card": probe}
+
+
+#: eager steps timed for each of the sharded and the plain train step
+SHARDED_STEPS = 10
+#: back-to-back one-rank all-reduces timed for their host price
+NCCL_CALLS = 200
+
+
+def sharded_check(K, M) -> tuple:
+    """The ``sharded`` line: the bench config's sharded train step
+    (``model.sharded_train_step`` over ``make_mesh(1)``) in a 1-rank NCCL
+    group, against ``train_step`` from the same parameters and tokens,
+    both eager: the loss within rtol 2e-2, each attention projection's
+    update within UPDATE_RTOL (relative Frobenius error, as in
+    ``model_check``), B1-B3 launched on the sharded step (the counts set
+    to 0 just before it and read just after); then ``entry()`` on the card
+    (finite (4, 32, 128) logits), ``dryrun_multichip(1)`` on the card
+    (passes) and ``dryrun_multichip(2)`` (refused: one card).  Returns the
+    line and the sharded step's launches."""
+
+    import functools
+
+    import torch
+    import torch.distributed as dist
+    from tpumon_torch import entry as E
+    from tpumon_torch.loadgen import ring as RG
+
+    RG.init_process_group(torch.device("cuda"))
+    try:
+        cfg = M.ModelConfig.bench()
+        mesh = M.make_mesh(1)
+        tokens = torch.randint(0, cfg.vocab, (8, cfg.seq_len), device="cuda",
+                               generator=torch.Generator("cuda").manual_seed(1))
+        steps = {"sharded": M.sharded_train_step(cfg, mesh),
+                 "train": functools.partial(M.train_step, cfg)}
+        updates, losses, ms = {}, {}, {}
+        for name, step in steps.items():
+            params = M.init_params(torch.Generator("cuda").manual_seed(0),
+                                   cfg)
+            if name == "sharded":
+                params = M.shard_params(params, mesh)
+            before = {n: params["layers"][n].clone() for n in ("wqkv", "wo")}
+            torch.cuda.synchronize()
+            if name == "sharded":
+                for k in K.LAUNCHES:
+                    K.LAUNCHES[k] = 0
+            params, loss = step(params, tokens)
+            torch.cuda.synchronize()
+            if name == "sharded":
+                launches = {k: K.LAUNCHES[k] for k in PATHS["train"]}
+            up = {n: params["layers"][n].detach() - before[n]
+                  for n in before}
+            wq, wk, wv = up["wqkv"].chunk(3, dim=-1)
+            updates[name] = {"wq": wq, "wk": wk, "wv": wv, "wo": up["wo"]}
+            losses[name] = loss.item()
+            t0 = time.perf_counter()
+            for _ in range(SHARDED_STEPS):
+                params, loss = step(params, tokens)
+            torch.cuda.synchronize()
+            ms[name] = (time.perf_counter() - t0) / SHARDED_STEPS * 1e3
+        rel = {n: ((updates["sharded"][n] - b).norm() / b.norm()).item()
+               for n, b in updates["train"].items()}
+        # the host's price of one of the step's one-rank collectives
+        x = torch.ones((1,), dtype=torch.bfloat16, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(NCCL_CALLS):
+            with mesh.data.scope():
+                dist.all_reduce(x, group=mesh.data.group)
+        torch.cuda.synchronize()
+        call_ms = (time.perf_counter() - t0) / NCCL_CALLS * 1e3
+        out = {"world": 1, "mesh": list(mesh.shape),
+               "loss_sharded": losses["sharded"],
+               "loss_train": losses["train"],
+               "loss_diff": losses["sharded"] - losses["train"],
+               "update_rel_err_max": max(rel.values()),
+               "update_rel_err": rel, "step_ms_sharded_eager": ms["sharded"],
+               "step_ms_train_eager": ms["train"],
+               "steps_timed": SHARDED_STEPS, "launches": launches,
+               # forward: the embedding's gather, 3 a layer, the logits'
+               # reduce; backward: 3 a layer, the logits' gather; the
+               # gradient bucket and the loss
+               "collectives_per_step": 6 * cfg.n_layers + 5,
+               "nccl_allreduce_call_ms": call_ms,
+               "nccl_version": ".".join(map(str, torch.cuda.nccl.version()))}
+        if not math.isclose(losses["sharded"], losses["train"],
+                            rel_tol=2e-2):
+            raise AssertionError(f"sharded loss against train_step's: {out}")
+        if not max(rel.values()) <= UPDATE_RTOL:
+            raise AssertionError(f"sharded updates part from train_step's: "
+                                 f"{out}")
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"a flash kernel never launched on the "
+                                 f"sharded step: {launches}")
+    finally:
+        dist.destroy_process_group()
+
+    fn, args = E.entry()
+    with torch.no_grad():
+        logits = fn(*args)
+    out["entry_logits"] = list(logits.shape)
+    if tuple(logits.shape) != (4, 32, 128) or \
+            not torch.isfinite(logits.float()).all():
+        raise AssertionError(f"entry() logits {tuple(logits.shape)}, "
+                             f"finite: {torch.isfinite(logits.float()).all()}")
+    t0 = time.monotonic()
+    E.dryrun_multichip(1)
+    out["dryrun_1_s"] = time.monotonic() - t0
+    try:
+        E.dryrun_multichip(2)
+    except RuntimeError as e:
+        out["dryrun_2_refused"] = str(e)
+    else:
+        raise AssertionError("dryrun_multichip(2) ran on one card")
+    return out, launches
 
 
 @contextlib.contextmanager
@@ -4326,6 +4452,12 @@ def main() -> int:
     ring = ring_check()
     print("multi: " + json.dumps(multi_summary(
         results, two_ranks_probe_end(probe), ring)))
+
+    sharded, launches = sharded_check(K, M)
+    for name, n in launches.items():
+        rows[name]["launches"] += n
+        rows[name]["launches_by_path"]["sharded"] = n
+    print("sharded: " + json.dumps(sharded))
 
     print("semantics check: " + json.dumps(semantics_check(K, fields)))
     print("trace check: " + json.dumps(trace_check(K, M, R,

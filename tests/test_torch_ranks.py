@@ -275,3 +275,171 @@ def attributed_steps(pattern, world_slices):
     seen = [(e.name(), [list(d) for d in e.shapes()], list(e.dtypes()))
             for e in events if e.name().startswith("gloo:")]
     return [tuple(r) for r in recs], seen
+
+
+# ---- the sharded model (tests/test_torch_sharded.py) -----------------------------
+
+def _np_tree(tree):
+    from tpumon_torch.loadgen import model as M
+
+    return M.tree_map(_np, tree)
+
+
+def mesh_case(n):
+    """``make_mesh(n)``: (shape, data ranks, model ranks), None on a rank
+    outside the mesh."""
+
+    from tpumon_torch.loadgen import model as M
+
+    mesh = M.make_mesh(n)
+    if mesh.model.rank < 0:
+        return None
+    return mesh.shape, mesh.data.ranks, mesh.model.ranks
+
+
+def shard_case(np_params, tokens, n):
+    """This rank's shards of ``np_params`` (``params_from_jax`` with the
+    mesh) and of ``tokens`` (``batch_spec``), exactly as held."""
+
+    from tpumon_torch.loadgen import model as M
+
+    mesh = M.make_mesh(n)
+    shards = M.params_from_jax(np_params, device="cpu", mesh=mesh)
+    return (M.tree_map(lambda t: t.numpy(), shards),
+            M.shard(_t(tokens), M.batch_spec(), mesh).numpy())
+
+
+def sharded_layer_case(np_layer, x, flash, n):
+    """One f32 layer on this rank's shards of ``np_layer`` (one layer of
+    the stacked leaves) over its data rows of ``x``: its output rows."""
+
+    import dataclasses
+
+    from tpumon_torch.loadgen import model as M
+
+    cfg = dataclasses.replace(M.ModelConfig.tiny(), flash=flash)
+    mesh = M.make_mesh(n)
+    specs = M.param_specs()["layers"]
+    layer = {k: M.shard(_t(v), specs[k][1:], mesh)
+             for k, v in np_layer.items()}
+    rows = M.shard(_t(x), M.batch_spec() + (None,), mesh)
+    return _np(M._layer(cfg, rows, layer, mesh.model))
+
+
+def _gather_fault():
+    """A ``gather_from`` whose backward sums the gradient over the group
+    (a reduce-scatter) instead of keeping this rank's block."""
+
+    import torch
+
+    from tpumon_torch.loadgen import model as M
+
+    class SummingGather(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, g):
+            ctx.g = g
+            return M._gather(x, -1, g)
+
+        @staticmethod
+        def backward(ctx, dy):
+            return M._own_block(M._all_reduce(dy, ctx.g), ctx.g), None
+
+    return lambda x, g: SummingGather.apply(x, g)
+
+
+def sharded_step_case(np_params, tokens, flash, n, fault=False):
+    """One ``sharded_train_step`` over ``make_mesh(n)`` from this rank's
+    shards of ``np_params`` and rows of ``tokens`` -> (loss, the updated
+    parameters gathered whole).  ``fault``: with :func:`_gather_fault`
+    in place of ``gather_from``."""
+
+    import dataclasses
+
+    from tpumon_torch.loadgen import model as M
+
+    cfg = dataclasses.replace(M.ModelConfig.tiny(), flash=flash)
+    mesh = M.make_mesh(n)
+    if mesh.model.rank < 0:
+        return None
+    params = M.params_from_jax(np_params, device="cpu", mesh=mesh)
+    rows = M.shard(_t(tokens), M.batch_spec(), mesh)
+    saved = M.gather_from
+    if fault:
+        M.gather_from = _gather_fault()
+    try:
+        params, loss = M.sharded_train_step(cfg, mesh)(params, rows)
+    finally:
+        M.gather_from = saved
+    return loss.item(), _np_tree(M.gather_params(params, mesh))
+
+
+def unsharded_equal_case(np_params, tokens, flash):
+    """``sharded_train_step`` over ``make_mesh(1)`` against ``train_step``
+    from the same parameters: (losses equal, every parameter equal), bit
+    for bit; None on a rank outside the mesh."""
+
+    import dataclasses
+
+    import torch
+
+    from tpumon_torch.loadgen import model as M
+
+    cfg = dataclasses.replace(M.ModelConfig.tiny(), flash=flash)
+    mesh = M.make_mesh(1)
+    if mesh.model.rank < 0:
+        return None
+    whole = M.params_from_jax(np_params, device="cpu")
+    shards = M.params_from_jax(np_params, device="cpu", mesh=mesh)
+    whole, l1 = M.train_step(cfg, whole, _t(tokens))
+    shards, l2 = M.sharded_train_step(cfg, mesh)(shards, _t(tokens))
+    return (torch.equal(l1, l2),
+            all(torch.equal(a, b) for a, b in zip(
+                M.tree_leaves(whole), M.tree_leaves(shards))))
+
+
+def sharded_attribution_case(np_params, tokens):
+    """One ``sharded_train_step`` over ``make_mesh()`` under a CPU
+    profiler session with shapes, after a warm step -> (every attributed
+    collective, the ones inside the gradient sync's span, the bytes of
+    this rank's gradient shards, the collectives gloo recorded)."""
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpumon_torch import collectives as C
+    from tpumon_torch.loadgen import model as M
+
+    cfg = M.ModelConfig.tiny()
+    mesh = M.make_mesh()
+    params = M.params_from_jax(np_params, device="cpu", mesh=mesh)
+    rows = M.shard(_t(tokens), M.batch_spec(), mesh)
+    step = M.sharded_train_step(cfg, mesh)
+    params, _ = step(params, rows)
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        step(params, rows)
+    events = prof.profiler.kineto_results.events()
+    recs = C.comm_records(events)
+    (span,) = [(e.start_ns(), e.start_ns() + e.duration_ns())
+               for e in events if e.name() == M.GRAD_SYNC_SPAN]
+    sync = [r for r in recs if span[0] <= r.start_ns <= span[1]]
+    shard_bytes = [t.numel() * t.element_size()
+                   for t in M.tree_leaves(params) if t.is_floating_point()]
+    seen = [e.name() for e in events if e.name().startswith("gloo:")]
+    return ([tuple(r) for r in recs], [tuple(r) for r in sync], shard_bytes,
+            seen, torch.distributed.get_world_size())
+
+
+def dryrun_check(name):
+    """One of the dry run's per-rank checks (``tpumon_torch.entry``) over
+    every rank of the pool -> what it returns."""
+
+    import torch
+    import torch.distributed as dist
+
+    from tpumon_torch import entry as E
+
+    fn = getattr(E, name)
+    if name == "check_modeled_links":
+        return fn()
+    return fn(dist.get_world_size(), torch.device("cpu"))

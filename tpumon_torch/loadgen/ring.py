@@ -318,6 +318,18 @@ def make_ring_attention_pattern(mesh: Optional[Group1D] = None,
     return step, (q, k, v)
 
 
+def refuse_beyond_cards(world: int) -> None:
+    """Raise unless every one of ``world`` NCCL ranks has a card of its
+    own: NCCL refuses two ranks on one card, and nothing quietly becomes
+    gloo."""
+
+    cards = torch.cuda.device_count()
+    if world > cards:
+        raise RuntimeError(
+            f"{world} ranks on {cards} CUDA device(s): NCCL runs one "
+            f"rank a card (pass --device cpu for gloo ranks)")
+
+
 def init_process_group(device: torch.device,
                        coordinator: Optional[str] = None,
                        num_processes: Optional[int] = None,
@@ -333,11 +345,7 @@ def init_process_group(device: torch.device,
     world = 1 if coordinator is None else int(num_processes)
     rank = 0 if coordinator is None else int(process_id)
     if device.type == "cuda":
-        cards = torch.cuda.device_count()
-        if world > cards:
-            raise RuntimeError(
-                f"{world} ranks on {cards} CUDA device(s): NCCL runs one "
-                f"rank a card (pass --device cpu for gloo ranks)")
+        refuse_beyond_cards(world)
         device = torch.device("cuda", rank)
         torch.cuda.set_device(device)
         backend = "nccl"
