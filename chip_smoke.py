@@ -165,7 +165,27 @@
    agent run modes (``agent_phase``) and the agent serving ``/metrics``
    itself with ``--prom-port 0 --merge-textfile`` (``agent_prom_phase``:
    30 scrapes at 1 Hz, each held to NVML reads, the drop file merged,
-   ``/healthz`` 200; scrape wall ms, the agent's CPU and RSS).
+   ``/healthz`` 200; scrape wall ms, the agent's CPU and RSS).  Then
+   ``fleet`` beside the same workload (``fleet_phase``): the port's agent
+   over NVML for the card's host among 255 simulated hosts x 8 chips
+   (``python -m tpumon_torch.agentsim --procs 4``); the flat
+   ``FleetPoller`` at 1 Hz for 20 ticks in its own process (every host up
+   every tick, every simulated row its farm's values, the card's row
+   within the ``nvml check`` tolerances of this process's NVML reads in
+   the same second; tick wall, the poller thread's CPU a tick, the
+   process's CPU share and RSS, bytes a host-tick); ``python -m
+   tpumon_torch.cli.fleet --targets-file F --shards 4 --supervise
+   --metrics-port P`` with one shard child SIGKILLed (its view the flat
+   one again within 20 s, the restart counted; ticks and seconds to
+   converge, the ``/metrics`` scrape); ``ShardSupervisor`` over the same
+   targets in a process of its own for 20 ticks at 1 Hz (every host up;
+   the health watch's CPU over the process's, from the supervisor's own
+   counter); ``--connect <agent> --once --check --expect-chips 1`` exit
+   0.
+   No fleet process may import ``tpumon``, ``jax`` or ``torch``: they run
+   with an import guard on their ``PYTHONPATH`` that refuses and logs
+   it.  The workload's B1-B3 launches join the kernels line as path
+   ``relay+agent+fleet``; its steps/s is printed on the ``fleet:`` line.
 12. Prints each load pattern's busy share (its kernel's device time over
    its self-monitored step), the card's name and power limit again, then
    one ``{"kernels": [...], "backward":
@@ -4318,15 +4338,524 @@ def agent_prom_phase(fields, env, work, drop) -> dict:
             stop_proc(agent)
 
 
+#: the ``fleet`` leg: simulated hosts beside the card's own agent (256
+#: hosts in all), chips each (a DGX H100 node's count), the farm's
+#: processes, the flat poller's measured ticks at 1 Hz, the supervised
+#: CLI's shards, how long its view may take to be the flat one's again
+#: after a SIGKILL (the reference's ``bench_supervisor`` budget), s, the
+#: steady stretch its tables are held to the flat view over, s, and the
+#: supervisor process's measured ticks at 1 Hz
+FLEET_SIM_HOSTS = 255
+FLEET_CHIPS = 8
+FLEET_FARM_PROCS = 4
+FLEET_TICKS = 20
+FLEET_SHARDS = 4
+FLEET_RECOVER_S = 20.0
+FLEET_STEADY_S = 10.0
+FLEET_SUP_TICKS = 20
+#: what no fleet process (agent, farms, pollers, shard children) may
+#: import; ``sitecustomize`` on their PYTHONPATH refuses it and logs it
+FLEET_REFUSED = ("tpumon", "jax", "jaxlib", "torch")
+FLEET_GUARD = """\
+import os
+import sys
+
+
+class _Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in {refused!r}:
+            with open(os.environ["FLEET_IMPORT_LOG"], "a") as f:
+                f.write(f"{{os.getpid()}} {{name}}\\n")
+            raise ImportError(f"{{name}} refused in a fleet process")
+        return None
+
+
+sys.meta_path.insert(0, _Refuse())
+""".format(refused=FLEET_REFUSED)
+#: the flat poller's process: ``FleetPoller`` over the targets file at
+#: 1 Hz, one warm tick then ``ticks`` measured ones (wall and the thread's
+#: CPU clock around each ``poll``, bytes, hosts up, the first target's
+#: row with the tick's wall-clock span), then its CPU share and RSS over
+#: the stretch, every simulated row against its farm's values
+#: (``_bench_host_values`` of its seed, aggregated) and the last table
+FLEET_FLAT = r"""
+import json, sys, time
+from tpumon_torch.agentsim import _bench_host_values
+from tpumon_torch.cli.fleet import _FIELDS, render
+from tpumon_torch.fleetpoll import FleetPoller, aggregate_host_sample
+
+path, ticks, chips = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+targets = [ln.strip() for ln in open(path) if ln.strip()]
+poller = FleetPoller(targets, _FIELDS, timeout_s=3.0)
+poller.poll()
+out, kept = [], []
+cpu0, t_start = time.process_time(), time.monotonic()
+for k in range(ticks):
+    time.sleep(max(0.0, t_start + k - time.monotonic()))
+    w0, t0 = time.time(), time.monotonic()
+    c0 = time.clock_gettime(time.CLOCK_THREAD_CPUTIME_ID)
+    samples = poller.poll()
+    c1 = time.clock_gettime(time.CLOCK_THREAD_CPUTIME_ID)
+    t1, w1 = time.monotonic(), time.time()
+    card = samples[0]
+    out.append({"wall_ms": 1e3 * (t1 - t0), "cpu_ms": 1e3 * (c1 - c0),
+                "bytes": poller.tick_bytes_sent + poller.tick_bytes_recv,
+                "up": sum(s.up for s in samples), "span": [w0, w1],
+                "card": {f: getattr(card, f) for f in (
+                    "up", "chips", "driver", "power_w", "max_temp_c",
+                    "mean_tc_util", "mean_hbm_util", "hbm_used_mib",
+                    "hbm_total_mib", "links_up", "dead_chips", "error")}})
+    kept.append(samples)
+wall, cpu = time.monotonic() - t_start, time.process_time() - cpu0
+with open("/proc/self/status") as f:
+    rss = [int(ln.split()[1]) for ln in f if ln.startswith("VmRSS")][0]
+want = [aggregate_host_sample(t, chips, "sim 1.0",
+                              _bench_host_values(i, chips, _FIELDS), 0)
+        for i, t in enumerate(targets[1:])]
+mismatched = sorted({i for samples in kept
+                     for i, (got, w) in enumerate(zip(samples[1:], want))
+                     if repr(got) != repr(w)})
+poller.close()
+print(json.dumps({"ticks": out, "cpu_s": cpu, "wall_s": wall,
+                  "rss_kib": rss, "mismatched": mismatched[:8],
+                  "n_mismatched": len(mismatched),
+                  "table": render(kept[-1]).splitlines()}))
+"""
+#: the supervisor's cost, as the reference's ``bench_supervisor`` reads
+#: it: ``ShardSupervisor`` over the targets file as the CLI builds it with
+#: ``-d 1``, every host up, then ``ticks`` ticks of ``poll`` at 1 Hz; the
+#: health watch's own CPU counter (``health_cpu_s_total``, its thread's
+#: clock) and passes over the process's CPU in the same stretch
+FLEET_SUPERVISE = r"""
+import json, sys, time
+from tpumon_torch.cli.fleet import _FIELDS
+from tpumon_torch.supervisor import ShardSupervisor
+
+path, shards, ticks = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+targets = [ln.strip() for ln in open(path) if ln.strip()]
+t_spawn = time.monotonic()
+sup = ShardSupervisor(targets, _FIELDS, shards=shards, delay_s=1.0,
+                      timeout_s=3.0)
+sup.start()
+try:
+    while not all(s.up for s in sup.poll()):
+        if time.monotonic() > t_spawn + 60.0:
+            raise SystemExit("the supervised shards never had every host up")
+        time.sleep(1.0)
+    up_s = time.monotonic() - t_spawn
+    cpu0, t_start = time.process_time(), time.monotonic()
+    hc0, hp0 = sup.health_cpu_s_total, sup.health_passes_total
+    up = []
+    for k in range(ticks):
+        time.sleep(max(0.0, t_start + k - time.monotonic()))
+        up.append(sum(s.up for s in sup.poll()))
+    wall, cpu = time.monotonic() - t_start, time.process_time() - cpu0
+    hcpu = sup.health_cpu_s_total - hc0
+    passes = sup.health_passes_total - hp0
+finally:
+    sup.close()
+print(json.dumps({"all_up_s": up_s, "up": up, "wall_s": wall,
+                  "cpu_s": cpu, "health_cpu_s": hcpu,
+                  "health_passes": passes}))
+"""
+
+
+class FleetTables:
+    """The supervised CLI's tables as they arrive on its stdout: (arrival
+    monotonic s, {first token: row line}) each, read on a thread."""
+
+    def __init__(self, proc) -> None:
+        self.tables = []
+        self._t = threading.Thread(target=self._read, args=(proc,),
+                                   daemon=True)
+        self._t.start()
+
+    def _read(self, proc) -> None:
+        rows = {}
+        for line in proc.stdout:
+            line = line.rstrip("\n")
+            if line.startswith("SLICE ("):
+                self.tables.append((time.monotonic(), rows))
+                rows = {}
+            elif line and not line.startswith(("host ", "-")):
+                rows[line.split()[0]] = line
+
+
+def fleet_view(rows: dict, flat: dict, card: str) -> bool:
+    """A table is the flat view: every simulated host's row the flat
+    poller's line for line, and the card's host up (its values move
+    between two reads; the flat leg holds them to NVML)."""
+
+    line = rows.get(card)
+    return (line is not None and line.split()[1] != "DOWN"
+            and all(rows.get(a) == ln for a, ln in flat.items()))
+
+
+def children_of(pid: int) -> list:
+    """(pid, argv) of a process's children."""
+
+    out = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                argv = [a.decode() for a in f.read().split(b"\0") if a]
+        except (OSError, ValueError, IndexError):
+            continue
+        if ppid == pid:
+            out.append((int(d), argv))
+    return out
+
+
+def fleet_phase(fields, env, work) -> dict:
+    """``fleet``: the fleet plane over the card's host among a simulated
+    fleet, beside the train workload.  The port's agent over NVML
+    (``python -m tpumon_torch.hostengine``) and FLEET_SIM_HOSTS simulated
+    hosts x FLEET_CHIPS chips in FLEET_FARM_PROCS farm processes
+    (``python -m tpumon_torch.agentsim --procs``): 256 targets with
+    ``cli.fleet._FIELDS``.  Every fleet process runs under FLEET_GUARD.
+
+    * flat: ``FleetPoller`` in its own process (FLEET_FLAT), 1 Hz,
+      FLEET_TICKS ticks after a warm one.  Fails if a tick has a host
+      DOWN, a simulated row differs from its farm's values, or the card's
+      row (chips, power, hottest temperature, HBM used and total, links)
+      is off from every one of this process's NVML reads within a second
+      of the tick by more than the ``nvml check`` tolerances.
+    * supervised, as operators run it: ``python -m
+      tpumon_torch.cli.fleet --targets-file F --shards FLEET_SHARDS
+      --supervise --metrics-port P -d 1``.  Its tables must become the
+      flat view (:func:`fleet_view`) and stay it over a FLEET_STEADY_S
+      stretch; its ``/metrics`` is scraped; one shard child is SIGKILLed
+      and its view must be the flat one again, with the restart counted,
+      within FLEET_RECOVER_S.
+    * the supervisor's cost: ``ShardSupervisor`` in its own process
+      (FLEET_SUPERVISE), FLEET_SUP_TICKS ticks at 1 Hz with every host
+      up; the health watch's CPU over the process's.
+    * once: ``--connect <agent> --once --check --expect-chips <cards>``
+      exits 0 with a PASS line naming the agent and NVML's driver.
+    * no process of them imported a refused module."""
+
+    import signal as _signal
+
+    from tpumon_torch.cli.fleet import _FIELDS
+    from tpumon_torch.fleetpoll import aggregate_host_sample
+
+    guard = os.path.join(work, "fleet-guard")
+    os.makedirs(guard, exist_ok=True)
+    with open(os.path.join(guard, "sitecustomize.py"), "w") as f:
+        f.write(FLEET_GUARD)
+    refused_log = os.path.join(work, "fleet-refused.log")
+    open(refused_log, "w").close()
+    fenv = dict(env, PYTHONPATH=guard + os.pathsep + env["PYTHONPATH"],
+                FLEET_IMPORT_LOG=refused_log)
+    probe = subprocess.run([sys.executable, "-c", "import torch"],
+                           env=fenv, capture_output=True, text=True,
+                           timeout=60)
+    if probe.returncode == 0 or "torch refused" not in probe.stderr:
+        raise AssertionError(f"the import guard does not hold: "
+                             f"{probe.stderr[-500:]}")
+    open(refused_log, "w").close()
+
+    sock = os.path.join(work, "fleet-agent.sock")
+    agent_addr = f"unix:{sock}"
+    farm_dir = os.path.join(work, "farm")
+    os.makedirs(farm_dir, exist_ok=True)
+    targets_file = os.path.join(work, "fleet.targets")
+    b, i = nvml_open(fields)
+    cards = b.chip_count()
+    driver = b.versions().driver
+    agent = farm = cli = None
+    failures, out = [], {}
+    t_leg = time.monotonic()
+    try:
+        from tpumon_torch.backends.agent import AgentBackend
+
+        agent = spawn(["tpumon_torch.hostengine", "--domain-socket", sock],
+                      fenv, os.path.join(work, "fleet-agent.err"))
+        hello = AgentBackend(address=agent_addr, connect_retry_s=60.0)
+        hello.open()
+        hello.close()
+        farm = subprocess.Popen(
+            [sys.executable, "-m", "tpumon_torch.agentsim", "--hosts",
+             str(FLEET_SIM_HOSTS), "--chips", str(FLEET_CHIPS), "--procs",
+             str(FLEET_FARM_PROCS), "--unix-dir", farm_dir], cwd=HERE,
+            env=fenv, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=open(os.path.join(work, "farm.err"), "w"), text=True)
+        first = json.loads(farm.stdout.readline() or "{}")
+        sims = first.get("addrs", [])
+        if not first.get("ok") or len(sims) != FLEET_SIM_HOSTS:
+            raise AssertionError(f"the farm did not start: {first}")
+        farm_kids = children_of(farm.pid)
+        targets = [agent_addr] + sims
+        with open(targets_file, "w") as f:
+            f.write("\n".join(targets) + "\n")
+        out["hosts"], out["chips_per_sim"] = len(targets), FLEET_CHIPS
+        out["setup_s"] = round(time.monotonic() - t_leg, 3)
+
+        # -- flat, with this process's NVML reads beside it ----------------
+        nv_reads, stop = [], threading.Event()
+
+        def sample_nvml():
+            while not stop.is_set():
+                per = {c: b.read_fields(c, list(_FIELDS))
+                       for c in range(cards)}
+                nv_reads.append((time.time(), aggregate_host_sample(
+                    agent_addr, cards, driver, per, 0)))
+                stop.wait(0.25)
+
+        sampler = threading.Thread(target=sample_nvml, daemon=True)
+        sampler.start()
+        try:
+            flat_proc = subprocess.run(
+                [sys.executable, "-c", FLEET_FLAT, targets_file,
+                 str(FLEET_TICKS), str(FLEET_CHIPS)], cwd=HERE, env=fenv,
+                capture_output=True, text=True, timeout=FLEET_TICKS + 60)
+        finally:
+            stop.set()
+            sampler.join()
+        if flat_proc.returncode != 0:
+            raise AssertionError(f"the flat poller exited "
+                                 f"{flat_proc.returncode}: "
+                                 f"{flat_proc.stderr[-2000:]}")
+        flat = json.loads(flat_proc.stdout.strip().splitlines()[-1])
+        ticks = flat["ticks"]
+        walls = [t["wall_ms"] for t in ticks]
+        down = [t["up"] for t in ticks if t["up"] != len(targets)]
+        if down:
+            failures.append(f"flat ticks with a host down: up {down}")
+        if flat["n_mismatched"]:
+            failures.append(f"simulated rows off their farm's values: "
+                            f"{flat['n_mismatched']} ({flat['mismatched']})")
+        held = {"power_w": lambda w: max(15.0 * cards, 0.1 * w),
+                "max_temp_c": lambda w: 2.0,
+                "hbm_total_mib": lambda w: 0.0,
+                "hbm_used_mib": lambda w: 64.0 * cards,
+                "links_up": lambda w: 0.0,
+                "chips": lambda w: 0.0}
+        card_misses, card_err = [], {k: 0.0 for k in held}
+        for t in ticks:
+            row = t["card"]
+            near = [s for w, s in nv_reads
+                    if t["span"][0] - 1.0 <= w <= t["span"][1] + 1.0]
+            best = None
+            for s in near:
+                errs = {k: (abs(float(row[k]) - float(getattr(s, k)))
+                            if row[k] is not None
+                            and getattr(s, k) is not None else math.inf)
+                        for k in held}
+                if all(errs[k] <= tol(float(getattr(s, k) or 0.0))
+                       for k, tol in held.items()):
+                    best = errs
+                    break
+            if best is None or not row["up"] or row["dead_chips"]:
+                card_misses.append((row, [s.__dict__ for _, s in near][:2]))
+            else:
+                card_err = {k: max(card_err[k], v) for k, v in best.items()}
+        if card_misses:
+            failures.append(f"the card's row vs NVML: {len(card_misses)} "
+                            f"of {len(ticks)} ticks, {card_misses[:2]}")
+        host_ticks = len(targets) * len(ticks)
+        out["flat"] = {
+            "ticks": len(ticks),
+            "tick_wall_ms": {"p50": quantile(walls, 0.5),
+                             "p99": quantile(walls, 0.99), "n": len(walls),
+                             "max": max(walls)},
+            "poller_cpu_ms_per_tick": sum(t["cpu_ms"] for t in ticks) /
+            len(ticks),
+            "process_cpu_percent": 100.0 * flat["cpu_s"] / flat["wall_s"],
+            "rss_kib": flat["rss_kib"],
+            "bytes_per_host_tick": sum(t["bytes"] for t in ticks) /
+            host_ticks,
+            "hosts_up_per_tick": sorted({t["up"] for t in ticks}),
+            "card_row_max_err": card_err, "nvml_reads": len(nv_reads),
+            "card_row_last": ticks[-1]["card"]}
+        flat_rows = {}
+        for line in flat["table"]:
+            key = line.split()[0] if line.strip() else ""
+            if key in sims:
+                flat_rows[key] = line
+        if len(flat_rows) != len(sims):
+            failures.append(f"the flat table has {len(flat_rows)} "
+                            f"simulated rows")
+
+        # -- supervised, as operators run it ---------------------------------
+        mport = free_port()
+        t_sup = time.monotonic()
+        cli = subprocess.Popen(
+            [sys.executable, "-m", "tpumon_torch.cli.fleet",
+             "--targets-file", targets_file, "--shards", str(FLEET_SHARDS),
+             "--supervise", "--metrics-port", str(mport), "-d", "1"],
+            cwd=HERE, env=fenv, stdout=subprocess.PIPE,
+            stderr=open(os.path.join(work, "fleet-cli.err"), "w"),
+            text=True)
+        tables = FleetTables(cli)
+
+        def converged_after(t0):
+            for at, rows in tables.tables:
+                if at > t0 and fleet_view(rows, flat_rows, agent_addr):
+                    return at
+            if cli.poll() is not None:
+                raise AssertionError(f"the supervised CLI exited "
+                                     f"{cli.returncode}")
+            return None
+
+        first_at = wait_for(lambda: converged_after(t_sup), 90,
+                            "the supervised view")
+        sup = {"first_converge_s": round(first_at - t_sup, 3)}
+
+        def health():
+            status, _, body, wall = http_get(mport, "/metrics")
+            m = {}
+            for _, fam, labels, v, ok in samples(body.decode()):
+                if ok:
+                    m.setdefault(fam, []).append((labels, float(v)))
+            return status, m, wall
+
+        wait_for(lambda: all(v == 1.0 for _, v in health()[1].get(
+            "tpumon_fleet_shard_up", [({}, 0.0)])), 30,
+            "every shard up on /metrics")
+        c0, s0 = proc_stat(cli.pid), time.monotonic()
+        n0 = len(tables.tables)
+        time.sleep(FLEET_STEADY_S)
+        st1, _, scrape_ms = health()
+        c1, s1 = proc_stat(cli.pid), time.monotonic()
+        steady = tables.tables[n0:]
+        if not steady or not all(fleet_view(rows, flat_rows, agent_addr)
+                                 for _, rows in steady):
+            failures.append("a steady supervised table is not the flat view")
+        pcpu = c1["cpu_s"] - c0["cpu_s"]
+        kids = [(pid, argv) for pid, argv in children_of(cli.pid)
+                if "--shard-serve-unix" in argv]
+        bad_argv = [argv[:3] for _, argv in kids
+                    if argv[1:3] != ["-m", "tpumon_torch.cli.fleet"]]
+        if len(kids) != FLEET_SHARDS or bad_argv:
+            failures.append(f"shard children {len(kids)}, argv {bad_argv}")
+        sup.update({
+            "steady_tables": len(steady),
+            "process_cpu_percent": round(100.0 * pcpu / (s1 - s0), 3),
+            "process_cpu_ms_per_tick": round(1e3 * pcpu / max(1, len(
+                steady)), 3),
+            "rss_kib": c1["rss_kib"],
+            "metrics_scrape_ms": round(scrape_ms, 3),
+            "metrics_status": st1,
+            "shard_children_rss_kib": sorted(
+                proc_stat(pid)["rss_kib"] for pid, _ in kids)})
+        # SIGKILL one shard child mid-run
+        vpid, vargv = kids[0]
+        vid = vargv[vargv.index("--shard-id") + 1]
+        n_kill = len(tables.tables)
+        t_kill = time.monotonic()
+        os.kill(vpid, _signal.SIGKILL)
+        try:
+            back = wait_for(lambda: converged_after(t_kill),
+                            FLEET_RECOVER_S, "the view after the SIGKILL")
+        except AssertionError:
+            back = None
+            failures.append(f"the supervised view was not the flat one "
+                            f"{FLEET_RECOVER_S} s after the SIGKILL")
+        if back is not None:
+            after = [at for at, _ in tables.tables[n_kill:] if at <= back]
+            st2, m2, _ = health()
+            restarts = [v for lb, v in m2.get(
+                "tpumon_fleet_shard_restarts_total", [])
+                if lb.get("shard") == vid]
+            respawned = [pid for pid, argv in children_of(cli.pid)
+                         if "--shard-serve-unix" in argv
+                         and argv[argv.index("--shard-id") + 1] == vid]
+            if restarts != [1.0] or not respawned or vpid in respawned:
+                failures.append(f"restart not counted: {restarts}, "
+                                f"{respawned} after killing {vpid}")
+            # ticks: the tables printed after the kill up to the first
+            # that is the flat view again, that one included
+            sup["recovery"] = {"shard": int(vid),
+                               "ticks_to_converge": len(after),
+                               "tables_not_flat": len(after) - 1,
+                               "s_to_converge": round(back - t_kill, 3),
+                               "budget_s": FLEET_RECOVER_S}
+        alive = [pid for pid, _ in children_of(cli.pid)]
+        rc, _ = stop_proc(cli, timeout=20.0)
+        left = [pid for pid in alive if os.path.exists(f"/proc/{pid}")]
+        if rc != 0 or left:
+            failures.append(f"the supervised CLI exited {rc} on SIGTERM, "
+                            f"children left {left}")
+        out["supervised"] = sup
+
+        # -- the supervisor's cost, from its own counter ---------------------
+        sv = subprocess.run(
+            [sys.executable, "-c", FLEET_SUPERVISE, targets_file,
+             str(FLEET_SHARDS), str(FLEET_SUP_TICKS)], cwd=HERE, env=fenv,
+            capture_output=True, text=True, timeout=FLEET_SUP_TICKS + 90)
+        if sv.returncode != 0:
+            raise AssertionError(f"the supervisor process exited "
+                                 f"{sv.returncode}: {sv.stderr[-2000:]}")
+        sv = json.loads(sv.stdout.strip().splitlines()[-1])
+        if any(u != len(targets) for u in sv["up"]):
+            failures.append(f"supervised ticks with a host down: up "
+                            f"{sv['up']}")
+        sup["health"] = {
+            "ticks": len(sv["up"]), "all_up_s": round(sv["all_up_s"], 3),
+            "process_cpu_percent": round(
+                100.0 * sv["cpu_s"] / sv["wall_s"], 3),
+            "process_cpu_ms_per_tick": round(
+                1e3 * sv["cpu_s"] / len(sv["up"]), 3),
+            "health_cpu_ms_per_tick": round(
+                1e3 * sv["health_cpu_s"] / len(sv["up"]), 4),
+            "health_passes": sv["health_passes"],
+            "health_share_of_tick_cpu": round(
+                sv["health_cpu_s"] / max(1e-9, sv["cpu_s"]), 4)}
+
+        # -- once: the readiness gate on the card's host ---------------------
+        once = subprocess.run(
+            [sys.executable, "-m", "tpumon_torch.cli.fleet", "--connect",
+             agent_addr, "--once", "--check", "--expect-chips", str(cards)],
+            cwd=HERE, env=fenv, capture_output=True, text=True, timeout=60)
+        line = next((ln for ln in once.stdout.splitlines()
+                     if "[PASS]" in ln or "[FAIL]" in ln), "")
+        if once.returncode != 0 or agent_addr not in line or \
+                f"[PASS] {cards} chips" not in line or driver not in line:
+            failures.append(f"--once --check exited {once.returncode}: "
+                            f"{once.stdout[-500:]}")
+        out["once"] = {"rc": once.returncode, "line": line.strip()}
+        with open(refused_log) as f:
+            refused = f.read().split("\n")
+        refused = [r for r in refused if r]
+        if refused:
+            failures.append(f"fleet processes imported {refused[:6]}")
+        out["processes"] = {"farm": 1 + len(farm_kids), "shards":
+                            FLEET_SHARDS, "refused_imports": len(refused)}
+        out["leg_s"] = round(time.monotonic() - t_leg, 3)
+        if failures:
+            raise AssertionError(f"fleet check failed: {failures[:8]} {out}")
+        return out
+    finally:
+        b.close()
+        if cli is not None and cli.poll() is None:
+            stop_proc(cli, timeout=20.0)
+        if farm is not None:
+            try:
+                farm.stdin.write(json.dumps({"op": "quit"}) + "\n")
+                farm.stdin.flush()
+                farm.wait(timeout=20)
+            except (OSError, subprocess.TimeoutExpired):
+                farm.kill()
+                farm.wait()
+        if agent is not None:
+            stop_proc(agent)
+
+
 def relay_agent_phases(K, fields) -> tuple:
-    """The ``relay`` and ``agent`` legs beside one train workload
-    (``python -m tpumon_torch.loadgen.run --size bench --self-monitor
-    --monitor-output <drop> --json``, B1-B3 in its own process, its launch
-    counts from its JSON line), then, while it ends, in this process: the
-    burst loop's CPU split as the exporter daemon runs it and as the agent
-    runs it, and the agent's collect by NVML entry point
-    (``loadgen.bench_gpu.burst_cpu_split``, ``agent_collect``).  Returns
-    the two legs' records and the workload's."""
+    """The ``relay``, ``agent`` and ``fleet`` legs beside one train
+    workload (``python -m tpumon_torch.loadgen.run --size bench
+    --self-monitor --monitor-output <drop> --json``, B1-B3 in its own
+    process, its launch counts from its JSON line), then, while it ends,
+    in this process: the burst loop's CPU split as the exporter daemon
+    runs it and as the agent runs it, and the agent's collect by NVML
+    entry point (``loadgen.bench_gpu.burst_cpu_split``,
+    ``agent_collect``).  Returns the three legs' records and the
+    workload's."""
 
     import shutil
     import tempfile
@@ -4340,9 +4869,13 @@ def relay_agent_phases(K, fields) -> tuple:
     env = dict(os.environ, PYTHONPATH=HERE)
     for k in ("TPUMON_BACKEND", "TPUMON_CHIPS"):
         env.pop(k, None)
-    # the legs' stretches and their start-ups, kills and restarts
+    # the legs' stretches and their start-ups, kills and restarts; the
+    # fleet leg's flat ticks, steady stretch, recovery budget and
+    # supervisor ticks and its processes' start-ups
     seconds = RELAY_LIVE_S + RELAY_DARK_S + RELAY_BACK_S + AGENT_SCRAPE_S + \
-        AGENT_BURST_S + AGENT_BURST_IDLE_S + AGENT_PROM_SCRAPES + 45
+        AGENT_BURST_S + AGENT_BURST_IDLE_S + AGENT_PROM_SCRAPES + 45 + \
+        FLEET_TICKS + FLEET_STEADY_S + FLEET_RECOVER_S + FLEET_SUP_TICKS + \
+        35
     workload = None
     try:
         workload = spawn(["tpumon_torch.loadgen.run", "--size", "bench",
@@ -4355,6 +4888,7 @@ def relay_agent_phases(K, fields) -> tuple:
         relay = relay_phase(env, work)
         agent = agent_phase(K, fields, env, work)
         agent["prom"] = agent_prom_phase(fields, env, work, drop)
+        fleet = fleet_phase(fields, env, work)
         # while the workload finishes its window
         b, i = nvml_open(fields)
         try:
@@ -4377,7 +4911,7 @@ def relay_agent_phases(K, fields) -> tuple:
                 raise AssertionError(f"workload exited {workload.returncode}"
                                      f": {f.read()[-2000:]}")
         wl = json.loads(wl_out.strip().splitlines()[-1])
-        return relay, agent, {k: wl.get(k) for k in (
+        return relay, agent, fleet, {k: wl.get(k) for k in (
             "steps_per_sec", "steps", "final_loss", "captures_ok",
             "captures_failed", "launches")}
     finally:
@@ -4496,19 +5030,21 @@ def main() -> int:
         rows[name]["launches_by_path"]["stream"] = n
     print("stream: " + json.dumps(stream))
 
-    relay, agent, workload = relay_agent_phases(K, fields)
+    relay, agent, fleet, workload = relay_agent_phases(K, fields)
     for name in PATHS["train"]:
         n = (workload["launches"] or {}).get(name, 0)
         if n <= 0:
-            return fail(f"kernel {name} never launched on the relay and "
-                        f"agent paths' workload")
+            return fail(f"kernel {name} never launched on the relay, agent "
+                        f"and fleet paths' workload")
         rows[name]["launches"] += n
-        rows[name]["launches_by_path"]["relay+agent"] = n
+        rows[name]["launches_by_path"]["relay+agent+fleet"] = n
     n = agent["launches"]["mxu_burn"]
     rows["mxu_burn"]["launches"] += n
     rows["mxu_burn"]["launches_by_path"]["agent"] = n
     print("relay: " + json.dumps(relay))
     print("agent: " + json.dumps(dict(agent, workload=workload)))
+    print("fleet: " + json.dumps(dict(
+        fleet, workload_steps_per_sec=workload["steps_per_sec"])))
 
     # the card again, where a tail of the output keeps it
     print(smi.stdout.strip().splitlines()[0])

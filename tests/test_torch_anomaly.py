@@ -236,10 +236,20 @@ def test_xid_lines_name_the_card_through_the_bus_map():
 
 
 def test_fleet_shard_fields_are_not_known():
-    assert JA.resolve_field("SF_UP") == 9001
-    with pytest.raises(ValueError, match="unknown field 'SF_UP'"):
-        TA.resolve_field("SF_UP")
-    assert TA.field_name(9001) == "9001"
+    """Once a divergence (the port had no fleet plane), now the
+    reference's behaviour: the fleet shard's synthetic ``SF_*`` fields
+    resolve and display through ``tpumon_torch.fleetshard``, and a name
+    in that range the shard does not define stays unknown in both."""
+
+    for name in ("SF_UP", "SF_ADDRESS", "SF_ERROR"):
+        assert TA.resolve_field(name) == JA.resolve_field(name)
+    assert TA.resolve_field("SF_UP") == 9001
+    assert TA.field_name(9001) == JA.field_name(9001) == "SF_UP"
+    assert TA.field_name(9099) == JA.field_name(9099) == "9099"
+    with pytest.raises(ValueError, match="unknown field 'SF_NOPE'"):
+        TA.resolve_field("SF_NOPE")
+    with pytest.raises(ValueError, match="unknown field 'SF_NOPE'"):
+        JA.resolve_field("SF_NOPE")
     for spec in (203, "203", "0xcb", "TENSORCORE_UTIL", "tcutil",
                  "tpu_tensorcore_utilization"):
         assert TA.resolve_field(spec) == JA.resolve_field(spec) == 203

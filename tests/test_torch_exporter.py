@@ -431,6 +431,11 @@ def _modeled_pair():
             for side, mod, handle, base, types_mod in (
                 ("ref", JE, tpumon.Handle, JaxBackend, JT),
                 ("port", TE, tpumon_torch.Handle, Backend, TT))}
+    for exp in exps.values():
+        # process stats vary between the two sweeps: pin them, as
+        # :class:`Pair` does, so the gauges that count the body's bytes
+        # agree too
+        exp._self_mon = types.SimpleNamespace(status=_Stats)
     try:
         texts = {k: e.sweep(now=T0) for k, e in exps.items()}
         assert without_timings(texts["port"]) == \
@@ -440,9 +445,14 @@ def _modeled_pair():
         assert len(lines) == 2 * 2 * 3  # tx/rx x cards x links
         assert sum(ln.endswith(" 400.000") for ln in lines) == 6
         values[1][link_tx] = [5.0]
-        texts = {k: e.sweep(now=T0 + 1) for k, e in exps.items()}
+        first, texts = texts, {k: e.sweep(now=T0 + 1)
+                               for k, e in exps.items()}
         assert without_timings(texts["port"]) == \
             without_timings(texts["ref"])
+        for k, text in texts.items():
+            # the size each served: its own previous exposition
+            assert f'tpumon_exporter_scrape_bytes{{host="vm"}} ' \
+                f'{len(first[k].encode())}\n' in text, k
         assert 'source="modeled"' not in texts["port"]
     finally:
         for e in exps.values():
@@ -798,29 +808,11 @@ def test_kubelet_socket_and_merge_max_age(cli_env, tmp_path):
     one here, answering for GPU 1 by its ``nvidia1`` index), and
     ``--merge-max-age`` skips a drop file older than it."""
 
-    grpc = pytest.importorskip("grpc")
-    from concurrent import futures
+    from test_torch_pod import _fake_kubelet
     from tpumon_torch.exporter.podresources import encode_pod_resources
 
-    payload = encode_pod_resources([
-        ("train-1", "ml", [("w", "nvidia.com/gpu", ["nvidia1"])])])
-
-    class FakeKubelet(grpc.GenericRpcHandler):
-        def service(self, details):
-            if details.method == "/v1alpha1.PodResources/List":
-                return grpc.unary_unary_rpc_method_handler(
-                    lambda req, ctx: payload,
-                    request_deserializer=lambda b: b,
-                    response_serializer=lambda b: b)
-            return None
-
-    import tempfile
-    # a short path: a unix socket's name has a 107-byte limit
-    sock = tempfile.mktemp(prefix="kubelet-test-", suffix=".sock")
-    server = grpc.server(futures.ThreadPoolExecutor(max_workers=2))
-    server.add_generic_rpc_handlers((FakeKubelet(),))
-    server.add_insecure_port(f"unix://{sock}")
-    server.start()
+    server, sock = _fake_kubelet(encode_pod_resources([
+        ("train-1", "ml", [("w", "nvidia.com/gpu", ["nvidia1"])])]))
     drop = tmp_path / "drop"
     drop.mkdir()
     (drop / "fresh.prom").write_text('tpu_workload_fresh{chip="0"} 1\n')
@@ -834,8 +826,6 @@ def test_kubelet_socket_and_merge_max_age(cli_env, tmp_path):
                   env=cli_env)
     finally:
         server.stop(0)
-        if os.path.exists(sock):
-            os.unlink(sock)
     assert r.returncode == 0, r.stderr
     power = [ln for ln in r.stdout.splitlines()
              if ln.startswith("tpu_power_usage{")]

@@ -745,7 +745,8 @@ def test_port_imports_neither_jax_nor_tpumon():
                 "exporter/podresources.py", "exporter/pod_attrib.py",
                 "exporter/pod_main.py", "sweepframe.py", "burst.py",
                 "blackbox.py", "anomaly.py", "simple_yaml.py",
-                "cli/replay.py"):
+                "cli/replay.py", "fleetpoll.py", "fleetshard.py",
+                "supervisor.py", "cli/fleet.py", "agentsim.py"):
         assert os.path.join(REPO, "tpumon_torch", mod) in files, mod
     bad = []
     for path in files:

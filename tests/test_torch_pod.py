@@ -11,13 +11,12 @@ to ``nvidia.com/gpu``.
 import http.client
 import json
 import os
+import shutil
 import signal
 import subprocess
 import sys
 import tempfile
 import time
-from concurrent import futures
-
 import pytest
 
 from tpumon.exporter import pod_attrib as JA
@@ -85,47 +84,204 @@ def test_default_resource_is_nvidias_and_env_overrides(monkeypatch):
 
 
 # ---- the kubelet transport ---------------------------------------------------
+#
+# gRPC runs in child processes only.  Its EventEngine threads, once started
+# in a test process, outlive the servers and channels that started them,
+# and one of them ('event_engine', in ``grpc._cython.cygrpc``) has
+# segfaulted a test process much later, under another file's test (ROADMAP,
+# Queue 3, F7).  So the fake kubelet and the grpcio client calls below
+# never run in this process.  The fault is gRPC's TCP backup poller
+# (``run_poller`` in ``src/core/lib/iomgr/tcp_posix.cc``): it sleeps up to
+# 10 s in ``pollset_work``, then locks ``g_backup_poller_mu``, which
+# ``grpc_shutdown`` deletes and sets to null once the process's last gRPC
+# object is freed.  The JAX package's pod tests run gRPC servers in the
+# test process; :data:`_GRPC_HOLD` keeps gRPC initialised for the whole
+# process, so that shutdown never comes while tests run.
+
+
+def _hold_grpc_initialised():
+    """One idle channel (it never connects), kept for the process's life:
+    while it lives, gRPC's init count stays above 0, so freeing every
+    other gRPC object does not shut gRPC down under a sleeping backup
+    poller.  None where the grpc package is absent."""
+
+    try:
+        import grpc
+    except ImportError:
+        return None
+    return grpc.insecure_channel("unix:/nonexistent/tpumon-grpc-hold.sock")
+
+
+#: made when this file is collected, before any test of the process runs
+_GRPC_HOLD = _hold_grpc_initialised()
+
+#: the fake kubelet: serves the bytes of the file in argv[1] as the
+#: PodResources/List answer on unix socket argv[2]; "ready" once listening
+KUBELET = """\
+import sys
+from concurrent import futures
+
+import grpc
+
+payload = open(sys.argv[1], "rb").read()
+
+
+class FakeKubelet(grpc.GenericRpcHandler):
+    def service(self, handler_call_details):
+        if handler_call_details.method == "/v1alpha1.PodResources/List":
+            return grpc.unary_unary_rpc_method_handler(
+                lambda req, ctx: payload,
+                request_deserializer=lambda b: b,
+                response_serializer=lambda b: b)
+        return None
+
+
+server = grpc.server(futures.ThreadPoolExecutor(max_workers=2))
+server.add_generic_rpc_handlers((FakeKubelet(),))
+server.add_insecure_port("unix://" + sys.argv[2])
+server.start()
+print("ready", flush=True)
+sys.stdin.read()  # until the test closes it
+server.stop(0)
+"""
+#: both packages' clients over the grpc package against the kubelet on
+#: argv[1]: their (devices, resources) as JSON lines
+GRPCIO_CLIENTS = """\
+import json, os, sys
+os.environ["TPUMON_GRPC_TRANSPORT"] = "grpcio"
+from tpumon.exporter import podresources as JR
+from tpumon_torch.exporter import podresources as TR
+for mod in (TR, JR):
+    dev, res = mod.list_pod_resources(sys.argv[1], timeout_s=5.0)
+    print(json.dumps([{k: [v.pod, v.namespace, v.container]
+                       for k, v in dev.items()}, res]))
+"""
+
+
+class _Kubelet:
+    """The fake kubelet's child process (``stop`` as a grpc server's)."""
+
+    def __init__(self, payload: bytes) -> None:
+        self.dir = tempfile.mkdtemp(prefix="kubelet-test-")
+        # a short path: a unix socket's name has a 107-byte limit
+        self.sock = os.path.join(self.dir, "k.sock")
+        data = os.path.join(self.dir, "payload")
+        with open(data, "wb") as f:
+            f.write(payload)
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", KUBELET, data, self.sock],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+        if self.proc.stdout.readline().strip() != "ready":
+            self.stop(0)
+            raise AssertionError("the fake kubelet did not start")
+
+    def stop(self, grace=None) -> None:
+        self.proc.stdin.close()
+        try:
+            self.proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+        self.proc.stdout.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
 
 def _fake_kubelet(payload):
-    grpc = pytest.importorskip("grpc")
+    """(the kubelet, its socket path) serving ``payload``."""
 
-    class FakeKubelet(grpc.GenericRpcHandler):
-        def service(self, handler_call_details):
-            if handler_call_details.method == "/v1alpha1.PodResources/List":
-                return grpc.unary_unary_rpc_method_handler(
-                    lambda req, ctx: payload,
-                    request_deserializer=lambda b: b,
-                    response_serializer=lambda b: b)
-            return None
+    import importlib.util
 
-    sock = tempfile.mktemp(prefix="kubelet-test-", suffix=".sock")
-    server = grpc.server(futures.ThreadPoolExecutor(max_workers=2))
-    server.add_generic_rpc_handlers((FakeKubelet(),))
-    server.add_insecure_port(f"unix://{sock}")
-    server.start()
-    return server, sock
+    if importlib.util.find_spec("grpc") is None:
+        pytest.skip("no grpc package for the fake kubelet")
+    k = _Kubelet(payload)
+    return k, k.sock
+
+
+def _grpcio_clients(sock):
+    """Both packages' ``list_pod_resources`` over the grpc package, run in
+    a child: [port's, reference's] (devices, resources)."""
+
+    r = subprocess.run([sys.executable, "-c", GRPCIO_CLIENTS, sock],
+                       capture_output=True, text=True, timeout=60, cwd=REPO,
+                       env=dict(os.environ, PYTHONPATH=REPO))
+    assert r.returncode == 0, r.stderr[-2000:]
+    return [json.loads(ln) for ln in r.stdout.splitlines()]
 
 
 @pytest.mark.parametrize("transport", ["minimal", "grpcio"])
 def test_kubelet_round_trip_matches_reference(transport, monkeypatch):
     """The port's and the reference's client against one fake kubelet,
-    over the stdlib HTTP/2 client and over the grpc package."""
+    over the stdlib HTTP/2 client and over the grpc package (in a child:
+    see ``KUBELET``)."""
 
+    monkeypatch.delenv("TPUMON_GRPC_TRANSPORT", raising=False)
     server, sock = _fake_kubelet(TR.encode_pod_resources(PODS))
-    if transport == "grpcio":
-        monkeypatch.setenv("TPUMON_GRPC_TRANSPORT", "grpcio")
-    else:
-        monkeypatch.delenv("TPUMON_GRPC_TRANSPORT", raising=False)
     try:
-        got_dev, got_res = TR.list_pod_resources(sock, timeout_s=5.0)
-        want_dev, want_res = JR.list_pod_resources(sock, timeout_s=5.0)
+        if transport == "grpcio":
+            (got_dev, got_res), (want_dev, want_res) = _grpcio_clients(sock)
+        else:
+            got, want = (mod.list_pod_resources(sock, timeout_s=5.0)
+                         for mod in (TR, JR))
+            got_dev, want_dev = ({k: [v.pod, v.namespace, v.container]
+                                  for k, v in d[0].items()}
+                                 for d in (got, want))
+            got_res, want_res = got[1], want[1]
     finally:
         server.stop(0)
     assert got_res == want_res
-    assert {k: (v.pod, v.namespace, v.container)
-            for k, v in got_dev.items()} == \
-        {k: (v.pod, v.namespace, v.container) for k, v in want_dev.items()}
-    assert got_dev[UUID0] == TR.PodInfo("train-abc", "ml", "worker")
+    assert got_dev == want_dev
+    assert got_dev[UUID0] == ["train-abc", "ml", "worker"]
+
+
+def test_no_port_test_runs_grpc_in_its_own_process():
+    """F7 stays repaired: no ``tests/test_torch_*.py`` imports the grpc
+    package into the test process but :func:`_hold_grpc_initialised`;
+    the fake kubelet's and the grpcio clients' code is source text for a
+    child (``KUBELET``)."""
+
+    import ast
+    import glob
+
+    bad = []
+    for path in sorted(glob.glob(os.path.join(REPO, "tests",
+                                              "test_torch_*.py"))):
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read(), path)
+        where = os.path.basename(path)
+        held = [n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)
+                and n.name == "_hold_grpc_initialised"]
+        allowed = {id(n) for f in held for n in ast.walk(f)}
+        for node in ast.walk(tree):
+            if id(node) in allowed and where == "test_torch_pod.py":
+                continue
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            elif isinstance(node, ast.Call) and node.args and isinstance(
+                    node.args[0], ast.Constant) and getattr(
+                        node.func, "attr", getattr(node.func, "id", "")) in (
+                            "importorskip", "import_module", "__import__"):
+                names = [str(node.args[0].value)]
+            else:
+                names = []
+            bad += [f"{where}:{node.lineno} imports {n}" for n in names
+                    if n.split(".")[0] == "grpc"]
+    assert bad == []
+
+
+def test_grpc_stays_initialised_for_the_test_process():
+    """F7's cover: the idle channel exists from collection on (where the
+    grpc package is installed), so no test's freeing of its own gRPC
+    objects shuts gRPC down in this process."""
+
+    import importlib.util
+
+    if importlib.util.find_spec("grpc") is None:
+        assert _GRPC_HOLD is None
+    else:
+        assert type(_GRPC_HOLD).__module__.split(".")[0] == "grpc"
+        assert callable(_GRPC_HOLD.unary_unary)
 
 
 def test_minimal_transport_carries_a_large_response():

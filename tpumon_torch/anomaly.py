@@ -29,8 +29,7 @@ Design constraints, in order:
 What differs from the reference: kernel-log lines are classified by the
 port's ``NVRM: Xid`` table (:func:`tpumon_torch.kmsg.classify_line`)
 with the GPU bus map the engine is given (``buses``), so event evidence
-names the card (``#chip0``); and the fleet shard's synthetic ``SF_*``
-fields are not known (the port has no fleet plane).
+names the card (``#chip0``).
 
 Findings are :class:`~tpumon_torch.blackbox.AnomalyRecord` values — the
 exact record type the black box persists (0xB3).
@@ -85,8 +84,9 @@ METRIC_FAMILIES: List[Tuple[str, str, str]] = [
 
 def resolve_field(spec: Union[int, str]) -> int:
     """Field id from a rules-file spec: a plain int, an ``F`` member
-    name (``HBM_BW_UTIL``), or a catalog short/Prometheus name
-    (``hbmbw`` / ``tpu_hbm_bw_utilization``)."""
+    name (``HBM_BW_UTIL``), a fleet-shard synthetic name (``SF_UP``),
+    or a catalog short/Prometheus name (``hbmbw`` /
+    ``tpu_hbm_bw_utilization``)."""
 
     if isinstance(spec, int):
         return spec
@@ -99,6 +99,11 @@ def resolve_field(spec: Union[int, str]) -> int:
         return int(FF.F[s])
     except KeyError:
         pass
+    if s.startswith("SF_"):
+        from . import fleetshard
+        v = getattr(fleetshard, s, None)
+        if isinstance(v, int):
+            return v
     m = FF.by_name(s)
     if m is not None:
         return m.field_id
@@ -106,12 +111,18 @@ def resolve_field(spec: Union[int, str]) -> int:
 
 
 def field_name(fid: int) -> str:
-    """Display name for a field id (catalog short name, else the
-    number)."""
+    """Display name for a field id (catalog short name, ``SF_*`` name
+    for the fleet-shard synthetic range, else the number)."""
 
     meta = FF.CATALOG.get(fid)
     if meta is not None:
         return meta.name
+    if 9000 <= fid < 9100:
+        from . import fleetshard
+        for name in fleetshard.__dict__:
+            if name.startswith("SF_") and \
+                    getattr(fleetshard, name) == fid:
+                return name
     return str(fid)
 
 
@@ -371,7 +382,7 @@ _MISSING = object()
 
 class AnomalyEngine:
     """The streaming detection plane: one engine per monitored stream
-    (one exporter, one replayed recording).
+    (one exporter, one fleet-poller host, one replayed recording).
 
     Single-owner by design: every call carries the sweep's wall
     timestamp, state lives in plain dicts, and the score path takes no
@@ -738,6 +749,26 @@ def _same_identity(prev: object, v: FieldValue) -> bool:
 
 def _fmt(v: float) -> str:
     return f"{v:g}"
+
+
+def finding_to_event(rec: AnomalyRecord, seq: int, *,
+                     chip_index: Optional[int] = None,
+                     prefix: str = "") -> Event:
+    """A finding as a wire event (``EventType.ANOMALY``/``INCIDENT``)
+    so it can piggyback on the agent protocol's event drain — the fleet
+    shard re-serves its detection plane's findings upstream this way
+    (``chip_index`` = the shard-local host row, ``prefix`` = the host
+    address, so the consumer can attribute the verdict without a side
+    channel).  The ONE place the wire message shape is defined."""
+
+    etype = EventType.INCIDENT if rec.kind == "incident" \
+        else EventType.ANOMALY
+    state = "" if rec.state == "firing" else " (cleared)"
+    return Event(etype=etype, timestamp=rec.timestamp, seq=seq,
+                 chip_index=rec.chip if chip_index is None
+                 else chip_index,
+                 message=f"{prefix}{rec.severity} {rec.rule}{state}: "
+                         f"{rec.message}")
 
 
 # -- backtest ------------------------------------------------------------------
