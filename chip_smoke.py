@@ -182,10 +182,27 @@
    the health watch's CPU over the process's, from the supervisor's own
    counter); ``--connect <agent> --once --check --expect-chips 1`` exit
    0.
-   No fleet process may import ``tpumon``, ``jax`` or ``torch``: they run
-   with an import guard on their ``PYTHONPATH`` that refuses and logs
-   it.  The workload's B1-B3 launches join the kernels line as path
-   ``relay+agent+fleet``; its steps/s is printed on the ``fleet:`` line.
+   ``chaos`` beside the same workload (``chaos_phase``): ``python -m
+   tpumon_torch.cli.chaos run tests/data/torch_scenarios/*.yaml --json``
+   in its own process, every one of the eight scenarios green (each one's
+   ticks to converge, restarts and seconds; the process's CPU share with
+   its children), and a scenario whose replay invariant must go red
+   (CHAOS_RED) exiting non-zero.  ``deploy`` (``deploy_phase``):
+   ``deploy/gpu/k8s/tpumon-daemonset.yaml`` read with the port's YAML
+   loader, its agent and exporter containers' commands and args started
+   here (and ``tpumon-agent-daemonset.yaml``'s agent with
+   ``--prom-port``), hostPaths under a temp dir and ports free ones, the
+   workload's drop file where the manifest mounts the drop directory,
+   10 s at the manifest's ``-d``: the agents' sockets answer, ``/healthz``
+   200, at least 20 NVML families for the card on ``/metrics``, each
+   process's RSS and CPU share under its container's limits, and the
+   families the reused dashboard and alert rules query either served or
+   listed in ``deploy/gpu/README.md`` as blank on the H100 (exactly).
+   No fleet, chaos or deploy process may import ``tpumon``, ``jax`` or
+   ``torch``: they run with an import guard on their ``PYTHONPATH`` that
+   refuses and logs it.  The workload's B1-B3 launches join the kernels
+   line as path ``relay+agent+fleet+chaos+deploy``; its steps/s is
+   printed on the ``fleet:`` line.
 12. Prints each load pattern's busy share (its kernel's device time over
    its self-monitored step), the card's name and power limit again, then
    one ``{"kernels": [...], "backward":
@@ -201,7 +218,8 @@
    them, so the host's pace between launches counts in neither
    (``library_kernels`` names them; each fails unless the profiler kept
    every launch of the timed calls); then, last, the ``{"ok": true,
-   "device": {...}}`` line.
+   "device": {...}}`` line.  The smoke's total seconds so far are printed
+   (``total:``) before the card's name.
 
 Exits non-zero, printing no result, on any failure, when CUDA is not
 available, or when the ``tpumon_torch`` package is not beside it.
@@ -4543,21 +4561,7 @@ def fleet_phase(fields, env, work) -> dict:
     from tpumon_torch.cli.fleet import _FIELDS
     from tpumon_torch.fleetpoll import aggregate_host_sample
 
-    guard = os.path.join(work, "fleet-guard")
-    os.makedirs(guard, exist_ok=True)
-    with open(os.path.join(guard, "sitecustomize.py"), "w") as f:
-        f.write(FLEET_GUARD)
-    refused_log = os.path.join(work, "fleet-refused.log")
-    open(refused_log, "w").close()
-    fenv = dict(env, PYTHONPATH=guard + os.pathsep + env["PYTHONPATH"],
-                FLEET_IMPORT_LOG=refused_log)
-    probe = subprocess.run([sys.executable, "-c", "import torch"],
-                           env=fenv, capture_output=True, text=True,
-                           timeout=60)
-    if probe.returncode == 0 or "torch refused" not in probe.stderr:
-        raise AssertionError(f"the import guard does not hold: "
-                             f"{probe.stderr[-500:]}")
-    open(refused_log, "w").close()
+    fenv, refused_log = guarded_env(env, work, "fleet")
 
     sock = os.path.join(work, "fleet-agent.sock")
     agent_addr = f"unix:{sock}"
@@ -4846,15 +4850,429 @@ def fleet_phase(fields, env, work) -> dict:
             stop_proc(agent)
 
 
+def guarded_env(env, work, name):
+    """``env`` with FLEET_GUARD on its ``PYTHONPATH`` (a ``sitecustomize``
+    in ``<work>/<name>-guard`` that refuses and logs ``tpumon``, ``jax``
+    and ``torch``) -> (that env, the log of refused imports).  Fails
+    unless a child asking for torch is refused."""
+
+    guard = os.path.join(work, f"{name}-guard")
+    os.makedirs(guard, exist_ok=True)
+    with open(os.path.join(guard, "sitecustomize.py"), "w") as f:
+        f.write(FLEET_GUARD)
+    refused_log = os.path.join(work, f"{name}-refused.log")
+    open(refused_log, "w").close()
+    genv = dict(env, PYTHONPATH=guard + os.pathsep + env["PYTHONPATH"],
+                FLEET_IMPORT_LOG=refused_log)
+    probe = subprocess.run([sys.executable, "-c", "import torch"],
+                           env=genv, capture_output=True, text=True,
+                           timeout=60)
+    if probe.returncode == 0 or "torch refused" not in probe.stderr:
+        raise AssertionError(f"the import guard does not hold: "
+                             f"{probe.stderr[-500:]}")
+    open(refused_log, "w").close()
+    return genv, refused_log
+
+
+def refused_imports(log_path: str) -> list:
+    with open(log_path) as f:
+        return sorted({ln.split()[1] for ln in f if ln.strip()})
+
+
+#: the ``chaos`` leg: the port's scenario corpus, how many it holds, the
+#: most the CLI may take over it (s), and the positive control: a
+#: scenario whose replay invariant must go red (an ECC_DBE marker that no
+#: action injects; ``tests/test_chaos.py::test_failed_invariant_fails_the_run``)
+CHAOS_CORPUS = os.path.join("tests", "data", "torch_scenarios")
+CHAOS_SCENARIOS = 8
+CHAOS_TIMEOUT_S = 240.0
+CHAOS_RED = """\
+name: goes-red
+seed: 3
+topology:
+  hosts: 2
+  chips: 1
+ticks: 6
+tick_interval_s: 0.05
+actions:
+  - at: 2
+    do: churn
+    mutations: 2
+invariants:
+  replay_fault_window: true
+expect:
+  window: [2, 4]
+  markers: ["event:ECC_DBE"]
+"""
+
+
+def chaos_run(paths, env, out_dir, log_path) -> dict:
+    """``python -m tpumon_torch.cli.chaos run PATHS --out OUT --json`` as a
+    process of its own: its exit code, each report with the seconds from
+    the start to its line, and its CPU (its own and its reaped children's,
+    ``wait4``) over its wall time."""
+
+    t0 = time.monotonic()
+    with open(log_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "tpumon_torch.cli.chaos", "run", *paths,
+             "--out", out_dir, "--json"], cwd=HERE, env=env,
+            stdout=subprocess.PIPE, stderr=err, text=True)
+    killer = threading.Timer(CHAOS_TIMEOUT_S, proc.kill)
+    killer.start()
+    try:
+        reports = [(time.monotonic() - t0, json.loads(line))
+                   for line in proc.stdout if line.strip()]
+        _, status, usage = os.wait4(proc.pid, 0)
+    finally:
+        killer.cancel()
+    proc.returncode = os.waitstatus_to_exitcode(status)
+    wall = time.monotonic() - t0
+    cpu = usage.ru_utime + usage.ru_stime
+    return {"rc": proc.returncode, "reports": reports, "wall_s": wall,
+            "cpu_s": cpu, "cpu_percent": round(100.0 * cpu / wall, 3)}
+
+
+def chaos_phase(env, work) -> dict:
+    """``chaos``: the port's chaos harness over its whole corpus
+    (CHAOS_CORPUS) in one CLI process under the import guard, beside the
+    train workload.  Fails unless the CLI exits 0 with CHAOS_SCENARIOS
+    reports, each green, and the positive control (CHAOS_RED, its own CLI
+    process) exits non-zero with one red report; or if a process of either
+    imported ``tpumon``, ``jax`` or ``torch``.  Printed: each scenario's
+    verdict, ticks to converge, restarts and wall seconds, the CLI's CPU
+    share (with its children) over its wall."""
+
+    import glob
+
+    genv, refused_log = guarded_env(env, work, "chaos")
+    paths = sorted(glob.glob(os.path.join(HERE, CHAOS_CORPUS, "*.yaml")))
+    run = chaos_run(paths, genv, os.path.join(work, "chaos"),
+                    os.path.join(work, "chaos.err"))
+    scenarios, prev = {}, 0.0
+    for at, rep in run["reports"]:
+        scenarios[rep["scenario"]] = {
+            "ok": rep["ok"], "ticks_to_converge": rep["ticks_to_converge"],
+            "restarts": rep["restarts_total"],
+            "wall_s": round(at - prev, 3), "violations": rep["violations"]}
+        prev = at
+    red_yaml = os.path.join(work, "goes-red.yaml")
+    with open(red_yaml, "w") as f:
+        f.write(CHAOS_RED)
+    red = chaos_run([red_yaml], genv, os.path.join(work, "chaos-red"),
+                    os.path.join(work, "chaos-red.err"))
+    out = {"scenarios": scenarios,
+           "green": sum(s["ok"] for s in scenarios.values()),
+           "rc": run["rc"], "wall_s": round(run["wall_s"], 3),
+           "cpu_s": round(run["cpu_s"], 3),
+           "cpu_percent": run["cpu_percent"],
+           "red_control": {"rc": red["rc"], "ok": [
+               r["ok"] for _, r in red["reports"]]},
+           "refused_imports": refused_imports(refused_log)}
+    failures = []
+    if run["rc"] != 0 or len(scenarios) != CHAOS_SCENARIOS or \
+            out["green"] != CHAOS_SCENARIOS:
+        with open(os.path.join(work, "chaos.err")) as f:
+            tail = f.read()[-1500:]
+        failures.append(f"corpus not green: rc {run['rc']}, "
+                        f"{out['green']}/{len(scenarios)}: {tail}")
+    if red["rc"] == 0 or out["red_control"]["ok"] != [False]:
+        failures.append(f"the red control passed: {out['red_control']}")
+    if out["refused_imports"]:
+        failures.append(f"refused imports {out['refused_imports']}")
+    if failures:
+        raise AssertionError(f"chaos check failed: {failures} {out}")
+    return out
+
+
+#: the ``deploy`` leg: the manifests started as deployed, the seconds they
+#: run at the manifest's ``-d``, and the families the reused dashboard and
+#: alert rules name (their ``expr`` fields)
+DEPLOY_MANIFESTS = (os.path.join("deploy", "gpu", "k8s",
+                                 "tpumon-daemonset.yaml"),
+                    os.path.join("deploy", "gpu", "k8s",
+                                 "tpumon-agent-daemonset.yaml"))
+DEPLOY_S = 10.0
+DEPLOY_DASHBOARD = os.path.join("deploy", "grafana", "tpumon-dashboard.json")
+DEPLOY_RULES = os.path.join("deploy", "k8s", "prometheus",
+                            "tpumon-alert-rules.yaml")
+DEPLOY_README = os.path.join("deploy", "gpu", "README.md")
+FAMILY_RE = re.compile(r"\btpu(?:mon)?_[a-z0-9_]+")
+
+
+def named_families() -> set:
+    """The metric families the reused Grafana dashboard and alert rules
+    query: the names in their ``expr`` fields."""
+
+    names = set()
+
+    def walk(o):
+        if isinstance(o, dict):
+            for k, v in o.items():
+                if k == "expr" and isinstance(v, str):
+                    names.update(FAMILY_RE.findall(v))
+                else:
+                    walk(v)
+        elif isinstance(o, list):
+            for v in o:
+                walk(v)
+
+    with open(os.path.join(HERE, DEPLOY_DASHBOARD)) as f:
+        walk(json.load(f))
+    with open(os.path.join(HERE, DEPLOY_RULES)) as f:
+        for line in f:
+            if line.strip().startswith("expr:"):
+                names.update(FAMILY_RE.findall(line))
+    return names
+
+
+def readme_families(heading: str) -> set:
+    """The families ``deploy/gpu/README.md`` lists under ``### heading``
+    (its ``- `tpu_...``` items): "Blank on the H100" and "Served by the
+    workload's self-monitor"."""
+
+    with open(os.path.join(HERE, DEPLOY_README)) as f:
+        text = f.read()
+    section = text.split("### " + heading + "\n", 1)[1].split("\n#", 1)[0]
+    return set(re.findall(r"^- `(tpu(?:mon)?_[a-z0-9_]+)`", section, re.M))
+
+
+def k8s_quantity(q: str, cpu: bool) -> float:
+    """A resource quantity as cores (``cpu``) or KiB."""
+
+    q = str(q)
+    if cpu:
+        return float(q[:-1]) / 1000.0 if q.endswith("m") else float(q)
+    units = {"Ki": 1, "Mi": 1024, "Gi": 1024 * 1024}
+    return float(q[:-2]) * units[q[-2:]]
+
+
+def manifest_containers(rel: str) -> list:
+    """Every container of every workload in a manifest, read by the
+    port's YAML loader (``tpumon_torch.simple_yaml``)."""
+
+    from tpumon_torch.simple_yaml import parse_simple_yaml
+
+    with open(os.path.join(HERE, rel)) as f:
+        docs = [parse_simple_yaml(d) for d in f.read().split("\n---\n")]
+    out = []
+    for doc in docs:
+        pod = (doc.get("spec") or {}).get("template", {}).get("spec")
+        for c in (pod or {}).get("containers", []):
+            out.append(c)
+    return out
+
+
+def container_process(c, root: str, moved: dict, env) -> tuple:
+    """(argv, env, ports) to start a container's command and args here:
+    ``python`` is this interpreter, each volume's mount path a directory
+    under ``root`` (or ``moved[volume name]``), each declared container
+    port a free one, ``$(VAR)`` the container's env."""
+
+    mounts = {}
+    for m in c.get("volumeMounts", []):
+        host = moved.get(m["name"]) or os.path.join(root, m["name"])
+        os.makedirs(host, exist_ok=True)
+        mounts[m["mountPath"]] = host
+    ports = {str(p["containerPort"]): free_port()
+             for p in c.get("ports", [])}
+    cenv = dict(env)
+    for e in c.get("env", []):
+        if "value" in e:
+            cenv[e["name"]] = str(e["value"])
+        elif e.get("valueFrom", {}).get("fieldRef", {}).get(
+                "fieldPath") == "spec.nodeName":
+            cenv[e["name"]] = os.uname().nodename
+
+    def move(arg: str) -> str:
+        arg = re.sub(r"\$\((\w+)\)", lambda m: cenv.get(m.group(1), ""),
+                     str(arg))
+        if arg in ports:
+            return str(ports[arg])
+        for mp in sorted(mounts, key=len, reverse=True):
+            arg = re.sub(r"(^|[:=])" + re.escape(mp) + r"(?=/|$)",
+                         lambda m: m.group(1) + mounts[mp], arg)
+        return arg
+
+    argv = [move(a) for a in c.get("command", []) + c.get("args", [])]
+    if argv[0] in ("python", "python3"):
+        argv[0] = sys.executable
+    return argv, cenv, ports
+
+
+def deploy_phase(fields, env, work, drop, check_readme=True) -> dict:
+    """``deploy``: the GPU DaemonSets as deployed, beside the train
+    workload.  DEPLOY_MANIFESTS are read with the port's loader and each
+    container's command and args started here under the import guard
+    (the images install no torch): ``tpumon-daemonset.yaml``'s agent and
+    exporter (through the agent's socket, ``--pod-labels`` from a map file
+    keyed by the card's UUID, the workload's drop file where the manifest
+    mounts ``/run/tpumon-drop``) and ``tpumon-agent-daemonset.yaml``'s
+    agent with ``--prom-port``; hostPaths under a temp dir, ports free
+    ones.  After they are ready, DEPLOY_S seconds at the manifest's
+    ``-d``.  Fails unless the agent sockets answer ``hello``, the
+    exporter's and the agent's ``/healthz`` are 200, the exporter's
+    ``/metrics`` carries at least 20 families that NVML fills for the
+    card, each process's RSS and CPU share stay under its container's
+    limits, and no process imported ``tpumon``, ``jax`` or ``torch``.
+    With ``check_readme``, also unless the families the reused dashboard
+    and alert rules query that are blank are exactly those
+    ``deploy/gpu/README.md`` lists as blank on the H100, and those it
+    lists as the workload's are in the workload's drop file.  Printed:
+    each container's RSS, CPU share and limits, families served, the
+    named ones blank."""
+
+    from tpumon_torch.hostengine import SCRAPE_FIELDS
+    from tpumon_torch.supervisor import hello_probe
+
+    genv, refused_log = guarded_env(env, work, "deploy")
+    b, i = nvml_open(fields)
+    uuid = b.chip_info(i).uuid
+    nvml_fams = {fields.CATALOG[f].prom_name
+                 for f, v in b.read_fields(i, SCRAPE_FIELDS).items()
+                 if v is not None}
+    b.close()
+    map_file = os.path.join(work, "deploy-pods.json")
+    with open(map_file, "w") as f:
+        json.dump({uuid: POD}, f)
+    genv["TPUMON_POD_MAP_FILE"] = map_file
+    root = os.path.join(work, "d")   # short: socket paths stay < 108 B
+    moved = {"workload-drop": os.path.dirname(drop)}
+    procs, failures, out = [], [], {}
+    try:
+        for k, rel in enumerate(DEPLOY_MANIFESTS):
+            for c in manifest_containers(rel):
+                argv, cenv, ports = container_process(
+                    c, os.path.join(root, str(k)), moved, genv)
+                if argv[1] != "-m" or not argv[2].startswith("tpumon_torch."):
+                    raise AssertionError(f"{rel}: {c['name']} runs {argv}")
+                log_path = os.path.join(work, f"deploy-{c['name']}-"
+                                              f"{len(procs)}.err")
+                with open(log_path, "w") as err:
+                    p = subprocess.Popen(argv, cwd=HERE, env=cenv,
+                                         stdout=subprocess.DEVNULL,
+                                         stderr=err, text=True)
+                procs.append({"rel": rel, "c": c, "argv": argv,
+                              "ports": ports, "proc": p, "log": log_path})
+        t_start = time.monotonic()
+        for d in procs:
+            argv, p = d["argv"], d["proc"]
+            if "--domain-socket" in argv:
+                addr = "unix:" + argv[argv.index("--domain-socket") + 1]
+                d["hello"] = wait_for(
+                    lambda: hello_probe(addr, 2.0) or p.poll() is not None,
+                    60, f"{d['c']['name']}'s socket", interval=0.2)
+            port = (d["c"].get("readinessProbe") or {}).get(
+                "httpGet", {}).get("port")
+            if port is not None and p.poll() is None:
+                d["port"] = local = d["ports"][str(port)]
+                wait_for(lambda: _healthz(local) or p.poll() is not None, 90,
+                         f"{d['c']['name']}'s /healthz", interval=0.25)
+            if p.poll() is not None:
+                with open(d["log"]) as f:
+                    raise AssertionError(f"{d['c']['name']} exited: "
+                                         f"{f.read()[-1500:]}")
+        out["ready_s"] = round(time.monotonic() - t_start, 3)
+        stats0 = [proc_stat(d["proc"].pid) for d in procs]
+        t0 = time.monotonic()
+        rss_max = [s["rss_kib"] for s in stats0]
+        while time.monotonic() - t0 < DEPLOY_S:
+            time.sleep(1.0)
+            for k, d in enumerate(procs):
+                rss_max[k] = max(rss_max[k],
+                                 proc_stat(d["proc"].pid)["rss_kib"])
+        stats1 = [proc_stat(d["proc"].pid) for d in procs]
+        dt = time.monotonic() - t0
+        scrapes = {}
+        for d in procs:
+            if "port" in d:
+                d["healthz"] = http_get(d["port"], "/healthz")[0]
+                scrapes[d["c"]["name"] + ":" + os.path.basename(d["rel"])] \
+                    = _metrics_of(d["port"])
+        containers = []
+        for k, d in enumerate(procs):
+            lim = (d["c"].get("resources") or {}).get("limits", {})
+            rec = {"manifest": os.path.basename(d["rel"]),
+                   "container": d["c"]["name"], "module": d["argv"][2],
+                   "rss_kib_max": rss_max[k],
+                   "rss_limit_kib": k8s_quantity(lim["memory"], False),
+                   "cpu_percent": cpu_share(stats0[k], stats1[k], dt),
+                   "cpu_limit_percent": 100.0 * k8s_quantity(lim["cpu"],
+                                                             True),
+                   "healthz": d.get("healthz"),
+                   "hello": bool(d.get("hello"))}
+            containers.append(rec)
+            if rec["rss_kib_max"] >= rec["rss_limit_kib"]:
+                failures.append(f"{rec['container']} RSS {rss_max[k]} KiB "
+                                f"over its limit {lim['memory']}")
+            if rec["cpu_percent"] >= rec["cpu_limit_percent"]:
+                failures.append(f"{rec['container']} CPU "
+                                f"{rec['cpu_percent']}% over its limit "
+                                f"{lim['cpu']}")
+            if "port" in d and rec["healthz"] != 200:
+                failures.append(f"{rec['container']} /healthz "
+                                f"{rec['healthz']}")
+            if "--domain-socket" in d["argv"] and not rec["hello"]:
+                failures.append(f"{rec['container']}'s socket is silent")
+        out["containers"] = containers
+        exp = scrapes["prometheus-tpu:tpumon-daemonset.yaml"]
+        card = {f for f, v in exp.items()
+                if any(lb.get("uuid") == uuid for lb, _ in v)}
+        out["exporter_families"] = len(exp)
+        out["nvml_families"] = len(card & nvml_fams)
+        out["pod_labeled"] = sum(
+            1 for f in card & nvml_fams
+            if all(lb.get("pod_name") == POD["pod"]
+                   for lb, _ in exp[f] if lb.get("uuid") == uuid))
+        if out["nvml_families"] < 20:
+            failures.append(f"{out['nvml_families']} NVML families served")
+        served = set().union(*(set(m) for m in scrapes.values()))
+        named = named_families()
+        out["named_families"] = len(named)
+        out["named_served"] = sorted(named & served)
+        out["named_blank"] = sorted(named - served)
+        if check_readme:
+            listed = readme_families("Blank on the H100")
+            if set(out["named_blank"]) != listed:
+                failures.append(f"blank named families {out['named_blank']}"
+                                f", the README lists {sorted(listed)}")
+            dropped = read_drop(drop)
+            own = readme_families("Served by the workload's self-monitor")
+            if not own or not own <= served & (dropped[0] if dropped
+                                               else set()):
+                failures.append(f"the README's workload families {own} are "
+                                f"not all served from the drop file")
+        out["refused_imports"] = refused_imports(refused_log)
+        if out["refused_imports"]:
+            failures.append(f"refused imports {out['refused_imports']}")
+        for d in procs:
+            if d["proc"].poll() is not None:
+                failures.append(f"{d['c']['name']} exited "
+                                f"{d['proc'].returncode}")
+        if failures:
+            raise AssertionError(f"deploy check failed: {failures} {out}")
+        return out
+    finally:
+        for d in reversed(procs):
+            stop_proc(d["proc"])
+
+
+def _healthz(port: int):
+    try:
+        return http_get(port, "/healthz")[0] == 200
+    except OSError:
+        return False
+
+
 def relay_agent_phases(K, fields) -> tuple:
-    """The ``relay``, ``agent`` and ``fleet`` legs beside one train
-    workload (``python -m tpumon_torch.loadgen.run --size bench
+    """The ``relay``, ``agent``, ``fleet``, ``chaos`` and ``deploy`` legs
+    beside one train workload (``python -m tpumon_torch.loadgen.run --size bench
     --self-monitor --monitor-output <drop> --json``, B1-B3 in its own
     process, its launch counts from its JSON line), then, while it ends,
     in this process: the burst loop's CPU split as the exporter daemon
     runs it and as the agent runs it, and the agent's collect by NVML
     entry point (``loadgen.bench_gpu.burst_cpu_split``,
-    ``agent_collect``).  Returns the three legs' records and the
+    ``agent_collect``).  Returns the five legs' records and the
     workload's."""
 
     import shutil
@@ -4871,11 +5289,13 @@ def relay_agent_phases(K, fields) -> tuple:
         env.pop(k, None)
     # the legs' stretches and their start-ups, kills and restarts; the
     # fleet leg's flat ticks, steady stretch, recovery budget and
-    # supervisor ticks and its processes' start-ups
+    # supervisor ticks and its processes' start-ups; the chaos corpus
+    # (about 50 s of ticks) and its red control; the deploy leg's
+    # stretch and its processes' start-ups
     seconds = RELAY_LIVE_S + RELAY_DARK_S + RELAY_BACK_S + AGENT_SCRAPE_S + \
         AGENT_BURST_S + AGENT_BURST_IDLE_S + AGENT_PROM_SCRAPES + 45 + \
         FLEET_TICKS + FLEET_STEADY_S + FLEET_RECOVER_S + FLEET_SUP_TICKS + \
-        35
+        35 + 65 + DEPLOY_S + 20
     workload = None
     try:
         workload = spawn(["tpumon_torch.loadgen.run", "--size", "bench",
@@ -4889,6 +5309,8 @@ def relay_agent_phases(K, fields) -> tuple:
         agent = agent_phase(K, fields, env, work)
         agent["prom"] = agent_prom_phase(fields, env, work, drop)
         fleet = fleet_phase(fields, env, work)
+        chaos = chaos_phase(env, work)
+        deploy = deploy_phase(fields, env, work, drop)
         # while the workload finishes its window
         b, i = nvml_open(fields)
         try:
@@ -4911,7 +5333,7 @@ def relay_agent_phases(K, fields) -> tuple:
                 raise AssertionError(f"workload exited {workload.returncode}"
                                      f": {f.read()[-2000:]}")
         wl = json.loads(wl_out.strip().splitlines()[-1])
-        return relay, agent, fleet, {k: wl.get(k) for k in (
+        return relay, agent, fleet, chaos, deploy, {k: wl.get(k) for k in (
             "steps_per_sec", "steps", "final_loss", "captures_ok",
             "captures_failed", "launches")}
     finally:
@@ -4940,6 +5362,7 @@ def main() -> int:
         return fail(f"imported tpumon_torch from {tpumon_torch.__file__}, "
                     f"not from this checkout")
 
+    t_smoke = time.monotonic()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
@@ -5030,14 +5453,15 @@ def main() -> int:
         rows[name]["launches_by_path"]["stream"] = n
     print("stream: " + json.dumps(stream))
 
-    relay, agent, fleet, workload = relay_agent_phases(K, fields)
+    relay, agent, fleet, chaos, deploy, workload = relay_agent_phases(
+        K, fields)
     for name in PATHS["train"]:
         n = (workload["launches"] or {}).get(name, 0)
         if n <= 0:
-            return fail(f"kernel {name} never launched on the relay, agent "
-                        f"and fleet paths' workload")
+            return fail(f"kernel {name} never launched on the relay, agent, "
+                        f"fleet, chaos and deploy paths' workload")
         rows[name]["launches"] += n
-        rows[name]["launches_by_path"]["relay+agent+fleet"] = n
+        rows[name]["launches_by_path"]["relay+agent+fleet+chaos+deploy"] = n
     n = agent["launches"]["mxu_burn"]
     rows["mxu_burn"]["launches"] += n
     rows["mxu_burn"]["launches_by_path"]["agent"] = n
@@ -5045,6 +5469,9 @@ def main() -> int:
     print("agent: " + json.dumps(dict(agent, workload=workload)))
     print("fleet: " + json.dumps(dict(
         fleet, workload_steps_per_sec=workload["steps_per_sec"])))
+    print("chaos: " + json.dumps(chaos))
+    print("deploy: " + json.dumps(deploy))
+    print(f"total: {time.monotonic() - t_smoke:.1f} s")
 
     # the card again, where a tail of the output keeps it
     print(smi.stdout.strip().splitlines()[0])

@@ -56,7 +56,7 @@ FROZEN = time.time() + 36000.0
 #: the port's while the case runs
 ALIASED = ("fleetpoll", "fleetshard", "supervisor", "agentsim", "cli.fleet",
            "backends.agent", "frameserver", "events", "sweepframe",
-           "blackbox", "anomaly")
+           "blackbox", "anomaly", "chaos", "cli.chaos")
 #: the port's fixtures a reference case may ask for, by parameter name
 PORT_FACTORY = {
     "FP": lambda: (lambda *a, **kw: TP.create_fleet_poller(
@@ -85,13 +85,16 @@ def _port_twin(obj):
     return obj
 
 
-def run_on_port(ref_module, case, monkeypatch, **fixtures):
+def run_on_port(ref_module, case, monkeypatch, names=None, **fixtures):
     """Run the reference test ``case`` of ``ref_module`` with every name
     it (and the module's helper functions) reads from the module bound to
     the port's twin, and the reference's modules aliased to the port's for
-    imports inside its body.  ``fixtures`` supply its parameters."""
+    imports inside its body.  ``names`` rebinds module globals besides
+    (a data directory of the port's own); ``fixtures`` supply its
+    parameters."""
 
     g = {k: _port_twin(v) for k, v in vars(ref_module).items()}
+    g.update(names or {})
     for k, v in list(g.items()):
         if (isinstance(v, types.FunctionType)
                 and v.__module__ == ref_module.__name__):

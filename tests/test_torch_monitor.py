@@ -732,6 +732,23 @@ def _port_files():
     return sorted(out)
 
 
+def _const_str(node):
+    return node.value if (isinstance(node, ast.Constant)
+                          and isinstance(node.value, str)) else ""
+
+
+def _reference_module(name: str) -> bool:
+    """A dotted name that is a module of the JAX package (``tpumon.cli.relay``;
+    not a record name such as ``tpumon.grad_sync``)."""
+
+    parts = name.split(".")
+    if not all(p.isidentifier() for p in parts):
+        return False
+    base = os.path.join(REPO, *parts)
+    return os.path.isfile(base + ".py") or os.path.isfile(
+        os.path.join(base, "__init__.py"))
+
+
 def test_port_imports_neither_jax_nor_tpumon():
     files = _port_files()
     assert len(files) > 15
@@ -746,13 +763,26 @@ def test_port_imports_neither_jax_nor_tpumon():
                 "exporter/pod_main.py", "sweepframe.py", "burst.py",
                 "blackbox.py", "anomaly.py", "simple_yaml.py",
                 "cli/replay.py", "fleetpoll.py", "fleetshard.py",
-                "supervisor.py", "cli/fleet.py", "agentsim.py"):
+                "supervisor.py", "cli/fleet.py", "agentsim.py", "chaos.py",
+                "cli/chaos.py"):
         assert os.path.join(REPO, "tpumon_torch", mod) in files, mod
     bad = []
     for path in files:
         with open(path, encoding="utf-8") as fh:
             tree = ast.parse(fh.read(), path)
         for node in ast.walk(tree):
+            # a child started by module path: ``-m tpumon.x`` in an argv
+            # list runs the JAX package's module, whatever was imported
+            if isinstance(node, (ast.List, ast.Tuple)):
+                for a, b in zip(node.elts, node.elts[1:]):
+                    if (_const_str(a) == "-m"
+                            and _const_str(b).startswith("tpumon.")):
+                        bad.append(f"{os.path.relpath(path, REPO)}: "
+                                   f"-m {_const_str(b)}")
+            elif (_const_str(node) or "").startswith("tpumon.") and \
+                    _reference_module(_const_str(node)):
+                bad.append(f"{os.path.relpath(path, REPO)}: "
+                           f"{_const_str(node)!r}")
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
             elif isinstance(node, ast.ImportFrom) and not node.level:

@@ -1,10 +1,12 @@
-"""The YAML subset the anomaly rules files use.
+"""The YAML subset the anomaly rules files, the chaos scenarios and the
+GPU deployment manifests use.
 
 The port's copy of ``parse_simple_yaml`` and its helpers from
-``tpumon/chaos.py`` (the rest of that module, the chaos harness, is not
-ported): nested mappings, ``- `` lists (of scalars or mappings), scalars
-(int/float/bool/null/quoted/bare strings) and one-line flow lists.  The
-files stay valid YAML, but no YAML package is needed.
+``tpumon/chaos.py``; the port's chaos harness (:mod:`tpumon_torch.chaos`)
+imports them from here: nested mappings, ``- `` lists (of scalars or
+mappings), scalars (int/float/bool/null/quoted/bare strings) and
+one-line flow lists.  The files stay valid YAML, but no YAML package is
+needed.
 """
 
 from __future__ import annotations
