@@ -1282,6 +1282,87 @@ SEMANTICS_TRACE_ENV = {"TPUMON_CUDA_TRACE_INTERVAL": "0.5",
                        "TPUMON_CUDA_TRACE_DUTY": "0"}
 
 
+#: how long the semantics check waits for the card to go idle before its
+#: idle reads, s; how many NVML utilization reads in a row must be 0, and
+#: how far apart
+IDLE_WAIT_S = 30.0
+IDLE_ZEROS = 5
+IDLE_POLL_S = 0.2
+
+
+def compute_apps(uuid: str) -> list:
+    """(pid, process name, used MiB) of every compute process nvidia-smi
+    lists on the card."""
+
+    r = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,process_name,"
+         "used_gpu_memory,gpu_uuid", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60)
+    out = []
+    for row in r.stdout.strip().splitlines():
+        vals = [v.strip() for v in row.split(",")]
+        if len(vals) == 4 and vals[3] == uuid and vals[0].isdigit():
+            out.append((int(vals[0]), vals[1], vals[2]))
+    return out
+
+
+def card_others(uuid: str) -> tuple:
+    """(what else is on the card, all of nvidia-smi's list): every listed
+    compute process but this one, and every process here but this one
+    that holds /dev/nvidia-uvm (a CUDA context; NVML alone opens the
+    card's node, not that one).  Where nvidia-smi cannot see this PID
+    namespace it lists this process under another pid (a container
+    runtime's own, pid 1): where this pid is not listed, one listed
+    process is taken for this one."""
+
+    from tpumon_torch.procscan import holders_of
+
+    me = os.getpid()
+    apps = compute_apps(uuid)
+    others = [a for a in apps if a[0] != me]
+    if len(others) == len(apps):
+        others = others[1:]
+    seen = {a[0] for a in others}
+    for p in holders_of("/dev/nvidia-uvm"):
+        if p.pid != me and p.pid not in seen:
+            others.append((p.pid, p.name, None))
+    return others, apps
+
+
+def wait_card_idle(fields) -> dict:
+    """Wait, at most IDLE_WAIT_S, until nothing but this process is on the
+    card (``card_others``) and NVML's utilization (field 203) has read 0
+    IDLE_ZEROS times in a row, IDLE_POLL_S apart.  Returns how long that
+    took, what was on the card meanwhile and the reads; raises, naming
+    what held the card, if it never went idle."""
+
+    UTIL = int(fields.F.TENSORCORE_UTIL)
+    b, i = nvml_open(fields)
+    t0 = time.monotonic()
+    held, utils, zeros, listed = {}, [], 0, []
+    try:
+        info = b.chip_info(i)
+        while True:
+            others, listed = card_others(info.uuid)
+            for pid, name, mib in others:
+                held[pid] = {"name": name, "used_mib": mib}
+            u = b.read_fields(i, [UTIL])[UTIL]
+            utils.append(u)
+            zeros = zeros + 1 if (u == 0 and not others) else 0
+            if zeros >= IDLE_ZEROS:
+                break
+            if time.monotonic() - t0 > IDLE_WAIT_S:
+                raise AssertionError(
+                    f"the card never went idle in {IDLE_WAIT_S} s: still "
+                    f"on it {others} (nvidia-smi lists {listed}), held "
+                    f"meanwhile by {held}, NVML utilization {utils[-12:]}")
+            time.sleep(IDLE_POLL_S)
+    finally:
+        b.close()
+    return {"wait_s": round(time.monotonic() - t0, 3), "held_by": held,
+            "utils": utils, "this_pid": os.getpid(), "listed": listed}
+
+
 def semantics_check(K, fields) -> dict:
     """The reference's metric-semantics check on a real device, on the
     port's CudaBackend: the ``mxu`` pattern on a worker thread must drive
@@ -1291,10 +1372,19 @@ def semantics_check(K, fields) -> dict:
     a later one and is parsed before it is served.  So before the three
     decay reads the check reads on until two captures have landed since
     the device went quiet (the second opened after it), and prints how
-    long that took.  Only the ordering is asserted."""
+    long that took.  Only the ordering is asserted.
+
+    Before it opens its backend it waits for the card to go idle
+    (``wait_card_idle``: no other compute process, NVML's utilization 0
+    several reads in a row) and prints how long that took and what held
+    the card: the earlier legs' processes (the sharded leg's ranks) must
+    not be read as this check's idle device."""
 
     import torch
     from tpumon_torch.backends.cuda import CudaBackend
+
+    idle_wait = wait_card_idle(fields)
+    print("semantics idle wait: " + json.dumps(idle_wait), flush=True)
 
     F = fields.F
     UTIL, HBM_USED, NOT_IDLE = (int(F.TENSORCORE_UTIL), int(F.HBM_USED),
@@ -1368,7 +1458,8 @@ def semantics_check(K, fields) -> dict:
          "hbm_before": before, "hbm_after": after,
          "not_idle_at_busy": not_idle_at_busy,
          "trace_captures": trace.get("captures_ok"),
-         "trace_captures_failed": trace.get("captures_failed")}
+         "trace_captures_failed": trace.get("captures_failed"),
+         "idle_wait_s": idle_wait["wait_s"]}
     ok = (m["busy_util"] >= 50 and m["idle_util"] <= 20
           and m["idle_after"] <= 25
           and m["busy_util"] > m["idle_util"] + 30
@@ -1983,13 +2074,29 @@ def read_drop(path: str):
 def spawn(args, env, log_path, stdout=subprocess.DEVNULL):
     """A ``python -m`` child of this checkout, its stderr to a file."""
 
+    return spawn_argv([sys.executable, "-m", *args], env, log_path, stdout)
+
+
+def spawn_argv(argv, env, log_path, stdout=subprocess.DEVNULL):
+    """A child of this checkout by its whole argv, its stderr to a file."""
+
     err = open(log_path, "w")
     try:
-        return subprocess.Popen([sys.executable, "-m", *args], cwd=HERE,
-                                env=env, stdout=stdout, stderr=err,
-                                text=True)
+        return subprocess.Popen(list(argv), cwd=HERE, env=env, stdout=stdout,
+                                stderr=err, text=True)
     finally:
         err.close()
+
+
+def agent_argv(native: bool) -> list:
+    """The command of an agent: the port's native ``gpu-hostengine`` built
+    from this checkout (``_build.native``), or its Python agent."""
+
+    if native:
+        from tpumon_torch import _build
+
+        return [str(_build.native("gpu-hostengine"))]
+    return [sys.executable, "-m", "tpumon_torch.hostengine"]
 
 
 def stop_proc(proc, sig=None, timeout: float = 5.0):
@@ -3996,21 +4103,28 @@ def relay_phase(env, work) -> dict:
 
 
 def hostengines() -> list:
-    """The pids of every running ``tpumon_torch.hostengine``."""
+    """The pids of every running agent: ``tpumon_torch.hostengine`` and
+    the native ``gpu-hostengine``."""
 
     out = []
     for pid in os.listdir("/proc"):
         try:
             with open(f"/proc/{pid}/cmdline", "rb") as f:
-                if b"tpumon_torch.hostengine" in f.read():
-                    out.append(int(pid))
+                argv = f.read().split(b"\0")
         except (OSError, ValueError):
             continue
+        if b"tpumon_torch.hostengine" in argv or (
+                argv and os.path.basename(argv[0]).startswith(
+                    b"gpu-hostengine")):
+            out.append(int(pid))
     return out
 
 
-def agent_phase(K, fields, env, work) -> dict:
+def agent_phase(K, fields, env, work, native: bool = False) -> dict:
     """``agent``: ``python -m tpumon_torch.hostengine --domain-socket S``
+    (with ``native``, the ``native agent:`` leg: ``gpu-hostengine
+    --domain-socket S``, built from this checkout; ``tpumon-cdemo`` must
+    then also exit 0 against it and print the card)
     over NVML beside the train workload, and its clients: the exporter
     daemon ``--connect unix:S`` (scraped at 1 Hz for AGENT_SCRAPE_S), the
     REST API ``--connect``, ``cli.dmon --connect`` and
@@ -4037,7 +4151,8 @@ def agent_phase(K, fields, env, work) -> dict:
     from tpumon_torch.backends.agent import AgentBackend
 
     F = fields.F
-    sock = os.path.join(work, "agent.sock")
+    tag = "native" if native else "agent"
+    sock = os.path.join(work, f"{tag}.sock")
     addr = f"unix:{sock}"
     port, rport = free_port(), free_port()
     b, i = nvml_open(fields)
@@ -4045,8 +4160,9 @@ def agent_phase(K, fields, env, work) -> dict:
     failures, out = [], {}
 
     def start_agent(*extra):
-        proc = spawn(["tpumon_torch.hostengine", "--domain-socket", sock,
-                      *extra], env, os.path.join(work, "agent.err"))
+        proc = spawn_argv(agent_argv(native) + ["--domain-socket", sock,
+                                                *extra],
+                          env, os.path.join(work, f"{tag}.err"))
         probe = AgentBackend(address=addr, connect_retry_s=60.0)
         probe.open()
         return proc, probe
@@ -4063,14 +4179,14 @@ def agent_phase(K, fields, env, work) -> dict:
         agent, client = start_agent()
         exporter = spawn(["tpumon_torch.exporter.main", "--connect", addr,
                           "-o", "none", "-d", "1000", "--port", str(port)],
-                         env, os.path.join(work, "exporter.err"))
+                         env, os.path.join(work, f"{tag}-exporter.err"))
         rest = spawn(["tpumon_torch.restapi.main", "--connect", addr, "-p",
-                      str(rport)], env, os.path.join(work, "rest.err"))
+                      str(rport)], env, os.path.join(work, f"{tag}-rest.err"))
         wait_for(lambda: "tpumon_agent_cpu_percent" in metrics_of(port)
                  or exporter.poll() is not None, 60,
                  "the exporter through the agent")
         if exporter.poll() is not None:
-            with open(os.path.join(work, "exporter.err")) as f:
+            with open(os.path.join(work, f"{tag}-exporter.err")) as f:
                 raise AssertionError(f"the exporter exited: "
                                      f"{f.read()[-2000:]}")
 
@@ -4144,6 +4260,20 @@ def agent_phase(K, fields, env, work) -> dict:
             failures.append(f"dmon --connect printed {dmon_out!r}")
         if not status_out.startswith("Engine       : tpu-hostengine"):
             failures.append(f"hostenginestatus printed {status_out!r}")
+        cdemo = None
+        if native:
+            # the C client's demo against the agent: the card and its rows
+            from tpumon_torch import _build
+
+            r = subprocess.run([str(_build.native("tpumon-cdemo")), addr,
+                                "2"], capture_output=True, text=True,
+                               timeout=60)
+            card = b.chip_info(i)
+            cdemo = r.stdout.splitlines()[:2] + r.stdout.splitlines()[-2:]
+            if r.returncode != 0 or card.uuid not in r.stdout or \
+                    card.name not in r.stdout:
+                failures.append(f"tpumon-cdemo exited {r.returncode}: "
+                                f"{r.stdout[-600:]} {r.stderr[-300:]}")
 
         # kill -9, restart: the exporter reconnects, its watch replayed
         uptime0 = one(rows[-1], "tpumon_agent_uptime_seconds")
@@ -4229,10 +4359,13 @@ def agent_phase(K, fields, env, work) -> dict:
             "watch_replayed": bool(watched),
             "dmon_connect": dmon_out.splitlines()[-1:],
             "hostenginestatus": status_out.splitlines()[:3],
+            "agent_version": h1.get("agent_version"),
             "launches": {"mxu_burn": launches}})
+        if native:
+            out["cdemo"] = cdemo
         client.close()
         if failures:
-            raise AssertionError(f"agent check failed: {failures[:10]} "
+            raise AssertionError(f"{tag} check failed: {failures[:10]} "
                                  f"{out}")
         return out
     finally:
@@ -4243,14 +4376,19 @@ def agent_phase(K, fields, env, work) -> dict:
                 proc.wait()
 
 
-#: the agent's own /metrics (--prom-port): scrapes at 1 Hz
+#: the agent's own /metrics (--prom-port): scrapes at 1 Hz (the native
+#: agent's; the Python agent's leg takes PY_PROM_SCRAPES, its checks the
+#: same)
 AGENT_PROM_SCRAPES = 30
+PY_PROM_SCRAPES = 15
 
 
-def agent_prom_phase(fields, env, work, drop) -> dict:
+def agent_prom_phase(fields, env, work, drop, native: bool = False,
+                     n_scrapes: int = AGENT_PROM_SCRAPES) -> dict:
     """``agent`` with ``--prom-port``: ``python -m tpumon_torch.hostengine
-    --prom-port 0 --merge-textfile <drop>`` over NVML beside the train
-    workload, its ``/metrics`` scraped at 1 Hz AGENT_PROM_SCRAPES times,
+    --prom-port 0 --merge-textfile <drop>`` (with ``native``,
+    ``gpu-hostengine``) over NVML beside the train
+    workload, its ``/metrics`` scraped at 1 Hz ``n_scrapes`` times,
     no exporter process.  Fails unless every scrape is 200 and holds each
     AGENT_HELD family within its tolerance of one of this process's NVML
     reads just before and just after it (no miss), at least 20 families
@@ -4262,16 +4400,16 @@ def agent_prom_phase(fields, env, work, drop) -> dict:
 
     from tpumon_torch.hostengine import SCRAPE_FIELDS
 
-    F = fields.F
-    sock = os.path.join(work, "agent-prom.sock")
-    log_path = os.path.join(work, "agent-prom.err")
+    tag = "native" if native else "agent"
+    sock = os.path.join(work, f"{tag}-prom.sock")
+    log_path = os.path.join(work, f"{tag}-prom.err")
     b, i = nvml_open(fields)
     agent = None
     failures = []
     try:
-        agent = spawn(["tpumon_torch.hostengine", "--domain-socket", sock,
-                       "--prom-port", "0", "--merge-textfile", drop], env,
-                      log_path)
+        agent = spawn_argv(agent_argv(native) + [
+            "--domain-socket", sock, "--prom-port", "0", "--merge-textfile",
+            drop], env, log_path)
 
         def announced():
             with open(log_path) as f:
@@ -4290,7 +4428,7 @@ def agent_prom_phase(fields, env, work, drop) -> dict:
         held_ids = {fam: fields.by_name(fam).field_id for fam in AGENT_HELD}
         a0, t0 = proc_stat(agent.pid), time.monotonic()
         walls, misses, scrapes = [], [], []
-        for _ in range(AGENT_PROM_SCRAPES):
+        for _ in range(n_scrapes):
             tick = time.monotonic()
             before = b.read_fields(i, list(held_ids.values()))
             status, _, body, wall = http_get(port, "/metrics")
@@ -4347,13 +4485,76 @@ def agent_prom_phase(fields, env, work, drop) -> dict:
                "merged_series": merged_series, "held_misses": len(misses),
                "healthz": healthz}
         if failures:
-            raise AssertionError(f"agent --prom-port check failed: "
+            raise AssertionError(f"{tag} --prom-port check failed: "
                                  f"{failures[:10]} {out}")
         return out
     finally:
         b.close()
         if agent is not None:
             stop_proc(agent)
+
+
+#: both agents side by side, s a stretch: at 1 Hz, then at --burst-hz
+SIDE_S = 12.0
+
+
+def agents_side_by_side(fields, env, work) -> dict:
+    """The Python agent and ``gpu-hostengine`` at once, beside the train
+    workload, over the same stretches: each serves this process's sweep
+    of the exporter's families at 1 Hz (one ``sweep_frame`` a second, no
+    watch: a live NVML read each) for SIDE_S, then both again with
+    ``--burst-hz AGENT_HZ`` for SIDE_S.  Returns each agent's CPU share
+    and RSS at the end of each stretch (and the burst loop's overruns);
+    this records, it does not gate."""
+
+    from tpumon_torch.backends.agent import AgentBackend
+    from tpumon_torch.loadgen.bench_gpu import exporter_fields
+
+    b, i = nvml_open(fields)
+    b.close()
+    fids = exporter_fields()
+    out = {}
+    for stretch, extra in (("1hz", []),
+                           (f"{AGENT_HZ}hz", ["--burst-hz", str(AGENT_HZ)])):
+        procs, clients = {}, {}
+        try:
+            for name, native in (("python", False), ("native", True)):
+                sock = os.path.join(work, f"side-{name}.sock")
+                procs[name] = spawn_argv(
+                    agent_argv(native) + ["--domain-socket", sock, *extra],
+                    env, os.path.join(work, f"side-{name}.err"))
+                clients[name] = c = AgentBackend(address=f"unix:{sock}",
+                                                 connect_retry_s=60.0)
+                c.open()
+            for c in clients.values():
+                c.sweep_fields_bulk([(i, fids)])
+            h0 = {n: c._call("hello") for n, c in clients.items()}
+            s0, t0 = {n: proc_stat(p.pid) for n, p in procs.items()}, \
+                time.monotonic()
+            while time.monotonic() < t0 + SIDE_S:
+                tick = time.monotonic()
+                for c in clients.values():
+                    c.sweep_fields_bulk([(i, fids)])
+                time.sleep(max(0.0, 1.0 - (time.monotonic() - tick)))
+            s1, t1 = {n: proc_stat(p.pid) for n, p in procs.items()}, \
+                time.monotonic()
+            h1 = {n: c._call("hello") for n, c in clients.items()}
+            rec = {}
+            for n in procs:
+                rec[n] = {"cpu_percent": cpu_share(s0[n], s1[n], t1 - t0),
+                          "rss_kib": s1[n]["rss_kib"],
+                          "threads": s1[n]["threads"]}
+                if extra:
+                    rec[n]["burst_overruns"] = (h1[n]["burst_overruns"]
+                                                - h0[n]["burst_overruns"])
+            rec["seconds"] = round(t1 - t0, 3)
+            out[stretch] = rec
+        finally:
+            for c in clients.values():
+                c.close()
+            for p in procs.values():
+                stop_proc(p)
+    return out
 
 
 #: the ``fleet`` leg: simulated hosts beside the card's own agent (256
@@ -5065,7 +5266,8 @@ def manifest_containers(rel: str) -> list:
 
 def container_process(c, root: str, moved: dict, env) -> tuple:
     """(argv, env, ports) to start a container's command and args here:
-    ``python`` is this interpreter, each volume's mount path a directory
+    ``python`` is this interpreter, ``gpu-hostengine`` the native agent
+    built from this checkout, each volume's mount path a directory
     under ``root`` (or ``moved[volume name]``), each declared container
     port a free one, ``$(VAR)`` the container's env."""
 
@@ -5097,14 +5299,27 @@ def container_process(c, root: str, moved: dict, env) -> tuple:
     argv = [move(a) for a in c.get("command", []) + c.get("args", [])]
     if argv[0] in ("python", "python3"):
         argv[0] = sys.executable
+    elif argv[0] == "gpu-hostengine":
+        argv[0] = agent_argv(True)[0]
     return argv, cenv, ports
+
+
+def container_module(argv) -> str:
+    """What a container runs: its ``python -m`` module, or the native
+    agent's name."""
+
+    if argv[1:2] == ["-m"]:
+        return argv[2]
+    name = os.path.basename(argv[0])
+    return "gpu-hostengine" if name.startswith("gpu-hostengine") else name
 
 
 def deploy_phase(fields, env, work, drop, check_readme=True) -> dict:
     """``deploy``: the GPU DaemonSets as deployed, beside the train
     workload.  DEPLOY_MANIFESTS are read with the port's loader and each
     container's command and args started here under the import guard
-    (the images install no torch): ``tpumon-daemonset.yaml``'s agent and
+    (the images install no torch; both agents are the native
+    ``gpu-hostengine``): ``tpumon-daemonset.yaml``'s agent and
     exporter (through the agent's socket, ``--pod-labels`` from a map file
     keyed by the card's UUID, the workload's drop file where the manifest
     mounts ``/run/tpumon-drop``) and ``tpumon-agent-daemonset.yaml``'s
@@ -5144,7 +5359,8 @@ def deploy_phase(fields, env, work, drop, check_readme=True) -> dict:
             for c in manifest_containers(rel):
                 argv, cenv, ports = container_process(
                     c, os.path.join(root, str(k)), moved, genv)
-                if argv[1] != "-m" or not argv[2].startswith("tpumon_torch."):
+                if container_module(argv) != "gpu-hostengine" and not \
+                        container_module(argv).startswith("tpumon_torch."):
                     raise AssertionError(f"{rel}: {c['name']} runs {argv}")
                 log_path = os.path.join(work, f"deploy-{c['name']}-"
                                               f"{len(procs)}.err")
@@ -5193,7 +5409,8 @@ def deploy_phase(fields, env, work, drop, check_readme=True) -> dict:
         for k, d in enumerate(procs):
             lim = (d["c"].get("resources") or {}).get("limits", {})
             rec = {"manifest": os.path.basename(d["rel"]),
-                   "container": d["c"]["name"], "module": d["argv"][2],
+                   "container": d["c"]["name"],
+                   "module": container_module(d["argv"]),
                    "rss_kib_max": rss_max[k],
                    "rss_limit_kib": k8s_quantity(lim["memory"], False),
                    "cpu_percent": cpu_share(stats0[k], stats1[k], dt),
@@ -5265,8 +5482,9 @@ def _healthz(port: int):
 
 
 def relay_agent_phases(K, fields) -> tuple:
-    """The ``relay``, ``agent``, ``fleet``, ``chaos`` and ``deploy`` legs
-    beside one train workload (``python -m tpumon_torch.loadgen.run --size bench
+    """The ``relay``, ``agent``, ``native agent``, ``fleet``, ``chaos`` and
+    ``deploy`` legs (and both agents side by side) beside one train
+    workload (``python -m tpumon_torch.loadgen.run --size bench
     --self-monitor --monitor-output <drop> --json``, B1-B3 in its own
     process, its launch counts from its JSON line), then, while it ends,
     in this process: the burst loop's CPU split as the exporter daemon
@@ -5292,8 +5510,11 @@ def relay_agent_phases(K, fields) -> tuple:
     # supervisor ticks and its processes' start-ups; the chaos corpus
     # (about 50 s of ticks) and its red control; the deploy leg's
     # stretch and its processes' start-ups
-    seconds = RELAY_LIVE_S + RELAY_DARK_S + RELAY_BACK_S + AGENT_SCRAPE_S + \
-        AGENT_BURST_S + AGENT_BURST_IDLE_S + AGENT_PROM_SCRAPES + 45 + \
+    # both agents' legs (the Python agent's, then the native's) and
+    # their side-by-side stretches
+    seconds = RELAY_LIVE_S + RELAY_DARK_S + RELAY_BACK_S + 2 * (
+        AGENT_SCRAPE_S + AGENT_BURST_S + AGENT_BURST_IDLE_S + 40) + \
+        AGENT_PROM_SCRAPES + PY_PROM_SCRAPES + 2 * SIDE_S + 10 + \
         FLEET_TICKS + FLEET_STEADY_S + FLEET_RECOVER_S + FLEET_SUP_TICKS + \
         35 + 65 + DEPLOY_S + 20
     workload = None
@@ -5307,7 +5528,15 @@ def relay_agent_phases(K, fields) -> tuple:
                  180, "the workload's first step")
         relay = relay_phase(env, work)
         agent = agent_phase(K, fields, env, work)
-        agent["prom"] = agent_prom_phase(fields, env, work, drop)
+        agent["prom"] = agent_prom_phase(fields, env, work, drop,
+                                         n_scrapes=PY_PROM_SCRAPES)
+        native = agent_phase(K, fields, env, work, native=True)
+        native["prom"] = agent_prom_phase(fields, env, work, drop,
+                                          native=True)
+        print("native agent: " + json.dumps(native), flush=True)
+        agent["side_by_side"] = agents_side_by_side(fields, env, work)
+        print("agents side by side: " + json.dumps(agent["side_by_side"]),
+              flush=True)
         fleet = fleet_phase(fields, env, work)
         chaos = chaos_phase(env, work)
         deploy = deploy_phase(fields, env, work, drop)
@@ -5369,8 +5598,27 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0])
 
     t0 = time.monotonic()
+    # the native agent and client build (g++) while the kernels do (nvcc)
+    native_build = {}
+
+    def build_native():
+        try:
+            native_build["paths"] = _build.native()
+        except BaseException as e:  # raised below
+            native_build["error"] = e
+        native_build["s"] = time.monotonic() - t0
+
+    nb = threading.Thread(target=build_native)
+    nb.start()
     lib = _build.load()
     print(f"build: {time.monotonic() - t0:.1f} s")
+    nb.join()
+    if "error" in native_build:
+        return fail(f"the native agent did not build: "
+                    f"{native_build['error']}")
+    print(f"native build: {native_build['s']:.1f} s, "
+          + ", ".join(sorted(os.path.basename(str(p))
+                             for p in native_build["paths"].values())))
     for line in _build.build_log().splitlines():
         if any(w in line for w in ("registers", "spill", "Compiling entry",
                                    "wgmma", "warning")):

@@ -3,7 +3,9 @@
 native ``tpu-hostengine`` and ``tpumon.backends.agent.AgentBackend``.
 
 * Reply for reply: the port's agent ``--fake --fake-epoch E`` and the
-  native one with the same epoch answer the same request sequence alike,
+  native one with the same epoch answer the same request sequence alike
+  (and so does the port's native ``gpu-hostengine --fake``, a third
+  command in every comparison: it runs the reference's fake source),
   for every op of ``native/agent/protocol.md``.  The epoch lies in the
   future, so both fakes read at t = 0 and every waveform is fixed; values
   agree within the golden tolerances of the reference's cross-language
@@ -36,6 +38,16 @@ from test_torch_fake import GOLDEN, native_agent
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_AGENT = [sys.executable, "-m", "tpumon_torch.hostengine"]
+
+
+def gpu_agent():
+    """The port's native agent, built at first use."""
+
+    from tpumon_torch import _build
+
+    return [str(_build.native("gpu-hostengine"))]
+
+
 TESTLIB = os.path.join(REPO, "tpumon_torch", "testlib")
 #: per-link vectors: the native ``FakeSource.read_vector`` reads the
 #: wall clock without the elapsed-time clamp, so at a future epoch its
@@ -170,15 +182,18 @@ FROZEN = time.time() + 36000.0  # a future epoch: both fakes read t = 0
 
 @pytest.fixture(scope="module")
 def agents(tmp_path_factory):
-    """The native and the port's ``--fake`` agents at one frozen epoch."""
+    """The native, the port's and the port's native ``--fake`` agents at
+    one frozen epoch."""
 
     native = native_agent()
     d = tmp_path_factory.mktemp("agents")
     args = ("--fake", "--fake-chips", "4", "--fake-epoch", repr(FROZEN),
             "--allow-inject")
-    socks = {"native": str(d / "n.sock"), "port": str(d / "p.sock")}
+    socks = {"native": str(d / "n.sock"), "port": str(d / "p.sock"),
+             "gpu": str(d / "g.sock")}
     procs = [spawn_agent([native], socks["native"], *args),
-             spawn_agent(PORT_AGENT, socks["port"], *args)]
+             spawn_agent(PORT_AGENT, socks["port"], *args),
+             spawn_agent(gpu_agent(), socks["gpu"], *args)]
     yield socks
     for p in procs:
         stop_agent(p)
@@ -277,7 +292,8 @@ def test_every_op_answers_like_the_native_agent(agents, op):
             if op == "introspect":
                 # both count their own requests and reads: equal only
                 # on fresh agents (test_introspect_counts_like_native)
-                assert set(replies["native"]) == set(replies["port"])
+                assert set(replies["native"]) == set(replies["port"]) \
+                    == set(replies["gpu"])
                 continue
             if op == "inject" and req.get("op") == "events":
                 # the module's agents share injected events across
@@ -286,6 +302,7 @@ def test_every_op_answers_like_the_native_agent(agents, op):
                     r["events"] = r["events"][-1:]
                     r["last_seq"] = None
             same(replies["native"], replies["port"], (op,))
+            same(replies["native"], replies["gpu"], (op, "gpu"))
     finally:
         for c in conns.values():
             c.close()
@@ -302,7 +319,8 @@ def test_malformed_requests_answer_like_the_native_agent(agents):
             finally:
                 c.close()
         import json
-        assert json.loads(got["native"]) == json.loads(got["port"]), data
+        assert json.loads(got["native"]) == json.loads(got["port"]) == \
+            json.loads(got["gpu"]), data
 
 
 def test_watch_latest_samples_like_the_native_agent(agents):
@@ -327,13 +345,16 @@ def test_watch_latest_samples_like_the_native_agent(agents):
                           "since": 0})["samples"][-1:])
                for k, c in conns.items()}
         same(got["native"][0], got["port"][0], ("latest",))
-        assert got["native"][1][0][1] == got["port"][1][0][1]
+        same(got["native"][0], got["gpu"][0], ("latest", "gpu"))
+        assert got["native"][1][0][1] == got["port"][1][0][1] == \
+            got["gpu"][1][0][1]
         for k, c in conns.items():
             assert c.ask({"op": "unwatch",
                           "watch_id": wids[k]["watch_id"]}) == {"ok": True}
         got = {k: c.ask({"op": "latest", "index": 3, "fields": [155]})
                for k, c in conns.items()}
         same(got["native"], got["port"], ("latest",))
+        same(got["native"], got["gpu"], ("latest", "gpu"))
         assert got["port"]["values"] == {"155": None}
     finally:
         for c in conns.values():
@@ -410,12 +431,13 @@ def test_sweep_frames_decode_like_the_native_agent(agents):
         finally:
             c.close()
         decoded[k], sizes[k] = out, n
-    for a, b in zip(decoded["native"], decoded["port"]):
-        same({str(c): {str(f): v for f, v in vals.items()}
-              for c, vals in a[0].items()},
-             {str(c): {str(f): v for f, v in vals.items()}
-              for c, vals in b[0].items()}, ("sweep_frame",))
-        assert a[1] == b[1]
+    for other in ("port", "gpu"):
+        for a, b in zip(decoded["native"], decoded[other]):
+            same({str(c): {str(f): v for f, v in vals.items()}
+                  for c, vals in a[0].items()},
+                 {str(c): {str(f): v for f, v in vals.items()}
+                  for c, vals in b[0].items()}, ("sweep_frame", other))
+            assert a[1] == b[1]
     # the port's steady frame (same request, frozen values) carries the
     # index alone (the native one re-sends its clock-driven vectors)
     assert sizes["port"][2] <= 6, sizes
@@ -427,7 +449,8 @@ def test_introspect_counts_like_the_native_agent(tmp_path):
 
     procs, got = [], {}
     try:
-        for k, cmd in (("native", [native_agent()]), ("port", PORT_AGENT)):
+        for k, cmd in (("native", [native_agent()]), ("port", PORT_AGENT),
+                       ("gpu", gpu_agent())):
             sock = str(tmp_path / f"{k}.sock")
             procs.append(spawn_agent(cmd, sock, "--fake", "--fake-epoch",
                                      repr(FROZEN)))
@@ -452,6 +475,7 @@ def test_introspect_counts_like_the_native_agent(tmp_path):
     for k in got:
         assert got[k]["requests"] == 6 and got[k]["samples"] == 6, got
     same(got["native"], got["port"], ("introspect",))
+    same(got["native"], got["gpu"], ("introspect", "gpu"))
 
 
 def test_term_stops_the_agent(tmp_path):
@@ -554,7 +578,7 @@ def test_clients_crossed_against_both_agents(agents):
 
     views = {(c, a): _client_view(mod, f"unix:{agents[a]}")
              for c, mod in (("reference", RA), ("port", PA))
-             for a in ("native", "port")}
+             for a in ("native", "port", "gpu")}
     base = views[("reference", "native")]
     assert base["binary"] and base["events"] == [] and base["burst"] is None
     for key, view in views.items():
@@ -649,14 +673,15 @@ def test_start_agent_mode_leaves_no_process(tmp_path, monkeypatch):
     assert set(agent_children()) - before == set()
 
 
-@pytest.mark.parametrize("agent", ["native", "port"])
+@pytest.mark.parametrize("agent", ["native", "port", "gpu"])
 def test_burst_ids_in_hello(agent, tmp_path):
     """With ``--burst-hz``, ``hello`` carries ``burst_hz`` and
     ``burst_overruns``, and the derived fields serve a 1 s window."""
 
     from tpumon_torch import fields as FF
 
-    cmd = [native_agent()] if agent == "native" else PORT_AGENT
+    cmd = {"native": lambda: [native_agent()], "port": lambda: PORT_AGENT,
+           "gpu": gpu_agent}[agent]()
     sock = str(tmp_path / "b.sock")
     proc = spawn_agent(cmd, sock, "--fake", "--burst-hz", "50")
     c = Raw(sock)
@@ -821,7 +846,8 @@ def scrape_both(tmp_path, *args, chips="2", env=None, path="/metrics",
     agent is scraped again (for up to 10 s) until ``ready(body)``."""
 
     out = {}
-    for side, cmd in (("native", [native_agent()]), ("port", PORT_AGENT)):
+    for side, cmd in (("native", [native_agent()]), ("port", PORT_AGENT),
+                      ("gpu", gpu_agent())):
         proc, port = prom_agent(cmd, str(tmp_path / f"{side}.sock"),
                                 "--fake", "--fake-chips", chips,
                                 "--fake-epoch", repr(FROZEN), *args, env=env)
@@ -836,6 +862,8 @@ def scrape_both(tmp_path, *args, chips="2", env=None, path="/metrics",
                 time.sleep(0.2)
         finally:
             stop_agent(proc)
+    # the port's native agent against the reference's, line for line
+    same_scrape(out["native"], out["gpu"])
     return out["native"], out["port"]
 
 
@@ -969,7 +997,8 @@ def test_merge_only_mode_without_nvml_like_the_native(tmp_path):
                     TPUMON_SHIM_DEV_ROOT=str(tmp_path),
                     TPUMON_NVML_PATH=str(tmp_path / "no-nvml.so"))
     bodies = {}
-    for side, cmd in (("native", [native_agent()]), ("port", PORT_AGENT)):
+    for side, cmd in (("native", [native_agent()]), ("port", PORT_AGENT),
+                      ("gpu", gpu_agent())):
         proc, port = prom_agent(cmd, str(tmp_path / f"{side}.sock"),
                                 "--merge-textfile", str(d / "*.prom"),
                                 "--kmsg", "/nonexistent", env=env)
@@ -987,6 +1016,7 @@ def test_merge_only_mode_without_nvml_like_the_native(tmp_path):
                            env=env, cwd=REPO)
         assert r.returncode == 3 and "merge-only" in r.stderr, side
     same_scrape(bodies["native"], bodies["port"])
+    same_scrape(bodies["native"], bodies["gpu"])
     body = bodies["port"]
     assert 'tpu_step_time{chip="0",uuid="GPU-0"} 1234.5' in body
     assert "tpumon_agent_merged_files 1" in body

@@ -8,9 +8,14 @@ For every file under ``deploy/gpu/``:
   string);
 * each container, service, image and unit command is ``python -m`` a
   ``tpumon_torch`` module with a ``main``, whose argument parser accepts
-  the command's arguments (parsed only: ``main`` stops there);
-* no container requests ``nvidia.com/gpu``, and no image or install
-  builds native code or installs a package;
+  the command's arguments (parsed only: ``main`` stops there), or the
+  port's native agent ``gpu-hostengine``, whose usage names every flag
+  its arguments give;
+* no container requests ``nvidia.com/gpu``; no image or install
+  installs a package by pip or builds CUDA code, and the only native
+  code built is ``gpu-hostengine`` from the port's sources (by
+  ``python -m tpumon_torch._build --native``), in the images' build
+  stages and the bare-metal install;
 * each memory limit is at or above the RSS measured on the card for what
   the command runs (MEASURED_RSS_MIB), and every process that opens NVML
   has a limit of at least 256 MiB.
@@ -32,6 +37,7 @@ import os
 import re
 import shlex
 import shutil
+import subprocess
 import tempfile
 import threading
 import time
@@ -49,19 +55,21 @@ YAML_FILES = [p for p in FILES if p.endswith((".yaml", ".yml"))]
 IDS = {p: os.path.relpath(p, DEPLOY) for p in FILES}
 
 #: the most RSS measured on an NVIDIA H100 80GB HBM3 at 700 W for each
-#: process a command runs, MiB (PERF.md: the smoke's agent:, daemon:,
-#: relay: and deploy: legs); an exporter's entry is by its source: NVML
-#: itself, the agent it connects to, or the agent it starts (both
-#: processes then)
+#: process a command runs, MiB (PERF.md: the smoke's agent:, native
+#: agent:, daemon:, relay: and deploy: legs); an exporter's entry is by
+#: its source: NVML itself, the agent it connects to, or the agent it
+#: starts (``gpu-hostengine``: both processes then)
 MEASURED_RSS_MIB = {
     "tpumon_torch.hostengine": 152.0,
+    "gpu-hostengine": 128.9,
     "tpumon_torch.exporter.main nvml": 157.0,
     "tpumon_torch.exporter.main --connect": 39.7,
-    "tpumon_torch.exporter.main --start-agent": 152.0 + 39.7,
+    "tpumon_torch.exporter.main --start-agent": 128.9 + 39.7,
     "tpumon_torch.cli.relay": 41.3,
 }
 #: what opens NVML, and the least limit it gets
-NVML_OPENERS = ("tpumon_torch.hostengine", "tpumon_torch.exporter.main nvml",
+NVML_OPENERS = ("tpumon_torch.hostengine", "gpu-hostengine",
+                "tpumon_torch.exporter.main nvml",
                 "tpumon_torch.exporter.main --start-agent")
 NVML_MIN_MIB = 256.0
 
@@ -147,6 +155,8 @@ COMMAND_FILES = [p for p in FILES if commands(p)]
 def kind(argv):
     """MEASURED_RSS_MIB's key for what a command runs."""
 
+    if os.path.basename(argv[0]) == "gpu-hostengine":
+        return "gpu-hostengine"
     mod = argv[2]
     if mod != "tpumon_torch.exporter.main":
         return mod
@@ -189,6 +199,22 @@ def test_commands_run_a_port_module_that_accepts_their_args(path,
 
     monkeypatch.setattr(argparse.ArgumentParser, "parse_args", parse_only)
     for where, argv, _ in commands(path):
+        if argv[0] == "gpu-hostengine":
+            # the native agent: its usage names every flag given, and it
+            # exits 0 on --help
+            from tpumon_torch import _build
+
+            r = subprocess.run([str(_build.native("gpu-hostengine")),
+                                "--help"], capture_output=True, text=True,
+                               timeout=60)
+            assert r.returncode == 0, r.stderr
+            flags = [a for a in argv[1:] if a.startswith("--")]
+            assert flags, where
+            for flag in flags:
+                assert re.search(re.escape(flag) + r"\b", r.stdout), \
+                    (where, flag)
+            assert "--no-such-flag" not in r.stdout
+            continue
         assert os.path.basename(argv[0]) in ("python", "python3"), where
         assert argv[1] == "-m" and argv[2].startswith("tpumon_torch."), \
             (where, argv)
@@ -232,6 +258,12 @@ def test_no_container_requests_a_gpu(path):
             assert k not in ("gpus", "devices"), IDS[path]
 
 
+#: the files that build the native agent, and the one command that does
+BUILDERS = ("docker/Dockerfile.hostengine", "docker/Dockerfile.exporter",
+            "bare-metal/Makefile")
+NATIVE_BUILD = "python{v} -m tpumon_torch._build --native"
+
+
 def test_nothing_is_built_or_installed():
     for p in FILES:
         name = os.path.basename(p)
@@ -239,16 +271,42 @@ def test_nothing_is_built_or_installed():
             continue
         with open(p) as f:
             text = f.read()
-        for word in ("pip", "apt-get", "gcc", "g++", "nvcc", "setup.py",
-                     "native/"):
+        for word in ("pip", "gcc", "nvcc", "setup.py", "make "):
             assert word not in text, (IDS[p], word)
+        # nothing of the reference's native tree (the port's is
+        # tpumon_torch/native/)
+        assert not re.search(r"(?<!tpumon_torch/)\bnative/", text), IDS[p]
+        builds = IDS[p] in BUILDERS
+        for word in ("g++", "_build"):
+            assert (word in text) == builds, (IDS[p], word)
+        # apt installs g++ in an image's build stage alone
+        assert ("apt-get" in text) == (builds and name.startswith(
+            "Dockerfile")), IDS[p]
+        if builds:
+            # the agent alone, from the port's sources, by the port's
+            # build (the reference's flags; tpumon_torch/_build.py)
+            assert (NATIVE_BUILD.format(v="") in text
+                    or NATIVE_BUILD.format(v="3") in text), IDS[p]
+            assert "install -D -m 0755" in text, IDS[p]
         if name.startswith("Dockerfile"):
-            ins = [ln.split()[0] for ln in text.splitlines()
-                   if ln and not ln.startswith("#") and not ln[0].isspace()]
-            assert "RUN" not in ins, name
-            assert [ln for ln in text.splitlines()
-                    if ln.startswith("COPY")] == [
-                "COPY tpumon_torch /opt/tpumon/tpumon_torch"], name
+            lines = [ln for ln in text.splitlines()
+                     if ln and not ln.startswith("#") and not ln[0].isspace()]
+            runs = [ln for ln in lines if ln.split()[0] == "RUN"]
+            froms = [ln for ln in lines if ln.split()[0] == "FROM"]
+            copies = [ln for ln in lines if ln.startswith("COPY")]
+            if not builds:
+                assert not runs and copies == [
+                    "COPY tpumon_torch /opt/tpumon/tpumon_torch"], name
+                continue
+            # a build stage (apt's g++, then the build), and a final stage
+            # that copies the binary alone out of it
+            assert froms[0].endswith(" AS build") and len(froms) == 2, name
+            assert len(runs) == 2 and runs[0].startswith(
+                "RUN apt-get update && apt-get install -y "
+                "--no-install-recommends g++"), name
+            assert copies[0] == "COPY tpumon_torch /opt/tpumon/tpumon_torch"
+            assert "COPY --from=build /out/gpu-hostengine " \
+                "/usr/local/bin/gpu-hostengine" in copies, name
 
 
 #: the files that deploy (an image sets no limit; its deployment does)

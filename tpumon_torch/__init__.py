@@ -23,10 +23,10 @@ Three run modes, the reference's (``admin.go:26-30``):
 
 * ``RunMode.EMBEDDED``    — read metrics in-process,
 * ``RunMode.STANDALONE``  — connect to a running agent
-  (:mod:`tpumon_torch.hostengine`, or the reference's native
-  ``tpu-hostengine``) over a unix or TCP socket,
-* ``RunMode.START_AGENT`` — start a local agent, connect, and stop it on
-  shutdown.
+  (the port's native ``gpu-hostengine``, :mod:`tpumon_torch.hostengine`,
+  or the reference's native ``tpu-hostengine``) over a unix or TCP socket,
+* ``RunMode.START_AGENT`` — start a local ``gpu-hostengine`` (built at
+  first use), connect, and stop it on shutdown.
 """
 
 from __future__ import annotations

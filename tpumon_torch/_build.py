@@ -1,4 +1,4 @@
-"""Build and bind the port's CUDA kernels.
+"""Build and bind the port's CUDA kernels, and build its native agent.
 
 One ``nvcc`` run per source file compiles each of ``csrc/*.cu`` for
 ``sm_90a`` into a shared library with a plain C interface under
@@ -12,11 +12,23 @@ nothing includes PyTorch's headers, which keeps a cold build to seconds.
 The build runs at first use (:func:`load`), never at import: the CPU
 tests import every module on hosts without ``nvcc``.  A failed build
 raises; nothing falls back to the plain PyTorch versions.
+
+The native agent and its C client (``native/``: ``gpu-hostengine``,
+``libtpumon_client.so``, ``tpumon-cdemo`` and the test binaries
+``kmsg-classify`` and ``burst-fold``) build with the host's ``g++``/``cc``
+under the reference's flags, at first use (:func:`native`), into the same
+directory, each named by a hash of its sources and flags.  One file lock
+makes concurrent processes build once.  A failed build raises: nothing
+falls back to the Python agent.
+
+    python -m tpumon_torch._build --native    # build, print the paths
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -25,7 +37,7 @@ import threading
 import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 PKG_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PKG_DIR.parent / "build" / "tpumon_torch"
@@ -148,3 +160,162 @@ def check(err: int, name: str) -> None:
 
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+# -- the native agent and client (g++ / cc) ------------------------------------
+
+NATIVE_DIR = PKG_DIR / "native"
+#: the reference's native Makefile flags (-Werror on every target here)
+CXXFLAGS = ("-O2", "-std=c++17", "-Wall", "-Wextra", "-Werror", "-fPIC")
+CFLAGS = ("-O2", "-Wall", "-Wextra", "-Werror", "-fPIC")
+#: the include path: the port's header and its NVML ABI header, nothing of
+#: the reference's tree and nothing of the CUDA toolkit
+INCLUDES = ("-I", str(NATIVE_DIR / "include"), "-I", str(PKG_DIR / "testlib"),
+            "-I", str(NATIVE_DIR / "agent"), "-I", str(NATIVE_DIR / "client"))
+
+
+class NativeTarget:
+    """One output: its compiler, main source, the files it depends on
+    (globs under ``native/`` or the package) and its link arguments."""
+
+    def __init__(self, name: str, cxx: bool, main: str,
+                 deps: Sequence[str], link: Sequence[str] = (),
+                 after: Optional[str] = None) -> None:
+        self.name, self.cxx, self.main = name, cxx, main
+        self.deps, self.link, self.after = tuple(deps), tuple(link), after
+
+    def flags(self) -> Tuple[str, ...]:
+        return CXXFLAGS if self.cxx else CFLAGS
+
+
+_AGENT_DEPS = ("native/agent/*", "native/include/*.h", "testlib/nvml.h")
+NATIVE_TARGETS: Dict[str, NativeTarget] = {t.name: t for t in (
+    NativeTarget("gpu-hostengine", True, "native/agent/main.cc",
+                 _AGENT_DEPS, ("-ldl", "-lpthread")),
+    NativeTarget("libtpumon_client.so", True, "native/client/tpumon_client.cc",
+                 ("native/client/tpumon_client.*", "native/agent/json.hpp",
+                  "native/include/*.h"), ("-shared", "-lpthread")),
+    NativeTarget("tpumon-cdemo", False, "native/client/tpumon_cdemo.c",
+                 ("native/client/tpumon_cdemo.c",
+                  "native/client/tpumon_client.h", "native/include/*.h"),
+                 after="libtpumon_client.so"),
+    NativeTarget("kmsg-classify", True, "native/testlib/kmsg_classify_main.cc",
+                 ("native/testlib/kmsg_classify_main.cc",
+                  "native/agent/kmsg.hpp")),
+    NativeTarget("burst-fold", True, "native/testlib/burst_fold_main.cc",
+                 ("native/testlib/burst_fold_main.cc",
+                  "native/agent/sampler.hpp", "native/agent/source.hpp",
+                  "native/include/*.h"), ("-lpthread",)),
+)}
+
+_native_lock = threading.Lock()
+_native: Optional[Dict[str, Path]] = None
+
+
+def native_digest(t: NativeTarget, after: Optional[Path] = None) -> str:
+    """Hash of a target's sources (each by its path under the package),
+    its flags and, for a program linked to a library of this build, that
+    library's name."""
+
+    h = hashlib.sha256()
+    files = sorted({f for g in t.deps for f in PKG_DIR.glob(g)} |
+                   {PKG_DIR / t.main})
+    for f in files:
+        h.update(str(f.relative_to(PKG_DIR)).encode() + b"\0" +
+                 f.read_bytes())
+    h.update(" ".join(t.flags() + t.link).encode())
+    if after is not None:
+        h.update(after.name.encode())
+    return h.hexdigest()[:16]
+
+
+def native_path(t: NativeTarget, digest: str) -> Path:
+    stem, dot, ext = t.name.partition(".")
+    return BUILD_DIR / (f"{stem}-{digest}{dot}{ext}")
+
+
+def _compile_native(t: NativeTarget, after: Optional[Path]) -> Path:
+    """One compiler run into ``build/tpumon_torch/<name>-<hash>``; a
+    no-op when that file exists."""
+
+    out = native_path(t, native_digest(t, after))
+    if out.exists():
+        return out
+    cc = shutil.which("g++" if t.cxx else "cc") or shutil.which(
+        "c++" if t.cxx else "gcc")
+    if cc is None:
+        raise RuntimeError(f"no {'C++' if t.cxx else 'C'} compiler on PATH: "
+                           f"{t.name} cannot be built")
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [cc, *t.flags(), *INCLUDES, "-o", str(tmp), str(PKG_DIR / t.main)]
+    if t.name.endswith(".so"):
+        cmd += [f"-Wl,-soname,{out.name}"]
+    if after is not None:
+        cmd += [str(after), "-Wl,-rpath,$ORIGIN"]
+    cmd += list(t.link)
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{cc} failed on {t.name} (exit {r.returncode}):\n"
+                           f"$ {' '.join(cmd)}\n{(r.stdout + r.stderr)[-6000:]}")
+    os.replace(tmp, out)
+    return out
+
+
+def native_build() -> Dict[str, Path]:
+    """Build every native target (each a no-op when its hashed file
+    exists), all compiler runs at once, under a file lock that makes
+    concurrent processes build once; return name -> path."""
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".native.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            def chain(t: NativeTarget) -> Dict[str, Path]:
+                got: Dict[str, Path] = {}
+                after = None
+                if t.after is not None:
+                    after = got[t.after] = _compile_native(
+                        NATIVE_TARGETS[t.after], None)
+                got[t.name] = _compile_native(t, after)
+                return got
+
+            firsts = [t for t in NATIVE_TARGETS.values()
+                      if not any(u.after == t.name
+                                 for u in NATIVE_TARGETS.values())]
+            out: Dict[str, Path] = {}
+            with ThreadPoolExecutor(max_workers=len(firsts)) as pool:
+                for got in pool.map(chain, firsts):
+                    out.update(got)
+            return out
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def native(name: Optional[str] = None):
+    """The built native targets (name -> path), or the path of one;
+    built on first call."""
+
+    global _native
+    with _native_lock:
+        if _native is None:
+            _native = native_build()
+    return _native if name is None else _native[name]
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    p = argparse.ArgumentParser(prog="python -m tpumon_torch._build",
+                                description=__doc__.splitlines()[0])
+    p.add_argument("--native", action="store_true",
+                   help="build the native agent and client; print the paths")
+    args = p.parse_args(argv)
+    if args.native:
+        for name, path in native().items():
+            print(f"{name} {path}")
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main())

@@ -29,7 +29,6 @@ import os
 import signal
 import socket
 import subprocess
-import sys
 import tempfile
 import threading
 import time
@@ -683,20 +682,24 @@ class AgentBackend(Backend):
 AGENT_BIN_ENV = "TPUMON_AGENT_BIN"
 
 #: the directory holding the ``tpumon_torch`` package, put on the spawned
-#: agent's ``PYTHONPATH`` so ``-m tpumon_torch.hostengine`` resolves from
-#: any working directory
+#: agent's ``PYTHONPATH`` so a ``$TPUMON_AGENT_BIN`` that runs ``-m
+#: tpumon_torch.hostengine`` resolves from any working directory
 _PACKAGE_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
 def _agent_command() -> List[str]:
     """The agent to start: ``$TPUMON_AGENT_BIN`` when set, else the port's
-    own hostengine under this interpreter."""
+    native ``gpu-hostengine``, built from the package's sources at first
+    use (:func:`tpumon_torch._build.native`; a failed build raises), as
+    the reference's ``--start-agent`` starts its native agent."""
 
     env = os.environ.get(AGENT_BIN_ENV)
     if env:
         return [env]
-    return [sys.executable, "-m", "tpumon_torch.hostengine"]
+    from .. import _build
+
+    return [str(_build.native("gpu-hostengine"))]
 
 
 def _agent_env() -> Dict[str, str]:

@@ -7,8 +7,8 @@ plus run-mode selection:
 
     --backend nvml|cuda|fake|auto  embedded-mode source (or TPUMON_BACKEND)
     --connect ADDR                 standalone mode: unix:/path or host:port
-    --start-agent                  start a local agent (python -m
-                                   tpumon_torch.hostengine) and connect
+    --start-agent                  start a local agent (the native
+                                   gpu-hostengine) and connect
 
 The 1 s ticker loop shape (signal-aware, immediate first tick) follows
 ``samples/dcgm/dmon/main.go:39-59``.

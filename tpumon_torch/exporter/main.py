@@ -14,7 +14,7 @@ delegated to node-exporter (``/metrics``, ``/tpu/metrics``,
 
 The source is ``tpumon_torch.init()`` on the default ``auto`` backend,
 which is NVML, or the agent with ``--connect ADDR``/``--start-agent``
-(:mod:`tpumon_torch.hostengine`; the device is then read in the agent and
+(``gpu-hostengine``; the device is then read in the agent and
 the daemon samples through its watch): the daemon never imports
 ``torch`` and never creates a CUDA context.  ``--wait-for-tpu S`` retries the NVML init every 2 s for
 up to S seconds (-1 = forever) before it exits 1; nothing else is ever

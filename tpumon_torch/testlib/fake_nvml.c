@@ -13,9 +13,13 @@
  * tests' controls: a return code forced on an entry point by name (or on
  * one field value, as "field:<id>"), the device count, an Xid queued for
  * the event set, a step of the NVLink data counters and their clock, and
- * the counts of nvmlInit_v2 and nvmlShutdown calls. */
+ * the counts of nvmlInit_v2 and nvmlShutdown calls.  FAKE_NVML_XIDS
+ * ("dev:xid,dev:xid,...") queues Xids through fake_nvml_inject_xid at
+ * nvmlInit_v2: the hook of a test whose NVML runs in another process (an
+ * agent). */
 #include <pthread.h>
 #include <stdio.h>
+#include <stdlib.h>
 #include <string.h>
 #include <time.h>
 
@@ -125,6 +129,15 @@ nvmlReturn_t nvmlInit_v2(void) {
   FORCED("nvmlInit_v2");
   for (int i = 0; i < MAX_DEVICES; i++) g_devs[i].index = i;
   g_inits++;
+  const char *xids = getenv("FAKE_NVML_XIDS");
+  while (xids && *xids) {
+    char *end;
+    int dev = (int)strtol(xids, &end, 10);
+    if (*end != ':') break;
+    unsigned long long xid = strtoull(end + 1, &end, 10);
+    fake_nvml_inject_xid(dev, xid);
+    xids = *end == ',' ? end + 1 : end;
+  }
   return NVML_SUCCESS;
 }
 
