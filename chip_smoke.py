@@ -5,7 +5,9 @@
 
 1. Prints the card's name and power limit (``nvidia-smi``) and builds the
    port's CUDA kernels from ``tpumon_torch/csrc`` (one ``nvcc`` per source,
-   all started together, at first use).
+   all started together, at first use), and beside them with ``g++`` the
+   native agent, its C client, and the codec and poll engine extensions
+   (``_build.native()``; their paths and build seconds printed).
    Then the out-of-band NVML source (``tpumon_torch.backends.nvml``), one
    line each: ``nvml abi`` compiles the backend's ABI probe against the
    toolkit's ``nvml.h`` and holds every mirrored struct's size and field
@@ -145,7 +147,9 @@
    NVML read per tick,
    each power reading's and utilization's spread per 1 s window by load
    phase, the recorder's bytes per tick and the anomaly and record
-   phases.  B4's launches join the kernels line as path ``planes``.
+   phases.  The daemon runs with ``TPUMON_NATIVE=1`` (the native codec;
+   every scrape must read ``tpumon_codec_native 1``).  B4's launches join
+   the kernels line as path ``planes``.
 10. ``watches``: the façade's health, policy and event-set watches over
    NVML while this process drives B4 idle 4 s, steady 6 s, idle 4 s,
    steady 6 s: the policy CLI at the reference's 250 W (one POWER
@@ -168,23 +172,29 @@
    ``/healthz`` 200; scrape wall ms, the agent's CPU and RSS).  Then
    ``fleet`` beside the same workload (``fleet_phase``): the port's agent
    over NVML for the card's host among 255 simulated hosts x 8 chips
-   (``python -m tpumon_torch.agentsim --procs 4``); the flat
-   ``FleetPoller`` at 1 Hz for 20 ticks in its own process (every host up
-   every tick, every simulated row its farm's values, the card's row
-   within the ``nvml check`` tolerances of this process's NVML reads in
-   the same second; tick wall, the poller thread's CPU a tick, the
-   process's CPU share and RSS, bytes a host-tick); ``python -m
+   (``python -m tpumon_torch.agentsim --procs 4``); the flat poller at
+   1 Hz for 20 ticks in its own process, once on each poll plane: the
+   Python ``FleetPoller`` (``TPUMON_NATIVE=0``), then the native engine's
+   ``NativeFleetPoller`` (``TPUMON_NATIVE=1``) (every host up every tick,
+   every simulated row its farm's values and the two planes' tables
+   alike, the card's row within the ``nvml check`` tolerances of this
+   process's NVML reads in the same second; per plane, side by side:
+   tick wall, the poller thread's CPU a tick, the process's CPU share and
+   RSS, bytes a host-tick); then, on the native engine, ``python -m
    tpumon_torch.cli.fleet --targets-file F --shards 4 --supervise
    --metrics-port P`` with one shard child SIGKILLed (its view the flat
    one again within 20 s, the restart counted; ticks and seconds to
-   converge, the ``/metrics`` scrape); ``ShardSupervisor`` over the same
-   targets in a process of its own for 20 ticks at 1 Hz (every host up;
-   the health watch's CPU over the process's, from the supervisor's own
-   counter); ``--connect <agent> --once --check --expect-chips 1`` exit
-   0.
+   converge, the ``/metrics`` scrape, which must read
+   ``tpumon_poll_native 1`` and ``tpumon_codec_native 1``);
+   ``ShardSupervisor`` over the same targets in a process of its own for
+   20 ticks at 1 Hz (every host up; the health watch's CPU over the
+   process's, from the supervisor's own counter); ``--connect <agent>
+   --once --check --expect-chips 1`` exit 0.
    ``chaos`` beside the same workload (``chaos_phase``): ``python -m
    tpumon_torch.cli.chaos run tests/data/torch_scenarios/*.yaml --json``
-   in its own process, every one of the eight scenarios green (each one's
+   in its own process with ``TPUMON_NATIVE=1`` (the system under test on
+   the native engine, the harness's reference poller on Python), every
+   one of the eight scenarios green (each one's
    ticks to converge, restarts and seconds; the process's CPU share with
    its children), and a scenario whose replay invariant must go red
    (CHAOS_RED) exiting non-zero.  ``deploy`` (``deploy_phase``):
@@ -2702,7 +2712,11 @@ def planes_phase(K, fields, daemon_cpu_percent=None) -> dict:
       joined the Xid line naming the card (``#chip<i>``), the findings
       are the recording's 0xB3 records, and ``replay --backtest`` (with
       the card's bus) re-derives exactly them;
-    * the daemon holds no CUDA context (as in ``daemon_phase``).
+    * the daemon holds no CUDA context (as in ``daemon_phase``);
+    * native: the daemon, the second one and the replay CLI run with
+      ``TPUMON_NATIVE=1`` (the native codec folds the burst windows and
+      writes and reads the recording; a missing extension fails the
+      start), and every scrape reads ``tpumon_codec_native 1``.
 
     B4's launches are this process's, counted over the timeline."""
 
@@ -2734,7 +2748,10 @@ def planes_phase(K, fields, daemon_cpu_percent=None) -> dict:
     pci = "%04x:%02x:%02x" % key
     bus_map = {"%04x:%02x:%02x" % k: v for k, v in b.bus_index().items()}
     out["bus_map"] = bus_map
-    env = dict(os.environ, PYTHONPATH=HERE, TPUMON_KMSG_PATH=kmsg)
+    # the native codec backs the daemon's burst fold and recorder (a
+    # missing extension fails the daemon's start)
+    env = dict(os.environ, PYTHONPATH=HERE, TPUMON_KMSG_PATH=kmsg,
+               TPUMON_NATIVE="1")
     for k in ("TPUMON_BACKEND", "TPUMON_CHIPS"):
         env.pop(k, None)
     daemon = second = None
@@ -2886,6 +2903,11 @@ def planes_phase(K, fields, daemon_cpu_percent=None) -> dict:
                     return float(v)
             return None
 
+        codec = sorted({val(rows, "tpumon_codec_native")
+                        for _, _, rows in scrapes}, key=str)
+        out["codec_native"] = codec
+        if codec != [1.0]:
+            failures.append(f"tpumon_codec_native read {codec}, not 1")
         first_whole = None
         for k, (ts, mono, rows) in enumerate(scrapes):
             fams = {r[1] for r in rows if r[2].get("chip") == card}
@@ -4139,7 +4161,8 @@ def agent_phase(K, fields, env, work, native: bool = False) -> dict:
     CUDA context; after ``kill -9`` of the agent and a restart the
     exporter reconnects and its watch is replayed (the new agent's
     sampler serves it); ``cli.dmon --start-agent`` starts an agent, prints
-    its rows and leaves no agent behind.  Then the agent again with
+    its rows and leaves no agent behind.  Then, with the exporter and the
+    REST API stopped, the agent again with
     ``--burst-hz AGENT_HZ`` under B4's square wave for AGENT_BURST_S (this
     process's launches) and AGENT_BURST_IDLE_S idle: overruns at most
     OVERRUN_SHARE_MAX of the ticks, and the power integrals of the 1 s
@@ -4299,7 +4322,13 @@ def agent_phase(K, fields, env, work, native: bool = False) -> dict:
                         if ln and not ln.startswith("#")]) != 2 * cards:
             failures.append(f"--start-agent left {left}: {started_out!r}")
 
-        # the burst stretch: the agent at AGENT_HZ under B4's square wave
+        # the burst stretch: the agent at AGENT_HZ under B4's square wave.
+        # The agent closes its one shared 1 s window on any consumer's
+        # request, so the exporter's 1 Hz sweeps would close windows
+        # between this client's reads and the summed integrals would skip
+        # one; this client is the only consumer of the stretch.
+        stop_proc(exporter)
+        stop_proc(rest)
         stop_proc(agent)
         client.close()
         agent, client = start_agent("--burst-hz", str(AGENT_HZ))
@@ -4572,6 +4601,9 @@ FLEET_SHARDS = 4
 FLEET_RECOVER_S = 20.0
 FLEET_STEADY_S = 10.0
 FLEET_SUP_TICKS = 20
+#: the fleet leg's poll planes, as ``TPUMON_NATIVE`` selects them: 1 makes
+#: a process without the native engine fail instead of polling on Python
+FLEET_PLANES = {"python": "0", "native": "1"}
 #: what no fleet process (agent, farms, pollers, shard children) may
 #: import; ``sitecustomize`` on their PYTHONPATH refuses it and logs it
 FLEET_REFUSED = ("tpumon", "jax", "jaxlib", "torch")
@@ -4591,21 +4623,24 @@ class _Refuse:
 
 sys.meta_path.insert(0, _Refuse())
 """.format(refused=FLEET_REFUSED)
-#: the flat poller's process: ``FleetPoller`` over the targets file at
-#: 1 Hz, one warm tick then ``ticks`` measured ones (wall and the thread's
-#: CPU clock around each ``poll``, bytes, hosts up, the first target's
-#: row with the tick's wall-clock span), then its CPU share and RSS over
-#: the stretch, every simulated row against its farm's values
-#: (``_bench_host_values`` of its seed, aggregated) and the last table
+#: the flat poller's process: the poller ``create_fleet_poller`` picks
+#: (``TPUMON_NATIVE``: 0 the Python ``FleetPoller``, 1 the native
+#: engine's ``NativeFleetPoller``) over the targets file at 1 Hz, one warm
+#: tick then ``ticks`` measured ones (wall and the thread's CPU clock
+#: around each ``poll``: the engine runs the tick on that thread, bytes,
+#: hosts up, the first target's row with the tick's wall-clock span),
+#: then its CPU share and RSS over the stretch, every simulated row against
+#: its farm's values (``_bench_host_values`` of its seed, aggregated), the
+#: last table and the poller's class
 FLEET_FLAT = r"""
 import json, sys, time
 from tpumon_torch.agentsim import _bench_host_values
 from tpumon_torch.cli.fleet import _FIELDS, render
-from tpumon_torch.fleetpoll import FleetPoller, aggregate_host_sample
+from tpumon_torch.fleetpoll import aggregate_host_sample, create_fleet_poller
 
 path, ticks, chips = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
 targets = [ln.strip() for ln in open(path) if ln.strip()]
-poller = FleetPoller(targets, _FIELDS, timeout_s=3.0)
+poller = create_fleet_poller(targets, _FIELDS, timeout_s=3.0)
 poller.poll()
 out, kept = [], []
 cpu0, t_start = time.process_time(), time.monotonic()
@@ -4638,7 +4673,8 @@ poller.close()
 print(json.dumps({"ticks": out, "cpu_s": cpu, "wall_s": wall,
                   "rss_kib": rss, "mismatched": mismatched[:8],
                   "n_mismatched": len(mismatched),
-                  "table": render(kept[-1]).splitlines()}))
+                  "table": render(kept[-1]).splitlines(),
+                  "poller": type(poller).__name__}))
 """
 #: the supervisor's cost, as the reference's ``bench_supervisor`` reads
 #: it: ``ShardSupervisor`` over the targets file as the CLI builds it with
@@ -4737,24 +4773,33 @@ def fleet_phase(fields, env, work) -> dict:
     (``python -m tpumon_torch.agentsim --procs``): 256 targets with
     ``cli.fleet._FIELDS``.  Every fleet process runs under FLEET_GUARD.
 
-    * flat: ``FleetPoller`` in its own process (FLEET_FLAT), 1 Hz,
-      FLEET_TICKS ticks after a warm one.  Fails if a tick has a host
-      DOWN, a simulated row differs from its farm's values, or the card's
-      row (chips, power, hottest temperature, HBM used and total, links)
-      is off from every one of this process's NVML reads within a second
-      of the tick by more than the ``nvml check`` tolerances.
-    * supervised, as operators run it: ``python -m
+    * flat, on each poll plane (FLEET_PLANES): the poller
+      ``create_fleet_poller`` picks in its own process (FLEET_FLAT), 1
+      Hz, FLEET_TICKS ticks after a warm one: ``FleetPoller`` with
+      ``TPUMON_NATIVE=0``, then ``NativeFleetPoller`` with
+      ``TPUMON_NATIVE=1`` (a missing engine fails the run).  Fails if the
+      poller is not the plane's, a tick has a host DOWN, a simulated row
+      differs from its farm's values, the card's row (chips, power,
+      hottest temperature, HBM used and total, links) is off from every
+      one of this process's NVML reads within a second of the tick by
+      more than the ``nvml check`` tolerances, or the two planes' tables
+      differ in a simulated row.  Both planes' tick wall, poller CPU,
+      process CPU share, RSS and bytes a host-tick are printed side by
+      side (``planes_side_by_side``).
+    * supervised, as operators run it, on the native engine: ``python -m
       tpumon_torch.cli.fleet --targets-file F --shards FLEET_SHARDS
       --supervise --metrics-port P -d 1``.  Its tables must become the
       flat view (:func:`fleet_view`) and stay it over a FLEET_STEADY_S
-      stretch; its ``/metrics`` is scraped; one shard child is SIGKILLed
-      and its view must be the flat one again, with the restart counted,
-      within FLEET_RECOVER_S.
+      stretch; its ``/metrics`` is scraped and must read
+      ``tpumon_poll_native 1`` and ``tpumon_codec_native 1``; one shard
+      child is SIGKILLed and its view must be the flat one again, with
+      the restart counted, within FLEET_RECOVER_S.
     * the supervisor's cost: ``ShardSupervisor`` in its own process
-      (FLEET_SUPERVISE), FLEET_SUP_TICKS ticks at 1 Hz with every host
-      up; the health watch's CPU over the process's.
+      (FLEET_SUPERVISE, native), FLEET_SUP_TICKS ticks at 1 Hz with every
+      host up; the health watch's CPU over the process's.
     * once: ``--connect <agent> --once --check --expect-chips <cards>``
-      exits 0 with a PASS line naming the agent and NVML's driver.
+      (native) exits 0 with a PASS line naming the agent and NVML's
+      driver.
     * no process of them imported a refused module."""
 
     import signal as _signal
@@ -4800,100 +4845,130 @@ def fleet_phase(fields, env, work) -> dict:
         out["hosts"], out["chips_per_sim"] = len(targets), FLEET_CHIPS
         out["setup_s"] = round(time.monotonic() - t_leg, 3)
 
-        # -- flat, with this process's NVML reads beside it ----------------
-        nv_reads, stop = [], threading.Event()
+        # -- flat, each plane, with this process's NVML reads beside it ----
+        def flat_leg(plane: str, want: str):
+            """One FLEET_FLAT run on ``plane`` (TPUMON_NATIVE 0 or 1);
+            its gates' failures are prefixed with the plane.  -> (the
+            printed summary, {simulated address: its table row})."""
 
-        def sample_nvml():
-            while not stop.is_set():
-                per = {c: b.read_fields(c, list(_FIELDS))
-                       for c in range(cards)}
-                nv_reads.append((time.time(), aggregate_host_sample(
-                    agent_addr, cards, driver, per, 0)))
-                stop.wait(0.25)
+            nv_reads, stop = [], threading.Event()
 
-        sampler = threading.Thread(target=sample_nvml, daemon=True)
-        sampler.start()
-        try:
-            flat_proc = subprocess.run(
-                [sys.executable, "-c", FLEET_FLAT, targets_file,
-                 str(FLEET_TICKS), str(FLEET_CHIPS)], cwd=HERE, env=fenv,
-                capture_output=True, text=True, timeout=FLEET_TICKS + 60)
-        finally:
-            stop.set()
-            sampler.join()
-        if flat_proc.returncode != 0:
-            raise AssertionError(f"the flat poller exited "
-                                 f"{flat_proc.returncode}: "
-                                 f"{flat_proc.stderr[-2000:]}")
-        flat = json.loads(flat_proc.stdout.strip().splitlines()[-1])
-        ticks = flat["ticks"]
-        walls = [t["wall_ms"] for t in ticks]
-        down = [t["up"] for t in ticks if t["up"] != len(targets)]
-        if down:
-            failures.append(f"flat ticks with a host down: up {down}")
-        if flat["n_mismatched"]:
-            failures.append(f"simulated rows off their farm's values: "
-                            f"{flat['n_mismatched']} ({flat['mismatched']})")
-        held = {"power_w": lambda w: max(15.0 * cards, 0.1 * w),
-                "max_temp_c": lambda w: 2.0,
-                "hbm_total_mib": lambda w: 0.0,
-                "hbm_used_mib": lambda w: 64.0 * cards,
-                "links_up": lambda w: 0.0,
-                "chips": lambda w: 0.0}
-        card_misses, card_err = [], {k: 0.0 for k in held}
-        for t in ticks:
-            row = t["card"]
-            near = [s for w, s in nv_reads
-                    if t["span"][0] - 1.0 <= w <= t["span"][1] + 1.0]
-            best = None
-            for s in near:
-                errs = {k: (abs(float(row[k]) - float(getattr(s, k)))
-                            if row[k] is not None
-                            and getattr(s, k) is not None else math.inf)
-                        for k in held}
-                if all(errs[k] <= tol(float(getattr(s, k) or 0.0))
-                       for k, tol in held.items()):
-                    best = errs
-                    break
-            if best is None or not row["up"] or row["dead_chips"]:
-                card_misses.append((row, [s.__dict__ for _, s in near][:2]))
-            else:
-                card_err = {k: max(card_err[k], v) for k, v in best.items()}
-        if card_misses:
-            failures.append(f"the card's row vs NVML: {len(card_misses)} "
-                            f"of {len(ticks)} ticks, {card_misses[:2]}")
-        host_ticks = len(targets) * len(ticks)
-        out["flat"] = {
-            "ticks": len(ticks),
-            "tick_wall_ms": {"p50": quantile(walls, 0.5),
-                             "p99": quantile(walls, 0.99), "n": len(walls),
-                             "max": max(walls)},
-            "poller_cpu_ms_per_tick": sum(t["cpu_ms"] for t in ticks) /
-            len(ticks),
-            "process_cpu_percent": 100.0 * flat["cpu_s"] / flat["wall_s"],
-            "rss_kib": flat["rss_kib"],
-            "bytes_per_host_tick": sum(t["bytes"] for t in ticks) /
-            host_ticks,
-            "hosts_up_per_tick": sorted({t["up"] for t in ticks}),
-            "card_row_max_err": card_err, "nvml_reads": len(nv_reads),
-            "card_row_last": ticks[-1]["card"]}
-        flat_rows = {}
-        for line in flat["table"]:
-            key = line.split()[0] if line.strip() else ""
-            if key in sims:
-                flat_rows[key] = line
-        if len(flat_rows) != len(sims):
-            failures.append(f"the flat table has {len(flat_rows)} "
-                            f"simulated rows")
+            def sample_nvml():
+                while not stop.is_set():
+                    per = {c: b.read_fields(c, list(_FIELDS))
+                           for c in range(cards)}
+                    nv_reads.append((time.time(), aggregate_host_sample(
+                        agent_addr, cards, driver, per, 0)))
+                    stop.wait(0.25)
 
-        # -- supervised, as operators run it ---------------------------------
+            sampler = threading.Thread(target=sample_nvml, daemon=True)
+            sampler.start()
+            try:
+                flat_proc = subprocess.run(
+                    [sys.executable, "-c", FLEET_FLAT, targets_file,
+                     str(FLEET_TICKS), str(FLEET_CHIPS)], cwd=HERE,
+                    env=dict(fenv, TPUMON_NATIVE=FLEET_PLANES[plane]),
+                    capture_output=True, text=True,
+                    timeout=FLEET_TICKS + 60)
+            finally:
+                stop.set()
+                sampler.join()
+            if flat_proc.returncode != 0:
+                raise AssertionError(f"the {plane} flat poller exited "
+                                     f"{flat_proc.returncode}: "
+                                     f"{flat_proc.stderr[-2000:]}")
+            flat = json.loads(flat_proc.stdout.strip().splitlines()[-1])
+            ticks = flat["ticks"]
+            walls = [t["wall_ms"] for t in ticks]
+            down = [t["up"] for t in ticks if t["up"] != len(targets)]
+            if flat["poller"] != want:
+                failures.append(f"{plane}: the poller is {flat['poller']}, "
+                                f"not {want}")
+            if down:
+                failures.append(f"{plane}: flat ticks with a host down: "
+                                f"up {down}")
+            if flat["n_mismatched"]:
+                failures.append(f"{plane}: simulated rows off their farm's "
+                                f"values: {flat['n_mismatched']} "
+                                f"({flat['mismatched']})")
+            held = {"power_w": lambda w: max(15.0 * cards, 0.1 * w),
+                    "max_temp_c": lambda w: 2.0,
+                    "hbm_total_mib": lambda w: 0.0,
+                    "hbm_used_mib": lambda w: 64.0 * cards,
+                    "links_up": lambda w: 0.0,
+                    "chips": lambda w: 0.0}
+            card_misses, card_err = [], {k: 0.0 for k in held}
+            for t in ticks:
+                row = t["card"]
+                near = [s for w, s in nv_reads
+                        if t["span"][0] - 1.0 <= w <= t["span"][1] + 1.0]
+                best = None
+                for s in near:
+                    errs = {k: (abs(float(row[k]) - float(getattr(s, k)))
+                                if row[k] is not None
+                                and getattr(s, k) is not None else math.inf)
+                            for k in held}
+                    if all(errs[k] <= tol(float(getattr(s, k) or 0.0))
+                           for k, tol in held.items()):
+                        best = errs
+                        break
+                if best is None or not row["up"] or row["dead_chips"]:
+                    card_misses.append((row, [s.__dict__
+                                              for _, s in near][:2]))
+                else:
+                    card_err = {k: max(card_err[k], v)
+                                for k, v in best.items()}
+            if card_misses:
+                failures.append(f"{plane}: the card's row vs NVML: "
+                                f"{len(card_misses)} of {len(ticks)} ticks, "
+                                f"{card_misses[:2]}")
+            host_ticks = len(targets) * len(ticks)
+            summary = {
+                "poller": flat["poller"], "ticks": len(ticks),
+                "tick_wall_ms": {"p50": quantile(walls, 0.5),
+                                 "p99": quantile(walls, 0.99),
+                                 "n": len(walls), "max": max(walls)},
+                "poller_cpu_ms_per_tick": sum(t["cpu_ms"] for t in ticks) /
+                len(ticks),
+                "process_cpu_percent": 100.0 * flat["cpu_s"] /
+                flat["wall_s"],
+                "rss_kib": flat["rss_kib"],
+                "bytes_per_host_tick": sum(t["bytes"] for t in ticks) /
+                host_ticks,
+                "hosts_up_per_tick": sorted({t["up"] for t in ticks}),
+                "card_row_max_err": card_err, "nvml_reads": len(nv_reads),
+                "card_row_last": ticks[-1]["card"]}
+            rows = {}
+            for line in flat["table"]:
+                key = line.split()[0] if line.strip() else ""
+                if key in sims:
+                    rows[key] = line
+            if len(rows) != len(sims):
+                failures.append(f"{plane}: the flat table has {len(rows)} "
+                                f"simulated rows")
+            return summary, rows
+
+        out["flat"], flat_rows = flat_leg("python", "FleetPoller")
+        out["flat_native"], native_rows = flat_leg("native",
+                                                   "NativeFleetPoller")
+        if native_rows != flat_rows:
+            failures.append("the native flat table's simulated rows are not "
+                            "the Python one's")
+        out["planes_side_by_side"] = {
+            plane: {k: out[key][k] for k in (
+                "tick_wall_ms", "poller_cpu_ms_per_tick",
+                "process_cpu_percent", "rss_kib", "bytes_per_host_tick")}
+            for plane, key in (("python", "flat"), ("native", "flat_native"))}
+
+        # -- supervised, as operators run it, on the native engine ----------
+        nenv = dict(fenv, TPUMON_NATIVE=FLEET_PLANES["native"])
         mport = free_port()
         t_sup = time.monotonic()
         cli = subprocess.Popen(
             [sys.executable, "-m", "tpumon_torch.cli.fleet",
              "--targets-file", targets_file, "--shards", str(FLEET_SHARDS),
              "--supervise", "--metrics-port", str(mport), "-d", "1"],
-            cwd=HERE, env=fenv, stdout=subprocess.PIPE,
+            cwd=HERE, env=nenv, stdout=subprocess.PIPE,
             stderr=open(os.path.join(work, "fleet-cli.err"), "w"),
             text=True)
         tables = FleetTables(cli)
@@ -4925,7 +5000,11 @@ def fleet_phase(fields, env, work) -> dict:
         c0, s0 = proc_stat(cli.pid), time.monotonic()
         n0 = len(tables.tables)
         time.sleep(FLEET_STEADY_S)
-        st1, _, scrape_ms = health()
+        st1, m1, scrape_ms = health()
+        planes = {fam: [v for _, v in m1.get(fam, [])] for fam in (
+            "tpumon_poll_native", "tpumon_codec_native")}
+        if any(v != [1.0] for v in planes.values()):
+            failures.append(f"the supervised /metrics reads {planes}")
         c1, s1 = proc_stat(cli.pid), time.monotonic()
         steady = tables.tables[n0:]
         if not steady or not all(fleet_view(rows, flat_rows, agent_addr)
@@ -4945,7 +5024,7 @@ def fleet_phase(fields, env, work) -> dict:
                 steady)), 3),
             "rss_kib": c1["rss_kib"],
             "metrics_scrape_ms": round(scrape_ms, 3),
-            "metrics_status": st1,
+            "metrics_status": st1, "native_gauges": planes,
             "shard_children_rss_kib": sorted(
                 proc_stat(pid)["rss_kib"] for pid, _ in kids)})
         # SIGKILL one shard child mid-run
@@ -4991,7 +5070,7 @@ def fleet_phase(fields, env, work) -> dict:
         # -- the supervisor's cost, from its own counter ---------------------
         sv = subprocess.run(
             [sys.executable, "-c", FLEET_SUPERVISE, targets_file,
-             str(FLEET_SHARDS), str(FLEET_SUP_TICKS)], cwd=HERE, env=fenv,
+             str(FLEET_SHARDS), str(FLEET_SUP_TICKS)], cwd=HERE, env=nenv,
             capture_output=True, text=True, timeout=FLEET_SUP_TICKS + 90)
         if sv.returncode != 0:
             raise AssertionError(f"the supervisor process exited "
@@ -5016,7 +5095,7 @@ def fleet_phase(fields, env, work) -> dict:
         once = subprocess.run(
             [sys.executable, "-m", "tpumon_torch.cli.fleet", "--connect",
              agent_addr, "--once", "--check", "--expect-chips", str(cards)],
-            cwd=HERE, env=fenv, capture_output=True, text=True, timeout=60)
+            cwd=HERE, env=nenv, capture_output=True, text=True, timeout=60)
         line = next((ln for ln in once.stdout.splitlines()
                      if "[PASS]" in ln or "[FAIL]" in ln), "")
         if once.returncode != 0 or agent_addr not in line or \
@@ -5137,16 +5216,20 @@ def chaos_run(paths, env, out_dir, log_path) -> dict:
 def chaos_phase(env, work) -> dict:
     """``chaos``: the port's chaos harness over its whole corpus
     (CHAOS_CORPUS) in one CLI process under the import guard, beside the
-    train workload.  Fails unless the CLI exits 0 with CHAOS_SCENARIOS
-    reports, each green, and the positive control (CHAOS_RED, its own CLI
-    process) exits non-zero with one red report; or if a process of either
-    imported ``tpumon``, ``jax`` or ``torch``.  Printed: each scenario's
+    train workload, with ``TPUMON_NATIVE=1``: the system under test polls
+    on the native engine (a missing engine fails the run), the harness's
+    reference poller stays the Python ``FleetPoller``.  Fails unless the
+    CLI exits 0 with CHAOS_SCENARIOS reports, each green, and the positive
+    control (CHAOS_RED, its own CLI process) exits non-zero with one red
+    report; or if a process of either imported ``tpumon``, ``jax`` or
+    ``torch``.  Printed: each scenario's
     verdict, ticks to converge, restarts and wall seconds, the CLI's CPU
     share (with its children) over its wall."""
 
     import glob
 
     genv, refused_log = guarded_env(env, work, "chaos")
+    genv["TPUMON_NATIVE"] = FLEET_PLANES["native"]
     paths = sorted(glob.glob(os.path.join(HERE, CHAOS_CORPUS, "*.yaml")))
     run = chaos_run(paths, genv, os.path.join(work, "chaos"),
                     os.path.join(work, "chaos.err"))
@@ -5162,7 +5245,7 @@ def chaos_phase(env, work) -> dict:
         f.write(CHAOS_RED)
     red = chaos_run([red_yaml], genv, os.path.join(work, "chaos-red"),
                     os.path.join(work, "chaos-red.err"))
-    out = {"scenarios": scenarios,
+    out = {"scenarios": scenarios, "sut_plane": "native",
            "green": sum(s["ok"] for s in scenarios.values()),
            "rc": run["rc"], "wall_s": round(run["wall_s"], 3),
            "cpu_s": round(run["cpu_s"], 3),
@@ -5506,7 +5589,8 @@ def relay_agent_phases(K, fields) -> tuple:
     for k in ("TPUMON_BACKEND", "TPUMON_CHIPS"):
         env.pop(k, None)
     # the legs' stretches and their start-ups, kills and restarts; the
-    # fleet leg's flat ticks, steady stretch, recovery budget and
+    # fleet leg's flat ticks (on both poll planes), steady stretch,
+    # recovery budget and
     # supervisor ticks and its processes' start-ups; the chaos corpus
     # (about 50 s of ticks) and its red control; the deploy leg's
     # stretch and its processes' start-ups
@@ -5515,8 +5599,8 @@ def relay_agent_phases(K, fields) -> tuple:
     seconds = RELAY_LIVE_S + RELAY_DARK_S + RELAY_BACK_S + 2 * (
         AGENT_SCRAPE_S + AGENT_BURST_S + AGENT_BURST_IDLE_S + 40) + \
         AGENT_PROM_SCRAPES + PY_PROM_SCRAPES + 2 * SIDE_S + 10 + \
-        FLEET_TICKS + FLEET_STEADY_S + FLEET_RECOVER_S + FLEET_SUP_TICKS + \
-        35 + 65 + DEPLOY_S + 20
+        2 * FLEET_TICKS + FLEET_STEADY_S + FLEET_RECOVER_S + \
+        FLEET_SUP_TICKS + 40 + 65 + DEPLOY_S + 20
     workload = None
     try:
         workload = spawn(["tpumon_torch.loadgen.run", "--size", "bench",
@@ -5598,7 +5682,8 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0])
 
     t0 = time.monotonic()
-    # the native agent and client build (g++) while the kernels do (nvcc)
+    # the native agent, client, codec and poll engine build (g++) while
+    # the kernels do (nvcc)
     native_build = {}
 
     def build_native():
@@ -5619,6 +5704,10 @@ def main() -> int:
     print(f"native build: {native_build['s']:.1f} s, "
           + ", ".join(sorted(os.path.basename(str(p))
                              for p in native_build["paths"].values())))
+    # the codec and poll extensions the native legs load (TPUMON_NATIVE=1)
+    print("native extensions: " + json.dumps({
+        name: os.path.relpath(native_build["paths"][name], HERE)
+        for name in ("_tpumon_torch_codec", "_tpumon_torch_poll")}))
     for line in _build.build_log().splitlines():
         if any(w in line for w in ("registers", "spill", "Compiling entry",
                                    "wgmma", "warning")):

@@ -1,7 +1,9 @@
 """The port's burst accumulator and sampler against the reference's.
 
 ``tpumon_torch.burst`` is a copy of ``tpumon.burst`` with imports renamed
-(no native codec: ``BurstAccumulator`` is ``PyBurstAccumulator``).  Seeded
+(``BurstAccumulator`` is the facade: native when the port's codec
+extension is loaded, ``PyBurstAccumulator`` otherwise; the native plane
+is forced in ``tests/test_torch_codec_native.py``).  Seeded
 sample streams — NaN/inf, blanks, strings and vectors, int/float type
 flips, harvests interleaved with folds, anchor adoption across a swap —
 must be harvested identically (``==`` with types) by both accumulators,
@@ -20,6 +22,7 @@ import pytest
 
 from tpumon import burst as JB
 from tpumon import sweepframe as JS
+from tpumon_torch import _codec as TC
 from tpumon_torch import burst as TB
 from tpumon_torch import fields as TF
 from tpumon_torch import sweepframe as TS
@@ -65,7 +68,7 @@ def _types(harvest):
 @pytest.mark.parametrize("seed", SEEDS)
 def test_fold_and_harvest_equal_the_reference(seed):
     ref, port = JB.PyBurstAccumulator(), TB.BurstAccumulator()
-    assert TB.BurstAccumulator is TB.PyBurstAccumulator
+    assert (port._nat is None) == (not TC.active())
     enc_r, enc_p = JS.PySweepFrameEncoder(), TS.SweepFrameEncoder()
     for chip, fid, t, v, cut in _stream(seed):
         for acc in (ref, port):

@@ -32,6 +32,7 @@ import tpumon_torch
 from tpumon import types as JT
 from tpumon.backends.base import Backend as JaxBackend
 from tpumon.exporter import exporter as JE
+from tpumon_torch import _codec as TC
 from tpumon_torch import types as TT
 from tpumon_torch.backends.base import Backend
 from tpumon_torch.backends.cuda import CudaBackend
@@ -42,6 +43,15 @@ from test_torch_monitor import _stub_backend, _values
 from test_torch_nvml import _build, _controls
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True)
+def _python_codec(monkeypatch):
+    """Both packages' renders on their Python codecs: the
+    ``tpumon_codec_native`` gauge reads which codec is loaded, and the
+    port's native one (``tests/test_torch_codec_native.py``) may be."""
+
+    monkeypatch.setattr(TC, "lib", None)
 #: self families whose values are timings or process stats
 TIMING_FAMILIES = ("tpumon_exporter_scrape_duration_seconds",
                    "tpumon_exporter_sweep_phase_seconds",

@@ -18,7 +18,9 @@
 * The CLI: ``render``/``check_render`` byte-equal to the reference's, and
   ``--once [--check [--expect-chips N]]`` answering with the reference
   CLI's exit codes and bytes against the same agent.
-* No native engine: ``TPUMON_NATIVE=1`` and ``native=True`` raise.
+* Plane selection: ``TPUMON_NATIVE=1`` and ``native=True`` give the
+  native engine's poller (``tests/test_torch_fleet_native.py`` holds it
+  to both Python pollers), ``TPUMON_NATIVE=0`` the Python one.
 * Imports: the five fleet modules import no ``tpumon``, ``jax`` or
   ``torch``.
 """
@@ -42,6 +44,9 @@ from tpumon import agentsim as JS
 from tpumon import events as JE
 from tpumon import fleetpoll as JP
 from tpumon.cli import fleet as JCF
+from tpumon_torch import _build
+from tpumon_torch import _codec as TC
+from tpumon_torch import _poll as TPL
 from tpumon_torch import agentsim as TS
 from tpumon_torch import events as TE
 from tpumon_torch import fleetpoll as TP
@@ -122,6 +127,18 @@ def reference_cases(ref_module, skip):
     return [n for n in names if n not in skip]
 
 
+def use_native(monkeypatch):
+    """Build the port's native targets (a no-op when built) and make the
+    codec and poll extensions the loaded planes for one test, whatever
+    this process found built when it imported them."""
+
+    _build.native()
+    for mod in (TC, TPL):
+        ext = _build.load_extension(mod.NAME)
+        assert ext is not None, mod.NAME
+        monkeypatch.setattr(mod, "lib", ext)
+
+
 @pytest.fixture
 def port_farm():
     f = TS.AgentFarm()
@@ -129,15 +146,14 @@ def port_farm():
     f.close()
 
 
-#: the one reference case not run: it holds the native engine, which the
-#: port does not have
-POLL_CASES = reference_cases(REF_POLL, {
-    "test_native_engine_differential_vs_reference"})
+POLL_CASES = reference_cases(REF_POLL, set())
 
 
 @pytest.mark.parametrize("case", POLL_CASES)
 def test_reference_poll_case_holds_on_the_port(case, port_farm, tmp_path,
                                                monkeypatch):
+    if case == "test_native_engine_differential_vs_reference":
+        use_native(monkeypatch)  # the case drives the engine itself
     run_on_port(REF_POLL, case, monkeypatch, farm=port_farm,
                 tmp_path=tmp_path)
 
@@ -338,25 +354,42 @@ def test_no_targets_exits_like_the_reference():
     assert "no targets" in port.stderr
 
 
-# -- no native engine ----------------------------------------------------------------
+# -- plane selection -------------------------------------------------------------
 
-def test_forced_native_fleet_raises_and_never_polls(monkeypatch, fake_agent):
-    assert not TP.poll_native_available() and not TP.poll_native_selected()
-    with pytest.raises(ImportError, match="tpumon_torch has no native"):
-        TP.create_fleet_poller([fake_agent], FIDS, native=True)
-    monkeypatch.setenv("TPUMON_NATIVE", "1")
-    with pytest.raises(ImportError, match="tpumon_torch has no native"):
-        TP.create_fleet_poller([fake_agent], FIDS)
-    r = _cli("tpumon_torch", ["--connect", fake_agent, "--once"],
-             env=agent_env(TPUMON_NATIVE="1"))
-    assert r.returncode != 0 and r.stdout == ""
-    assert "tpumon_torch has no native poll engine" in r.stderr
-    monkeypatch.setenv("TPUMON_NATIVE", "0")
-    p = TP.create_fleet_poller([fake_agent], FIDS, timeout_s=5.0)
+def test_native_selection_gives_the_engine_poller(monkeypatch, fake_agent):
+    """``native=True`` and ``TPUMON_NATIVE=1`` build a
+    ``NativeFleetPoller``, ``TPUMON_NATIVE=0`` and ``native=False`` the
+    Python poller; both read the agent alike, and the fleet CLI answers
+    with the same bytes on either plane."""
+
+    use_native(monkeypatch)
+    assert TP.poll_native_available()
+    made = []
     try:
-        assert type(p) is TP.FleetPoller and p.poll()[0].up
+        made.append(TP.create_fleet_poller([fake_agent], FIDS, native=True,
+                                           timeout_s=5.0))
+        monkeypatch.setenv("TPUMON_NATIVE", "1")
+        assert TP.poll_native_selected()
+        made.append(TP.create_fleet_poller([fake_agent], FIDS,
+                                           timeout_s=5.0))
+        monkeypatch.setenv("TPUMON_NATIVE", "0")
+        assert not TP.poll_native_selected()
+        made.append(TP.create_fleet_poller([fake_agent], FIDS,
+                                           timeout_s=5.0))
+        made.append(TP.create_fleet_poller([fake_agent], FIDS, native=False,
+                                           timeout_s=5.0))
+        assert [type(p) for p in made] == [TP.NativeFleetPoller] * 2 + \
+            [TP.FleetPoller] * 2
+        rows = [repr(p.poll()[0]) for p in made]
+        assert rows[0] == rows[1] == rows[2] == rows[3]
+        assert "up=True" in rows[0]
     finally:
-        p.close()
+        for p in made:
+            p.close()
+    out = [_cli("tpumon_torch", ["--connect", fake_agent, "--once"],
+                env=agent_env(TPUMON_NATIVE=v)) for v in ("1", "0")]
+    assert [r.returncode for r in out] == [0, 0], out[0].stderr
+    assert out[0].stdout == out[1].stdout
 
 
 # -- imports ---------------------------------------------------------------------------

@@ -34,10 +34,14 @@ import pytest
 import test_fleetshard as REF_SHARD
 import test_supervisor as REF_SUP
 from test_torch_fleet import FIDS, run_on_port, reference_cases
+from tpumon import _codec as JC
+from tpumon import _poll as JPL
 from tpumon import anomaly as JA
 from tpumon import fleetpoll as JP
 from tpumon import fleetshard as JF
 from tpumon import supervisor as JSUP
+from tpumon_torch import _codec as TC
+from tpumon_torch import _poll as TPL
 from tpumon_torch import agentsim as TS
 from tpumon_torch import anomaly as TA
 from tpumon_torch import fleetpoll as TP
@@ -204,7 +208,12 @@ def test_rows_and_partition_equal_the_reference(seed):
 
 
 @pytest.mark.parametrize("seed", range(3))
-def test_metric_lines_equal_the_reference(seed):
+def test_metric_lines_equal_the_reference(seed, monkeypatch):
+    # both packages on their Python planes: the codec and poll gauges read
+    # which plane is loaded (the port's native ones are read in
+    # tests/test_torch_codec_native.py and test_torch_fleet_native.py)
+    for mod in (JC, JPL, TC, TPL):
+        monkeypatch.setattr(mod, "lib", None)
     rng = random.Random(seed)
     stats = [{"shard": i, "hosts": rng.randrange(0, 4096),
               "up": rng.randrange(2), "ticks_total": rng.randrange(10**6),

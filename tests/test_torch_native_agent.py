@@ -565,11 +565,11 @@ def test_no_port_source_includes_the_reference_or_cuda():
                         or inc.startswith(("cuda", "nvml", "cupti"))
                         and m.group(1) == "<"):
                     bad.append(f"{path}:{n}: {line.strip()}")
-                if m.group(1) == '"' and not os.path.exists(
-                        os.path.join(os.path.dirname(path), inc)) and \
-                        inc not in ("tpumon_shim.h", "nvml.h", "json.hpp",
-                                    "kmsg.hpp", "sampler.hpp",
-                                    "tpumon_client.h"):
+                # a quoted include resolves beside the source or in one of
+                # the build's include directories (the port's own)
+                if m.group(1) == '"' and not any(
+                        os.path.exists(os.path.join(d, inc)) for d in
+                        (os.path.dirname(path), *_build.INCLUDES[1::2])):
                     bad.append(f"{path}:{n}: {line.strip()}")
     assert not bad, bad
     # and the build's include path holds the port's directories alone

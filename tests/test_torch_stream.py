@@ -38,6 +38,7 @@ from tpumon.exporter import exporter as JE
 from tpumon_torch import blackbox as TBB
 from tpumon_torch import events as TEV
 from tpumon_torch import frameserver as TFS
+from tpumon_torch import _codec as TC
 from tpumon_torch import types as TT
 from tpumon_torch.backends.base import Backend
 from tpumon_torch.exporter import exporter as TE
@@ -46,6 +47,15 @@ from test_torch_blackbox import T0, _events, _finding, _sweeps
 from test_torch_exporter import without_timings
 from test_torch_monitor import _stub_backend, _values
 from test_torch_nvml import _build
+
+
+@pytest.fixture(autouse=True)
+def _python_codec(monkeypatch):
+    """Both packages' renders on their Python codecs: the
+    ``tpumon_codec_native`` gauge reads which codec is loaded, and the
+    port's native one (``tests/test_torch_codec_native.py``) may be."""
+
+    monkeypatch.setattr(TC, "lib", None)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -1,7 +1,9 @@
 """The port's sweep-frame codec against the reference's.
 
 ``tpumon_torch.sweepframe`` is a copy of ``tpumon.sweepframe``'s
-pure-Python encoder and decoder with imports renamed; the flight
+pure-Python encoder and decoder with imports renamed, behind the same
+facades (native when the port's codec extension is loaded; the native
+plane is forced in ``tests/test_torch_codec_native.py``); the flight
 recorder's segments are these frames.  On seeded sweeps (ints, floats,
 non-finite floats, strings, vectors with blank and non-finite elements,
 blanks, chips appearing and vanishing, piggybacked events, mid-stream
@@ -16,6 +18,7 @@ import pytest
 
 from tpumon import events as JEV
 from tpumon import sweepframe as JS
+from tpumon_torch import _codec as TC
 from tpumon_torch import events as TEV
 from tpumon_torch import sweepframe as TS
 
@@ -77,7 +80,7 @@ def _events(mod, seed, k):
 @pytest.mark.parametrize("seed", SEEDS)
 def test_frames_equal_the_reference(seed):
     ref, port = JS.PySweepFrameEncoder(), TS.SweepFrameEncoder()
-    assert TS.SweepFrameEncoder is TS.PySweepFrameEncoder
+    assert (port._nat is None) == (not TC.active())
     for k, snap in enumerate(_sweeps(seed)):
         if k % 4 == 3:
             a, b = ref.encode_index_only_frame(), \

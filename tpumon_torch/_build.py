@@ -15,11 +15,16 @@ raises; nothing falls back to the plain PyTorch versions.
 
 The native agent and its C client (``native/``: ``gpu-hostengine``,
 ``libtpumon_client.so``, ``tpumon-cdemo`` and the test binaries
-``kmsg-classify`` and ``burst-fold``) build with the host's ``g++``/``cc``
-under the reference's flags, at first use (:func:`native`), into the same
-directory, each named by a hash of its sources and flags.  One file lock
-makes concurrent processes build once.  A failed build raises: nothing
-falls back to the Python agent.
+``kmsg-classify`` and ``burst-fold``), the two CPython extensions
+(``_tpumon_torch_codec``, the sweep-frame and burst codec, and
+``_tpumon_torch_poll``, the epoll fleet poll engine) and their plain
+smoke drivers (``codec-smoke``, ``poll-smoke``) build with the host's
+``g++``/``cc`` under the reference's flags, at first use (:func:`native`),
+into the same directory, each named by a hash of its sources and flags.
+One file lock makes concurrent processes build once.  A failed build
+raises: nothing falls back to the Python agent.  The extensions are
+imported only from the build of the current sources
+(:func:`load_extension`, which never compiles).
 
     python -m tpumon_torch._build --native    # build, print the paths
 """
@@ -30,9 +35,12 @@ import argparse
 import ctypes
 import fcntl
 import hashlib
+import importlib.util
 import os
 import shutil
 import subprocess
+import sys
+import sysconfig
 import threading
 import types
 from concurrent.futures import ThreadPoolExecutor
@@ -168,27 +176,41 @@ NATIVE_DIR = PKG_DIR / "native"
 #: the reference's native Makefile flags (-Werror on every target here)
 CXXFLAGS = ("-O2", "-std=c++17", "-Wall", "-Wextra", "-Werror", "-fPIC")
 CFLAGS = ("-O2", "-Wall", "-Wextra", "-Werror", "-fPIC")
-#: the include path: the port's header and its NVML ABI header, nothing of
+#: the reference's waiver for its CPython extensions: PyTypeObject slots
+#: are zero-initialized and filled in module init, which
+#: -Wmissing-field-initializers flags by design
+PY_WARN_WAIVER = ("-Wno-missing-field-initializers",)
+#: the include path: the port's headers and its NVML ABI header, nothing of
 #: the reference's tree and nothing of the CUDA toolkit
 INCLUDES = ("-I", str(NATIVE_DIR / "include"), "-I", str(PKG_DIR / "testlib"),
-            "-I", str(NATIVE_DIR / "agent"), "-I", str(NATIVE_DIR / "client"))
+            "-I", str(NATIVE_DIR / "agent"), "-I", str(NATIVE_DIR / "client"),
+            "-I", str(NATIVE_DIR / "codec"), "-I", str(NATIVE_DIR / "poll"))
 
 
 class NativeTarget:
     """One output: its compiler, main source, the files it depends on
-    (globs under ``native/`` or the package) and its link arguments."""
+    (globs under ``native/`` or the package) and its link arguments.  A
+    CPython extension (``py_ext``) builds shared, against the
+    interpreter's headers, and is named with its ``EXT_SUFFIX``."""
 
     def __init__(self, name: str, cxx: bool, main: str,
                  deps: Sequence[str], link: Sequence[str] = (),
-                 after: Optional[str] = None) -> None:
+                 after: Optional[str] = None, py_ext: bool = False) -> None:
         self.name, self.cxx, self.main = name, cxx, main
         self.deps, self.link, self.after = tuple(deps), tuple(link), after
+        self.py_ext = py_ext
 
     def flags(self) -> Tuple[str, ...]:
+        if self.py_ext:
+            return CXXFLAGS + PY_WARN_WAIVER + (
+                "-I", sysconfig.get_paths()["include"], "-shared")
         return CXXFLAGS if self.cxx else CFLAGS
 
 
 _AGENT_DEPS = ("native/agent/*", "native/include/*.h", "testlib/nvml.h")
+_CODEC_DEPS = ("native/codec/core.hpp", "native/codec/value.hpp")
+_POLL_DEPS = _CODEC_DEPS + ("native/poll/engine.hpp",
+                            "native/agent/json.hpp")
 NATIVE_TARGETS: Dict[str, NativeTarget] = {t.name: t for t in (
     NativeTarget("gpu-hostengine", True, "native/agent/main.cc",
                  _AGENT_DEPS, ("-ldl", "-lpthread")),
@@ -206,6 +228,14 @@ NATIVE_TARGETS: Dict[str, NativeTarget] = {t.name: t for t in (
                  ("native/testlib/burst_fold_main.cc",
                   "native/agent/sampler.hpp", "native/agent/source.hpp",
                   "native/include/*.h"), ("-lpthread",)),
+    NativeTarget("_tpumon_torch_codec", True, "native/codec/module.cc",
+                 _CODEC_DEPS + ("native/codec/py_common.hpp",), py_ext=True),
+    NativeTarget("_tpumon_torch_poll", True, "native/poll/module.cc",
+                 _POLL_DEPS + ("native/codec/py_common.hpp",), py_ext=True),
+    NativeTarget("codec-smoke", True, "native/testlib/codec_smoke_main.cc",
+                 _CODEC_DEPS, ("-lpthread",)),
+    NativeTarget("poll-smoke", True, "native/testlib/poll_smoke_main.cc",
+                 _POLL_DEPS, ("-lpthread",)),
 )}
 
 _native_lock = threading.Lock()
@@ -230,6 +260,9 @@ def native_digest(t: NativeTarget, after: Optional[Path] = None) -> str:
 
 
 def native_path(t: NativeTarget, digest: str) -> Path:
+    if t.py_ext:
+        suffix = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
+        return BUILD_DIR / f"{t.name}-{digest}{suffix}"
     stem, dot, ext = t.name.partition(".")
     return BUILD_DIR / (f"{stem}-{digest}{dot}{ext}")
 
@@ -248,7 +281,7 @@ def _compile_native(t: NativeTarget, after: Optional[Path]) -> Path:
                            f"{t.name} cannot be built")
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     cmd = [cc, *t.flags(), *INCLUDES, "-o", str(tmp), str(PKG_DIR / t.main)]
-    if t.name.endswith(".so"):
+    if t.name.endswith(".so") or t.py_ext:
         cmd += [f"-Wl,-soname,{out.name}"]
     if after is not None:
         cmd += [str(after), "-Wl,-rpath,$ORIGIN"]
@@ -303,11 +336,62 @@ def native(name: Optional[str] = None):
     return _native if name is None else _native[name]
 
 
+def load_extension(name: str) -> Optional[types.ModuleType]:
+    """Import the CPython extension target ``name`` from its build of the
+    current sources, registered in ``sys.modules`` under ``name``; None
+    when that build does not exist.  Never compiles, never looks anywhere
+    else: a stale build (another hash) is not loaded.  Raises
+    ``ImportError`` when the file does not import."""
+
+    t = NATIVE_TARGETS[name]
+    path = native_path(t, native_digest(t))
+    if not path.exists():
+        return None
+    mod = sys.modules.get(name)
+    if mod is not None and getattr(mod, "__file__", None) == str(path):
+        return mod
+    spec = importlib.util.spec_from_file_location(name, path)
+    if spec is None or spec.loader is None:
+        raise ImportError(f"{path} is not an extension module")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    sys.modules[name] = mod
+    return mod
+
+
+def load_selected(name: str, what: str) -> Tuple[Optional[types.ModuleType],
+                                                str]:
+    """The extension ``name`` as ``TPUMON_NATIVE`` selects it -> (the
+    module or None, why None): ``0`` never loads it, ``1`` raises
+    ``ImportError`` unless the build of the current sources loads, unset
+    (or anything else) loads it when that build exists.  ``what`` names
+    it in the messages."""
+
+    forced = os.environ.get("TPUMON_NATIVE", "").strip()
+    if forced == "0":
+        return None, "disabled by TPUMON_NATIVE=0"
+    error = ""
+    try:
+        mod = load_extension(name)
+    except ImportError as e:
+        mod, error = None, f"the built extension failed to load: {e}"
+    if mod is None:
+        if forced == "1":
+            raise ImportError(
+                f"TPUMON_NATIVE=1 but the {what} is not built for these "
+                f"sources; build it with `python -m tpumon_torch._build "
+                f"--native` ({error or 'not built'})")
+        error = error or ("extension not built (python -m "
+                          "tpumon_torch._build --native)")
+    return mod, error
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     p = argparse.ArgumentParser(prog="python -m tpumon_torch._build",
                                 description=__doc__.splitlines()[0])
     p.add_argument("--native", action="store_true",
-                   help="build the native agent and client; print the paths")
+                   help="build the native agent, client, codec and poll "
+                   "engine; print the paths")
     args = p.parse_args(argv)
     if args.native:
         for name, path in native().items():
@@ -316,6 +400,4 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
 
 if __name__ == "__main__":
-    import sys
-
     sys.exit(main())

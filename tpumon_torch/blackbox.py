@@ -795,8 +795,13 @@ class BlackBoxReader:
                            seg.name, e)
             self.last_torn_segments += 1
             return
-        yield from self._walk_segment(data, SweepFrameDecoder(),
-                                      start_ts, end_ts)
+        decoder = SweepFrameDecoder()
+        try:
+            yield from self._walk_segment(data, decoder, start_ts, end_ts)
+        finally:
+            # free the native mirror deterministically, whatever exit
+            # path the walk (or the consuming generator) takes
+            decoder.close()
 
     def _walk_segment(self, data: bytes, decoder: SweepFrameDecoder,
                       start_ts: Optional[float], end_ts: Optional[float],

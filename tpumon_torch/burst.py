@@ -24,9 +24,12 @@ Fold semantics (the reference's, unchanged):
   (:func:`wire_number`): a finite integral double below
   ``NUM_INT_LIMIT`` materializes as ``int``.
 
-There is no native codec in the port: :class:`BurstAccumulator` IS the
-pure-Python :class:`PyBurstAccumulator`, held byte-identical to the
-reference through the sweep-frame codec by ``tests/test_torch_burst.py``.
+:class:`BurstAccumulator` is a facade, as in the reference: the port's
+native codec extension (:mod:`tpumon_torch._codec`, ``native/codec/``
+``BurstCore``) backs it when loaded, the pure-Python
+:class:`PyBurstAccumulator` otherwise.  ``tests/test_torch_burst.py``
+holds the Python fold byte-identical to the JAX package's through the
+sweep-frame codec, ``tests/test_torch_codec_native.py`` the native one.
 
 :class:`BurstSampler` is the inner-loop thread the exporter starts over
 the NVML backend (``--burst-hz``).  Handoff contract: the inner loop
@@ -44,8 +47,10 @@ from __future__ import annotations
 import math
 import threading
 import time
-from typing import Callable, Dict, Optional, Sequence, Tuple, Union
+from typing import (Any, Callable, Dict, Optional, Sequence, Tuple, Union,
+                    cast)
 
+from . import _codec
 from . import fields as FF
 from .backends.base import FieldValue
 from .sweepframe import NUM_INT_LIMIT
@@ -217,9 +222,87 @@ class PyBurstAccumulator:
                 mine.anchor_v = w.anchor_v
 
 
-#: the production name: the reference dispatches it to a native codec
-#: extension when one is built; the port has none
-BurstAccumulator = PyBurstAccumulator
+if _codec.lib is not None and int(_codec.lib.BURST_ID_BASE) != FF.BURST_ID_BASE:
+    # a stale extension must degrade to the reference, never emit
+    # derived fields under drifted ids
+    _codec.reject("native codec BURST_ID_BASE disagrees with "
+                  "tpumon_torch/fields.py (rebuild: python -m "
+                  "tpumon_torch._build --native)")
+
+
+class BurstAccumulator:
+    """The shared burst accumulator (native-backed facade).
+
+    Same fold/harvest/anchor contract as :class:`PyBurstAccumulator`
+    (the fallback and executable spec).  The native backend owns the
+    window table and releases the GIL around large ``fold_series``
+    batches and every ``harvest`` — an internal mutex makes the
+    GIL-released window safe against the accumulator-swap handoff
+    (:class:`BurstSampler`), which already serializes access by
+    protocol."""
+
+    __slots__ = ("_nat", "_py")
+
+    def __init__(self) -> None:
+        lib = _codec.lib
+        if lib is not None:
+            self._nat: Optional[Any] = lib.Burst()
+            self._py: Optional[PyBurstAccumulator] = None
+        else:
+            self._nat = None
+            self._py = PyBurstAccumulator()
+
+    def fold(self, chip: int, fid: int, t: float, v: float) -> None:
+        nat = self._nat
+        if nat is not None:
+            # the reference's float() coercion (and its errors) before
+            # the native double fold
+            nat.fold(chip, fid, t, float(v))
+            return
+        py = self._py
+        assert py is not None
+        py.fold(chip, fid, t, v)
+
+    def fold_series(self, chip: int, fid: int, ts: Sequence[float],
+                    vs: Sequence[FieldValue]) -> None:
+        nat = self._nat
+        if nat is not None:
+            nat.fold_series(chip, fid, ts, vs)
+            return
+        py = self._py
+        assert py is not None
+        py.fold_series(chip, fid, ts, vs)
+
+    def entries(self) -> int:
+        nat = self._nat
+        if nat is not None:
+            entries = nat.entries()
+            return int(entries)
+        py = self._py
+        assert py is not None
+        return py.entries()
+
+    def harvest(self) -> Dict[int, Dict[int, FieldValue]]:
+        nat = self._nat
+        if nat is not None:
+            return cast("Dict[int, Dict[int, FieldValue]]",
+                        nat.harvest())
+        py = self._py
+        assert py is not None
+        return py.harvest()
+
+    def adopt_anchors(self, other: "BurstAccumulator") -> None:
+        nat = self._nat
+        if nat is not None:
+            if other._nat is None:
+                raise TypeError("cannot adopt anchors across codec "
+                                "backends")
+            nat.adopt_anchors(other._nat)
+            return
+        py = self._py
+        other_py = other._py
+        assert py is not None and other_py is not None
+        py.adopt_anchors(other_py)
 
 
 #: sample_fn contract: one inner sweep of the cheap-counter subset —

@@ -407,8 +407,8 @@ class ChaosHarness:
                     shards=scenario.shards,
                     timeout_s=max(1.0, 5.0 * iv), **backoff)
             else:
-                # the port has no native engine: TPUMON_NATIVE=1
-                # raises here rather than run the Python one silently
+                # system-under-test goes native when TPUMON_NATIVE
+                # selects the engine; the reference below never does
                 self.flat_sut = create_fleet_poller(
                     self.addresses, FLEET_FIELDS,
                     timeout_s=max(1.0, 5.0 * iv), **backoff)

@@ -547,7 +547,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             sweep = sharded.poll
         else:
             # one event loop for the whole fleet: persistent
-            # connections, hello once per connection, delta sweeps
+            # connections, hello once per connection, delta sweeps —
+            # driven by the native epoll engine when it is built
             poller = create_fleet_poller(
                 targets, _FIELDS, timeout_s=args.timeout,
                 blackbox_dir=args.blackbox_dir,

@@ -23,8 +23,9 @@ fails the constructor.
 
 ``ici_per_link_modeled`` splits the measured NVLink aggregate (the
 collective attribution) evenly over the card's NVLink peers, labeled
-``source="modeled"``.  There is no native codec: the render is the
-pure-Python path (``tpumon_codec_native 0``).
+``source="modeled"``.  ``tpumon_codec_native`` says whether the port's
+native codec extension backs the sweep-frame and burst codecs
+(:mod:`tpumon_torch._codec`).
 
 Importing this module, and running the daemon over the NVML backend,
 never imports ``torch``.
@@ -41,6 +42,7 @@ import time
 from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
                     Tuple)
 
+from .. import _codec
 from .. import fields as FF
 from .. import log
 from ..backends.base import FieldValue
@@ -736,7 +738,7 @@ class TpuExporter:
                     "1 when the native codec extension backs the "
                     "sweep-frame/burst codecs, 0 on the pure-Python "
                     "reference.",
-                    lbl, 0.0, fmt=".0f")
+                    lbl, 1.0 if _codec.active() else 0.0, fmt=".0f")
         ratio = self.renderer.last_hit_ratio
         if ratio is not None:
             lines += rf("tpumon_exporter_render_cache_hit_ratio", "gauge",

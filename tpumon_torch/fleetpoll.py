@@ -36,11 +36,14 @@ one fresh-connection retry charged against the same deadline (the
 agent may simply have restarted between ticks — a healthy host must
 not render DOWN for that).
 
-There is no native poll engine in the port: the poller is the
-reference's pure-Python selector loop (the plane the reference pins with
-``TPUMON_NATIVE=0``), and asking for the native one
-(``TPUMON_NATIVE=1``, ``create_fleet_poller(native=True)``) raises
-``ImportError`` instead of polling on this loop in silence.  Old agents
+The inner loop has a native twin, as in the reference:
+:class:`NativeFleetPoller` moves the connection machinery into the port's
+epoll engine (:mod:`tpumon_torch._poll`, ``native/poll/``) and keeps this
+module's policy, and :func:`create_fleet_poller` picks it when the engine
+is built (``TPUMON_NATIVE``: ``0`` never, ``1`` strict, unset when
+built).  The pure-Python :class:`FleetPoller` stays the executable spec;
+``tests/test_torch_fleet_native.py`` holds the two, and the JAX package's
+poller, row for row and byte for byte.  Old agents
 that predate even the JSON ``read_fields_bulk`` op are served by the
 ``HostConn`` compat shim in :mod:`tpumon_torch.cli.fleet`.
 """
@@ -58,12 +61,12 @@ import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
-from . import log
+from . import _poll, log
 from .backends.agent import AgentBackend, _parse_address
 from .backends.base import FieldValue
 from .events import Event
 from .sweepframe import (SWEEP_FRAME_MAGIC, SweepFrameDecoder,
-                         encode_sweep_request, try_split_frame)
+                         _decode_event, encode_sweep_request)
 from . import fields as FF
 
 F = FF.F
@@ -327,8 +330,20 @@ class FleetPoller:
         #: findings accumulated since the last take_findings() drain,
         #: as (address, AnomalyRecord) in firing order
         self._findings: List[Tuple[str, Any]] = []
+        #: the seven aggregate field ids the native mirror aggregate
+        #: needs, in aggregate_host_sample's lookup order
+        self._agg_fids = (int(F.POWER_USAGE), int(F.CORE_TEMP),
+                          int(F.TENSORCORE_UTIL), int(F.HBM_BW_UTIL),
+                          int(F.HBM_USED), int(F.HBM_TOTAL),
+                          int(F.ICI_LINKS_UP))
         self._hosts = [_HostState(t) for t in targets]
         self._pending = 0    # hosts not yet finished this tick
+        #: no tee wants decoded snapshots: the binary path can skip
+        #: materialize entirely (native mirror aggregate; snapshots
+        #: rebuilt on demand by raw_snapshots()).  The anomaly engine
+        #: is a snapshot consumer like the tees.
+        self._lazy_per_chip = (blackbox_dir is None
+                               and stream_hub is None and rules is None)
         #: wire accounting (bytes on the wire, both directions)
         self.tick_bytes_sent = 0
         self.tick_bytes_recv = 0
@@ -440,9 +455,25 @@ class FleetPoller:
         schedule.  An unchanged host returns the SAME dict object as
         last tick (the index-only shortcut re-serves it): consumers key
         reconstruction caches on that identity
-        (:class:`~tpumon_torch.fleetshard.ShardAggregateView`)."""
+        (:class:`~tpumon_torch.fleetshard.ShardAggregateView`).
 
-        return {h.address: h.last_per_chip for h in self._hosts}
+        On the native-aggregate fast path the per-tick materialize is
+        skipped (no tee consumed it); the snapshot is rebuilt here from
+        the live mirror — same contents, same types (the mirror always
+        holds the last successfully applied frame: every failed apply
+        tears the connection, and the decoder, down)."""
+
+        out: Dict[str, Optional[Dict[int, Dict[int, FieldValue]]]] = {}
+        for h in self._hosts:
+            if h.last_per_chip is None and h.decoder is not None \
+                    and h.negotiated:
+                # cache the rebuilt snapshot as the steady object too,
+                # so an unchanged host keeps returning the SAME dict
+                # here, exactly like the eager path
+                h.last_per_chip = h.steady_per_chip = \
+                    h.decoder.materialize(h.requests)
+            out[h.address] = h.last_per_chip
+        return out
 
     def last_changed_flags(self) -> List[bool]:
         """Per-host "did last tick change anything" flags in target
@@ -688,6 +719,8 @@ class FleetPoller:
     def _on_connected(self, h: _HostState) -> None:
         # fresh connection -> fresh delta tables on BOTH sides (the
         # server's table is connection-scoped) and a fresh hello
+        if h.decoder is not None:
+            h.decoder.close()  # free the native mirror now, not at GC
         h.decoder = None
         h.negotiated = False
         h.hello = None
@@ -715,6 +748,8 @@ class FleetPoller:
             h.sock = None
         h.state = _DOWN
         h.awaiting = None
+        if h.decoder is not None:
+            h.decoder.close()  # free the native mirror now, not at GC
         h.decoder = None
         h.negotiated = False
         h.hello = None
@@ -890,13 +925,15 @@ class FleetPoller:
                 if decoder is None:
                     decoder = h.decoder = SweepFrameDecoder()
                 try:
-                    parsed = try_split_frame(h.inbuf)
+                    # fused split + decode: one codec call per frame,
+                    # parsing the receive buffer in place (no payload
+                    # slice copy on the 1 Hz hot path)
+                    parsed = decoder.try_apply(h.inbuf)
                     if parsed is None:
                         # mid-frame: wait for more bytes (or deadline)
                         return
-                    payload, used = parsed
+                    used, events = parsed
                     del h.inbuf[:used]
-                    events = decoder.apply(payload)
                     h.negotiated = True
                     if (decoder.last_changes == 0 and not events
                             and h.steady_sample is not None):
@@ -946,6 +983,20 @@ class FleetPoller:
                     self._io_error(h, f"sweep frame decode failed: {e}",
                                    time.monotonic())
                     return
+                if self._lazy_per_chip:
+                    # native fleet fast path: the per-host aggregate is
+                    # computed directly off the native mirror — no
+                    # snapshot dicts are built at all on the 1 Hz path
+                    # (None on the pure-Python backend; OverflowError
+                    # when a value needs exact Python arithmetic)
+                    try:
+                        agg = decoder.host_aggregate(
+                            h.requests, h.chip_count, self._agg_fids)
+                    except OverflowError:
+                        agg = None
+                    if agg is not None:
+                        self._sweep_done_native(h, agg, events)
+                        continue
                 per_chip = decoder.materialize(h.requests)
                 self._sweep_done(h, per_chip, events)
             elif lead == ord("{"):
@@ -1051,6 +1102,41 @@ class FleetPoller:
         # the socket stays registered for READ across ticks: an agent
         # closing between ticks is discovered at the next poll
 
+    def _sweep_done_native(self, h: _HostState,
+                           agg: Tuple[int, int, float, Optional[int],
+                                      Optional[float], Optional[float],
+                                      int, int, int],
+                           events: Optional[List[Event]]) -> None:
+        """The native-aggregate twin of :meth:`_sweep_done`: same row,
+        built from the mirror aggregate tuple instead of a materialized
+        snapshot (which is never built — ``raw_snapshots()`` rebuilds
+        one on demand from the live mirror)."""
+
+        h.awaiting = None
+        h.backoff_s = 0.0
+        h.tick_changed = True
+        h.last_error = ""
+        self._log_transition(h, up=True)
+        if events:
+            h.event_seq = max(h.event_seq,
+                              max(e.seq for e in events))
+        (live, dead, power_w, max_temp, mean_tc, mean_hbm,
+         hbm_used, hbm_total, links_up) = agg
+        hello = h.hello or {}
+        sample = HostSample(
+            address=h.address, up=True, chips=h.chip_count,
+            driver=str(hello.get("driver", "")), power_w=power_w,
+            max_temp_c=max_temp, mean_tc_util=mean_tc,
+            mean_hbm_util=mean_hbm, hbm_used_mib=hbm_used,
+            hbm_total_mib=hbm_total, links_up=links_up,
+            events=h.event_seq, live_fields=live, dead_chips=dead)
+        h.last_per_chip = None   # lazy: rebuilt by raw_snapshots()
+        h.steady_per_chip = None
+        h.steady_sample = sample
+        self._finish(h, sample)
+
+    # -- failure handling -----------------------------------------------------
+
     # -- failure handling -----------------------------------------------------
 
     def _finish(self, h: _HostState, sample: HostSample) -> None:
@@ -1131,42 +1217,424 @@ class FleetPoller:
         h.backoff_until = now + h.backoff_s * self._backoff_jitter()
 
 
-# -- poll plane selection ------------------------------------------------------
-
-#: why a forced native fleet is refused
-_NO_NATIVE = ("tpumon_torch has no native poll engine: the port polls on "
-              "the pure-Python selector loop only (unset TPUMON_NATIVE or "
-              "set it to 0)")
-
+# ---------------------------------------------------------------------------
+# Native poll plane: the epoll engine behind the same policy
+# ---------------------------------------------------------------------------
 
 def poll_native_available() -> bool:
-    """Always False: the port ships no native poll engine."""
+    """True when the native poll engine can back the fleet poller (the
+    ``_tpumon_torch_poll`` extension is loaded AND exports the engine —
+    Linux only: the engine is epoll-based, and the extension builds
+    elsewhere as a stub without ``PollEngine``)."""
 
-    return False
+    return _poll.lib is not None and hasattr(_poll.lib, "PollEngine")
+
+
+class NativeFleetPoller(FleetPoller):
+    """:class:`FleetPoller` with the per-host connection machinery —
+    sockets, non-blocking connect, hello/probe negotiation, frame
+    reassembly, delta tables — moved into the native epoll engine
+    (``native/poll/``, extension ``_tpumon_torch_poll``, built next to
+    the codec extension by :mod:`tpumon_torch._build`).
+
+    Division of labour per tick:
+
+    * **Python (policy)** decides which hosts may dial (backoff
+      schedule, per-tick reconnect budget, resolver failures), pushes
+      the per-host ``events_since`` cursor and the cached binary
+      request bytes, then makes ONE ``tick()`` call.
+    * **Engine (mechanism)** runs the whole event loop with the GIL
+      released and returns only activity records: a host with no
+      record had an index-only steady frame (nothing moved).
+    * **Python (policy)** replays the records through the SAME
+      ``_sweep_done`` / ``_mark_down`` / tee methods the pure poller
+      uses, so samples, error strings, backoff state, blackbox/stream/
+      anomaly tees and counters stay byte-identical with the spec.
+
+    The pure-Python :class:`FleetPoller` remains the executable spec;
+    this class must never change observable behaviour, only cost.
+    """
+
+    def __init__(self, targets: Sequence[str],
+                 field_ids: Sequence[int], **kwargs: Any) -> None:
+        super().__init__(targets, field_ids, **kwargs)
+        if not poll_native_available():
+            raise ImportError(
+                "native poll engine unavailable: "
+                + (_poll.error or "extension lacks PollEngine "
+                   "(rebuild: python -m tpumon_torch._build --native)"))
+        lib = _poll.lib
+        # pre-dumped wire fragments: the engine must emit exactly the
+        # bytes json.dumps would, so Python dumps them once here
+        hello = json.dumps(
+            {"op": "hello", "client": self._client_name,
+             "version": "0.1.0"},
+            separators=(",", ":")).encode("utf-8") + b"\n"
+        fields_frag = '"fields":' + json.dumps(
+            self._fields, separators=(",", ":"))
+        eng = lib.PollEngine(hello, fields_frag, tuple(self._fields),
+                             self._agg_fids, bool(self._lazy_per_chip))
+        # slots whose address can never convert to a sockaddr render
+        # the spec's "socket setup" failure from Python every dial
+        # (index -> the message str(OSError) carries)
+        self._setup_errors: Dict[int, str] = {}
+        for i, h in enumerate(self._hosts):
+            if h.kind == "unix":
+                if len(os.fsencode(h.target)) > 108:
+                    # CPython getsockaddrarg's sizeof(sun_path) bound:
+                    # connect_ex raises before any syscall, so the
+                    # engine (whose add_unix mirrors the same limit)
+                    # must never dial this slot
+                    self._setup_errors[i] = "AF_UNIX path too long"
+                eng.add_unix(h.target)
+            elif h.resolve_error:
+                # placeholder slot: the host renders DOWN from Python
+                # with the resolver's error and is always skipped
+                eng.add_tcp("", 0)
+            else:
+                ip, port = h.target
+                eng.add_tcp(str(ip), int(port))
+        self._eng: Optional[Any] = eng
+        self._S_OK_FRAME = lib.POLL_OK_FRAME
+        self._S_OK_JSON = lib.POLL_OK_JSON
+        self._S_IDLE_EOF = lib.POLL_IDLE_EOF
+        self._S_ERR_CONNECT = lib.POLL_ERR_CONNECT
+        self._S_ERR_SETUP = lib.POLL_ERR_SETUP
+        self._S_ERR_SEND = lib.POLL_ERR_SEND
+        self._S_ERR_RECV = lib.POLL_ERR_RECV
+        self._S_ERR_EOF = lib.POLL_ERR_EOF
+        self._S_ERR_FRAME_DECODE = lib.POLL_ERR_FRAME_DECODE
+        self._S_ERR_BAD_JSON = lib.POLL_ERR_BAD_JSON
+        self._S_ERR_NON_OBJECT = lib.POLL_ERR_NON_OBJECT
+        self._S_ERR_DESYNC = lib.POLL_ERR_DESYNC
+        self._S_ERR_HELLO = lib.POLL_ERR_HELLO
+        self._S_ERR_HELLO_CHIPS = lib.POLL_ERR_HELLO_CHIPS
+        self._S_ERR_PROBE = lib.POLL_ERR_PROBE
+        self._S_ERR_JSON_APP = lib.POLL_ERR_JSON_APP
+        self._S_ERR_BINARY = lib.POLL_ERR_BINARY_WHERE_JSON
+        self._S_ERR_IDLE_JSON = lib.POLL_ERR_IDLE_JSON
+        self._S_ERR_DEADLINE = lib.POLL_ERR_DEADLINE
+
+    # -- tick -----------------------------------------------------------------
+
+    def poll(self) -> List[HostSample]:
+        eng = self._eng
+        if eng is None:                      # closed: spec behaviour is
+            return super().poll()            # a pure-Python dead tick
+        now = time.monotonic()
+        self.tick_bytes_sent = 0
+        self.tick_bytes_recv = 0
+        self.ticks_total += 1
+        budget = self._reconnect_budget
+        deadline = now + self._timeout_s
+        hosts = self._hosts
+        self._pending = len(hosts)
+        skip = bytearray(len(hosts))
+        for i, h in enumerate(hosts):
+            h.done = False
+            h.sample = None
+            h.retried = False
+            h.last_per_chip = None
+            h.tick_bytes = 0
+            h.deadline = deadline
+            if h.state == _CONNECTED:
+                # the engine holds the live socket; Python only pushes
+                # the request bytes / events cursor the spec would
+                # send.  The cursor is pushed even on the binary path:
+                # the engine's in-tick retry (agent restarted between
+                # ticks) re-probes on a fresh connection, and that
+                # probe must carry the CURRENT cursor, not the one from
+                # the last disconnected dial
+                h.reused_conn = True
+                es = h.event_seq
+                eng.set_events_since(i, es)
+                if h.negotiated and not h.json_pinned:
+                    if h.req_event_seq != es:
+                        h.req_bytes = encode_sweep_request(
+                            h.requests, None, es)
+                        h.req_event_seq = es
+                    eng.set_request(i, h.req_bytes)
+                continue
+            h.reused_conn = False
+            if h.ever_failed and now < h.backoff_until:
+                wait = h.backoff_until - now
+                h.tick_changed = True
+                skip[i] = 1
+                self._finish(h, HostSample(
+                    address=h.address, up=False,
+                    error=f"backoff {wait:.1f}s after: {h.last_error}"))
+            elif h.ever_failed and budget <= 0:
+                h.tick_changed = True
+                skip[i] = 1
+                self._finish(h, HostSample(
+                    address=h.address, up=False,
+                    error=("reconnect budget exhausted this tick "
+                           f"(after: {h.last_error})")))
+            else:
+                if h.ever_failed:
+                    budget -= 1
+                if h.resolve_error:
+                    skip[i] = 1
+                    self._mark_down(h, h.resolve_error, now)
+                elif i in self._setup_errors:
+                    # the address can never become a sockaddr (e.g.
+                    # AF_UNIX path over the kernel limit): replay the
+                    # spec's per-dial setup failure without handing
+                    # the slot to the engine
+                    skip[i] = 1
+                    self._mark_down(h, f"socket setup for {h.address}: "
+                                    f"{self._setup_errors[i]}", now)
+                else:
+                    # fresh dial: the engine connects + hellos; the
+                    # first sweep is always the JSON probe (or the
+                    # pinned oracle), both built off this cursor
+                    eng.set_events_since(i, h.event_seq)
+        sent, recvd, hellos, records = eng.tick(self._timeout_s,
+                                                bytes(skip))
+        self.tick_bytes_sent += sent
+        self.tick_bytes_recv += recvd
+        self.hello_rpcs_total += hellos
+        now = time.monotonic()
+        # records arrive in engine-completion order; replaying them in
+        # that order keeps the Python connection mirror exact (a host's
+        # LAST record decides its end-of-tick up/down state)
+        for (i, stage, err, changes, agg, detail, hello_b,
+             events_b, chip_count) in records:
+            h = hosts[i]
+            if hello_b is not None:
+                # fresh hello on this connection: cache it exactly like
+                # _dispatch_json does (chip_count already validated and
+                # int()-converted by the engine)
+                h.hello = json.loads(
+                    hello_b)
+                h.chip_count = int(chip_count)
+                h.requests = [(c, self._fields)
+                              for c in range(h.chip_count)]
+                h.req_event_seq = -1
+            if stage == self._S_OK_FRAME:
+                h.state = _CONNECTED
+                h.negotiated = True
+                events: Optional[List[Event]] = None
+                if events_b:
+                    events = [_decode_event(b) for b in events_b]
+                if agg is not None:
+                    self._sweep_done_native(h, agg, events)
+                else:
+                    # non-lazy mode (tees need the snapshot), or the
+                    # aggregate hit overflow/NaN/Inf: materialize off
+                    # the engine-owned mirror and take the spec path
+                    self._sweep_done(h, eng.materialize(i) or {},
+                                     events)
+            elif stage == self._S_OK_JSON:
+                h.state = _CONNECTED
+                h.json_pinned = True
+                resp = json.loads(
+                    detail)
+                per_chip = {int(idx): {int(k): v
+                                       for k, v in vals.items()}
+                            for idx, vals in
+                            resp.get("chips", {}).items()}
+                events = None
+                if "events" in resp:
+                    events = AgentBackend._decode_events(resp["events"])
+                self._sweep_done(h, per_chip, events)
+            elif stage == self._S_IDLE_EOF:
+                # agent closed (or idle-babbled) between ticks on an
+                # already-finished host: connection dropped silently,
+                # exactly like _drain_idle
+                self._mirror_teardown(h)
+            else:
+                self._mirror_teardown(h)
+                self._mark_down(h, self._format_error(h, stage, err,
+                                                      detail), now)
+        for h in hosts:
+            if h.done:
+                continue
+            self._steady_finish(h)
+        self.total_bytes += self.tick_bytes_sent + self.tick_bytes_recv
+        return [h.sample for h in hosts if h.sample is not None]
+
+    def _steady_finish(self, h: _HostState) -> None:
+        """No record from the engine == index-only steady frame: replay
+        the spec's steady shortcut (same tees, same reused sample)."""
+
+        h.awaiting = None
+        h.backoff_s = 0.0
+        h.tick_changed = False
+        h.last_per_chip = h.steady_per_chip
+        if (self._blackbox_dir is None and self._rules is None
+                and not self._stream_pubs):
+            # bare poller (no recorder/rules/stream tees): the steady
+            # replay is pure bookkeeping, and with 100k hosts ticking
+            # steady this runs once per host per tick — keep it
+            # call-free (this IS _finish(h, h.steady_sample))
+            h.sample = h.steady_sample
+            if not h.done:
+                h.done = True
+                self._pending -= 1
+            return
+        now_w: Optional[float] = None
+        if self._blackbox_dir is not None or self._rules is not None:
+            # wall clock on purpose: replay-correlation key
+            now_w = time.time()
+        if self._blackbox_dir is not None:
+            self._record_sweep(h, h.steady_per_chip or {}, None,
+                               unchanged=True, now=now_w)
+        self._stream_sweep(h, h.steady_per_chip or {}, unchanged=True,
+                           now=now_w)
+        if now_w is not None:
+            self._observe(h, h.steady_per_chip or {}, None, now_w,
+                          unchanged=True)
+        self._finish(h, h.steady_sample)
+
+    def _mirror_teardown(self, h: _HostState) -> None:
+        """Mirror the engine's connection teardown into the Python
+        bookkeeping :meth:`_teardown` would have cleared (there is no
+        Python-side socket, selector key or decoder to close)."""
+
+        h.state = _DOWN
+        h.interest = 0
+        h.awaiting = None
+        h.negotiated = False
+        h.hello = None
+        h.steady_per_chip = None
+        h.steady_sample = None
+
+    def _format_error(self, h: _HostState, stage: int, err: int,
+                      detail: Optional[bytes]) -> str:
+        """Reconstruct the exact error string the spec poller builds at
+        each failure site, from the engine's (stage, errno, raw-bytes)
+        record."""
+
+        if stage == self._S_ERR_CONNECT:
+            return (f"connect to {h.address}: "
+                    f"{errno.errorcode.get(err, err)}")
+        if stage == self._S_ERR_SETUP:
+            return (f"socket setup for {h.address}: "
+                    f"{OSError(err, os.strerror(err))}")
+        if stage == self._S_ERR_SEND:
+            return f"send: {OSError(err, os.strerror(err))}"
+        if stage == self._S_ERR_RECV:
+            return f"recv: {OSError(err, os.strerror(err))}"
+        if stage == self._S_ERR_EOF:
+            return "connection closed by agent"
+        if stage == self._S_ERR_FRAME_DECODE:
+            return ("sweep frame decode failed: "
+                    + bytes(detail or b"").decode("utf-8", "replace"))
+        if stage == self._S_ERR_BAD_JSON:
+            # re-parse the surfaced line so the message carries
+            # json.loads's own words (position and all)
+            try:
+                json.loads(
+                    bytes(detail or b""))
+            except ValueError as e:
+                return f"malformed JSON from agent: {e}"
+            return "malformed JSON from agent: unparseable reply"
+        if stage == self._S_ERR_NON_OBJECT:
+            return "non-object JSON from agent"
+        if stage == self._S_ERR_DESYNC:
+            return (f"desynchronized agent stream "
+                    f"(unexpected lead byte {err!r})")
+        if stage in (self._S_ERR_HELLO, self._S_ERR_PROBE,
+                     self._S_ERR_JSON_APP):
+            err_s = ""
+            try:
+                resp = json.loads(
+                    bytes(detail or b"{}"))
+                if isinstance(resp, dict):
+                    err_s = str(resp.get("error", ""))
+            except ValueError:
+                pass
+            if stage == self._S_ERR_HELLO:
+                return f"hello: {err_s or 'agent error'}"
+            if stage == self._S_ERR_PROBE:
+                return f"sweep_frame: {err_s or 'unexpected JSON reply'}"
+            return f"read_fields_bulk: {err_s or 'agent error'}"
+        if stage == self._S_ERR_HELLO_CHIPS:
+            return "hello reply missing chip_count"
+        if stage == self._S_ERR_BINARY:
+            return "binary frame where a JSON reply was expected"
+        if stage == self._S_ERR_IDLE_JSON:
+            return "JSON reply while idle"
+        if stage == self._S_ERR_DEADLINE:
+            return f"deadline exceeded ({self._timeout_s:.1f}s)"
+        return f"native engine failure (stage {stage}, errno {err})"
+
+    # -- read-side contracts --------------------------------------------------
+
+    def raw_snapshots(self) -> Dict[
+            str, Optional[Dict[int, Dict[int, FieldValue]]]]:
+        eng = self._eng
+        out: Dict[str, Optional[Dict[int, Dict[int, FieldValue]]]] = {}
+        for i, h in enumerate(self._hosts):
+            if (h.last_per_chip is None and eng is not None
+                    and h.state == _CONNECTED and h.negotiated):
+                snap = eng.materialize(i)
+                if snap is not None:
+                    # identity contract: cache so an unchanged host
+                    # returns the SAME dict next call
+                    h.last_per_chip = h.steady_per_chip = snap
+            out[h.address] = h.last_per_chip
+        return out
+
+    def per_host_tick_bytes(self) -> Dict[str, int]:
+        eng = self._eng
+        if eng is None:
+            return super().per_host_tick_bytes()
+        return {h.address: eng.tick_bytes(i)
+                for i, h in enumerate(self._hosts)}
+
+    def close(self) -> None:
+        eng, self._eng = self._eng, None
+        try:
+            if eng is not None:
+                eng.close()
+        finally:
+            # the spec teardown (selector, kept sockets, recorders,
+            # stream servers) must run even if the engine close raises
+            super().close()
 
 
 def poll_native_selected() -> bool:
-    """The value of the ``tpumon_poll_native`` self-metric gauge: always
-    False in the port."""
+    """True when :func:`create_fleet_poller` (environment-driven)
+    selects the native engine — the value the ``tpumon_poll_native``
+    self-metric gauge reports."""
 
-    return False
+    if os.environ.get("TPUMON_NATIVE", "").strip() == "0":
+        return False
+    return poll_native_available()
 
 
 def create_fleet_poller(targets: Sequence[str],
                         field_ids: Sequence[int],
                         native: Optional[bool] = None,
                         **kwargs: Any) -> FleetPoller:
-    """Build the fleet poller.
+    """Build the fleet poller, on the native engine when available.
 
-    ``native=None`` honours ``TPUMON_NATIVE`` as the reference does:
-    ``1`` is strict and raises ``ImportError`` (the port has no native
-    engine; a forced fleet must fail loudly, never poll on the Python
-    plane in silence), anything else builds the pure-Python poller.
-    ``native=True`` raises the same way; ``native=False`` pins the
-    pure-Python poller."""
+    ``native=None`` honours ``TPUMON_NATIVE``: ``0`` never, unset/other
+    auto, ``1`` strict — the ``_poll`` loader already raised at import
+    when the extension is absent, and a loaded stub without the engine
+    (non-Linux build: the engine is epoll-only) raises here.  A forced
+    fleet must fail loudly, never silently poll at spec speed.
+    Explicit ``native=True`` is strict the same way and
+    ``native=False`` pins the spec poller — the differential harness
+    and tests pin both planes this way.
+    """
 
     if native is None:
-        native = os.environ.get("TPUMON_NATIVE", "").strip() == "1"
+        forced = os.environ.get("TPUMON_NATIVE", "").strip()
+        if forced == "0":
+            native = False
+        elif forced == "1":
+            if not poll_native_available():
+                raise ImportError(
+                    "TPUMON_NATIVE=1 but the native poll engine is "
+                    "unavailable: "
+                    + (_poll.error or "extension lacks PollEngine — rebuild: "
+                       "python -m tpumon_torch._build --native"))
+            native = True
+        else:
+            native = poll_native_available()
     if native:
-        raise ImportError(_NO_NATIVE)
+        return NativeFleetPoller(targets, field_ids, **kwargs)
     return FleetPoller(targets, field_ids, **kwargs)

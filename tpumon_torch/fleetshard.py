@@ -54,7 +54,7 @@ import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 from zlib import crc32
 
-from . import log
+from . import _codec, log
 from .backends.base import FieldValue
 from .events import Event
 from .fleetpoll import (FleetPoller, HostSample,
@@ -924,13 +924,14 @@ def shard_metric_lines(stats: Sequence[Dict[str, Any]]) -> List[str]:
             [(f'shard="{st["shard"]}"', st[key]) for st in stats],
             fmt)
     # which codec backend this fleet process runs (the exporter serves
-    # the same gauge host-side): the port has no native codec, so 0
+    # the same gauge host-side)
     lines += render_family_samples(
         "tpumon_codec_native", "gauge",
         "1 when the native codec extension backs the sweep-frame/"
         "burst codecs, 0 on the pure-Python reference.",
-        [("", 0)], "d")
-    # ...and which POLL plane: always the pure-Python selector loop
+        [("", 1 if _codec.active() else 0)], "d")
+    # ...and which POLL plane: the native epoll engine or the
+    # pure-Python selector loop
     lines += render_family_samples(
         "tpumon_poll_native", "gauge",
         "1 when the native epoll engine backs the fleet poller, 0 on "

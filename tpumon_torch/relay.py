@@ -228,7 +228,9 @@ class StreamRelay:
         except Exception as e:  # noqa: BLE001 — teardown aggregates
             log.warn_every("relay.close", 30.0,
                            "relay server close failed: %r", e)
-        self._dec = None
+        dec, self._dec = self._dec, None
+        if dec is not None:
+            dec.close()
 
     # tpumon: thread-ok(every counter has a single writer — the relay thread — so increments never tear; this scrape-side reader takes a stale-but-consistent snapshot like StreamPublisher.stats)
     def stats(self) -> Dict[str, float]:
@@ -285,7 +287,9 @@ class StreamRelay:
                     # loop; frames reset the backoff to base
                     self._backoff_wait()
         finally:
-            self._dec = None  # the port's decoder holds no native state
+            dec, self._dec = self._dec, None
+            if dec is not None:
+                dec.close()
 
     def _breaker_open(self) -> bool:
         if self.reconnect_budget <= 0:
@@ -482,6 +486,7 @@ class StreamRelay:
                         adopt_first_index=True)
                     self._snap = None
                     if old is not None:
+                        old.close()
                         self.subtree_resyncs_total += 1
                 dec = self._dec
                 if dec is None:

@@ -10,11 +10,15 @@ blackbox`) writes these frames as they are, and the burst accumulator
 (:mod:`tpumon_torch.burst`) emits its values by the same number rule
 (:data:`NUM_INT_LIMIT`).
 
-There is no native codec in the port: :class:`SweepFrameEncoder` and
-:class:`SweepFrameDecoder` ARE the pure-Python classes
-(:class:`PySweepFrameEncoder`, :class:`PySweepFrameDecoder`), the
-reference's executable spec, held byte-identical to it by
-``tests/test_torch_sweepframe.py``.  The agent's binary request codec
+:class:`SweepFrameEncoder` and :class:`SweepFrameDecoder` are thin
+facades, as in the reference: when the port's native codec extension is
+loaded (:mod:`tpumon_torch._codec`; ``native/codec/``) they dispatch to
+native-owned delta-table/mirror handles that release the GIL around every
+encode/decode, and the pure-Python classes (:class:`PySweepFrameEncoder`,
+:class:`PySweepFrameDecoder`, the reference's executable spec) serve
+otherwise.  ``tests/test_torch_sweepframe.py`` holds the Python classes
+byte-identical to the JAX package's, ``tests/test_torch_codec_native.py``
+the native ones.  The agent's binary request codec
 (:func:`encode_sweep_request`/:func:`decode_sweep_request`) is here too:
 the stream plane's server (:mod:`tpumon_torch.frameserver`) frames on its
 magic.  Low-level emission comes from :mod:`tpumon_torch.wire`.
@@ -27,8 +31,10 @@ non-finite scalars as blanks.
 from __future__ import annotations
 
 import struct
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import (Any, Dict, Iterable, List, Optional, Sequence, Tuple,
+                    cast)
 
+from . import _codec
 from .backends.base import FieldValue
 from .events import Event, EventType
 from .wire import (iter_fields, read_varint, write_bytes_field,
@@ -663,13 +669,224 @@ class PySweepFrameDecoder:
         return sum(len(c) for c in self._mirror.values())
 
 
-# -- the production names ------------------------------------------------------
+# -- facades -------------------------------------------------------------------
 #
-# The reference dispatches these to a native codec extension when one is
-# built; the port has none, so the pure-Python classes are the product.
+# The production names.  One instance = one native handle (delta table /
+# mirror owned by the extension, GIL released around the hot work) when
+# the extension is importable, else one pure-Python reference object.
+# Native handles are SINGLE-OWNER: concurrent entry from a second
+# thread raises RuntimeError instead of corrupting the table (the native
+# busy flag turns a violation into a loud error instead of a silent
+# race).  `close()` frees the native table immediately — further use
+# raises ValueError — and is optional (dropping the last reference
+# frees it too).
 
-SweepFrameEncoder = PySweepFrameEncoder
-SweepFrameDecoder = PySweepFrameDecoder
+if _codec.lib is not None:
+    _n = _codec.lib
+    if (int(_n.SWEEP_FRAME_MAGIC) != SWEEP_FRAME_MAGIC
+            or int(_n.SWEEP_REQ_MAGIC) != SWEEP_REQ_MAGIC
+            or float(_n.NUM_INT_LIMIT) != NUM_INT_LIMIT):
+        # a stale build must degrade to the reference, never emit
+        # drifted bytes
+        _codec.reject(
+            "native codec wire constants disagree with tpumon_torch/"
+            "sweepframe.py (rebuild: python -m tpumon_torch._build --native)")
+    del _n
+
+
+class SweepFrameEncoder:
+    """The shared server-side delta table (native-backed facade).
+
+    Same contract as :class:`PySweepFrameEncoder` (which serves as the
+    fallback and the executable spec): ``start_index`` seeds the frame
+    counter for mid-stream keyframes, ``encode_frame(partial=True)``
+    skips the purge pass for dirty-row serves, byte output is identical
+    between backends.
+    """
+
+    __slots__ = ("_nat", "_py")
+
+    def __init__(self, start_index: int = 0) -> None:
+        lib = _codec.lib
+        if lib is not None:
+            self._nat: Optional[Any] = lib.Encoder(start_index=start_index)
+            self._py: Optional[PySweepFrameEncoder] = None
+        else:
+            self._nat = None
+            self._py = PySweepFrameEncoder(start_index)
+
+    def encode_frame(self, chips: Dict[int, Dict[int, FieldValue]],
+                     events: Optional[Iterable[Event]] = None,
+                     partial: bool = False) -> bytes:
+        nat = self._nat
+        if nat is not None:
+            blob = _encode_events(events) if events is not None else b""
+            return cast(bytes, nat.encode_frame(chips, blob, partial))
+        py = self._py
+        assert py is not None
+        # pure-Python fallback: the reference IS the product here
+        return py.encode_frame(chips, events, partial)
+
+    def encode_index_only_frame(self) -> bytes:
+        nat = self._nat
+        if nat is not None:
+            return cast(bytes, nat.encode_index_only_frame())
+        py = self._py
+        assert py is not None
+        return py.encode_index_only_frame()
+
+    def table_entries(self) -> int:
+        nat = self._nat
+        if nat is not None:
+            return cast(int, nat.table_entries())
+        py = self._py
+        assert py is not None
+        return py.table_entries()
+
+    def close(self) -> None:
+        """Free the native delta table now (no-op on the reference
+        backend).  The handle is unusable afterwards."""
+
+        nat = self._nat
+        if nat is not None:
+            nat.close()
+
+
+class SweepFrameDecoder:
+    """The shared client-side mirror (native-backed facade).
+
+    Same contract as :class:`PySweepFrameDecoder`: ``apply`` folds one
+    frame payload and returns the piggybacked events,
+    ``adopt_first_index=True`` accepts a mid-stream keyframe's index,
+    ``materialize``/``mirror_snapshot`` build request-filtered / full
+    snapshots (fresh dicts; unchanged vector values share list objects
+    — the documented read-only contract).  ``host_aggregate`` is the
+    native fleet fast path: the per-host aggregate computed directly
+    off the native mirror, skipping materialize entirely (None on the
+    reference backend — callers fall back to
+    ``fleetpoll.aggregate_host_sample``).
+    """
+
+    __slots__ = ("_nat", "_py", "last_changes")
+
+    def __init__(self, adopt_first_index: bool = False) -> None:
+        lib = _codec.lib
+        if lib is not None:
+            self._nat: Optional[Any] = lib.Decoder(
+                adopt_first_index=adopt_first_index)
+            self._py: Optional[PySweepFrameDecoder] = None
+        else:
+            self._nat = None
+            self._py = PySweepFrameDecoder(adopt_first_index)
+        self.last_changes = 0
+
+    def apply(self, payload: bytes) -> List[Event]:
+        nat = self._nat
+        if nat is not None:
+            raw = nat.apply(payload)
+            self.last_changes = int(nat.last_changes())
+            return [_decode_event(b) for b in raw]
+        py = self._py
+        assert py is not None
+        events = py.apply(payload)
+        self.last_changes = py.last_changes
+        return events
+
+    def try_apply(self, data: "bytes | bytearray",
+                  ) -> Optional[Tuple[int, List[Event]]]:
+        """Fused :func:`try_split_frame` + :meth:`apply` over the head
+        of a receive buffer: parse one framed message in place (no
+        payload slice copy, ONE native call on the hot path) ->
+        ``(total_consumed, events)``, or ``None`` when more bytes are
+        needed.  The caller already matched the lead byte against the
+        frame magic and deletes ``total_consumed`` bytes on success."""
+
+        nat = self._nat
+        if nat is not None:
+            r = nat.try_apply(data)
+            if r is None:
+                return None
+            used, changes, raw = r
+            self.last_changes = changes
+            return used, [_decode_event(b) for b in raw]
+        parsed = try_split_frame(data)
+        if parsed is None:
+            return None
+        payload, used = parsed
+        py = self._py
+        assert py is not None
+        events = py.apply(payload)
+        self.last_changes = py.last_changes
+        return used, events
+
+    def materialize(self, requests: Sequence[Tuple[int, Sequence[int]]],
+                    ) -> Dict[int, Dict[int, FieldValue]]:
+        nat = self._nat
+        if nat is not None:
+            return cast("Dict[int, Dict[int, FieldValue]]",
+                        nat.materialize(requests))
+        py = self._py
+        assert py is not None
+        return py.materialize(requests)
+
+    def mirror_snapshot(self) -> Dict[int, Dict[int, FieldValue]]:
+        nat = self._nat
+        if nat is not None:
+            return cast("Dict[int, Dict[int, FieldValue]]",
+                        nat.mirror_snapshot())
+        py = self._py
+        assert py is not None
+        return py.mirror_snapshot()
+
+    def mirror_entries(self) -> int:
+        nat = self._nat
+        if nat is not None:
+            return cast(int, nat.mirror_entries())
+        py = self._py
+        assert py is not None
+        return py.mirror_entries()
+
+    def host_aggregate(
+            self, requests: Sequence[Tuple[int, Sequence[int]]],
+            chip_count: int, fids: Tuple[int, int, int, int, int, int, int],
+    ) -> Optional[Tuple[int, int, float, Optional[int], Optional[float],
+                        Optional[float], int, int, int]]:
+        """Native mirror aggregate: ``(live_fields, dead_chips,
+        power_w, max_temp, mean_tc, mean_hbm, hbm_used, hbm_total,
+        links_up)`` — exactly what ``aggregate_host_sample`` computes
+        from ``materialize(requests)``, without building a single
+        Python dict.  ``fids`` is the seven aggregate field ids in
+        (power, temp, tc_util, hbm_bw, hbm_used, hbm_total, links)
+        order.  Returns None on the reference backend; raises
+        OverflowError when a value needs the exact Python path."""
+
+        nat = self._nat
+        if nat is None:
+            return None
+        # string-form cast: a subscripted generic here would be
+        # EVALUATED per call (typing generic-alias hashing showed up in
+        # the fleet tick profile)
+        return cast(
+            "Tuple[int, int, float, Optional[int], Optional[float],"
+            " Optional[float], int, int, int]",
+            nat.aggregate(requests, chip_count, fids))
+
+    @property
+    def _next_frame_index(self) -> int:
+        nat = self._nat
+        if nat is not None:
+            return cast(int, nat.next_frame_index())
+        py = self._py
+        assert py is not None
+        return py._next_frame_index
+
+    def close(self) -> None:
+        """Free the native mirror now (no-op on the reference backend).
+        The handle is unusable afterwards."""
+
+        nat = self._nat
+        if nat is not None:
+            nat.close()
 
 
 def try_split_frame(data: "bytes | bytearray",
