@@ -8,6 +8,15 @@
    all started together, at first use), and beside them with ``g++`` the
    native agent, its C client, and the codec and poll engine extensions
    (``_build.native()``; their paths and build seconds printed).
+   The port's analysis planes start first and run beside the builds,
+   each in a process of its own on this tree: ``python -m
+   tpumon_torch.tools.tpumon_lint`` and ``python -m
+   tpumon_torch.tools.tpumon_check --baseline
+   tpumon_torch/tools/check_baseline.json``.  The ``analysis:`` line gives
+   each tool's exit code, findings, pragmas and seconds, the built codec
+   extension's exported constants held to the Python declarations
+   (``codec_pins``), and the card's name and power limit; a finding, a
+   baseline drift or a drifted constant fails the smoke.
    Then the out-of-band NVML source (``tpumon_torch.backends.nvml``), one
    line each: ``nvml abi`` compiles the backend's ABI probe against the
    toolkit's ``nvml.h`` and holds every mirrored struct's size and field
@@ -244,6 +253,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -298,6 +308,88 @@ PATHS = {
 MULTI_PATHS = ("ringattn", "allreduce", "dcn", "pp", "moe")
 MULTI_S = 6.0
 MULTI_NCCL = ("allreduce", "dcn", "moe")
+
+
+#: the port's analysis planes as the smoke runs them, each in a process of
+#: its own on the tree it drives (``--json`` appended to the check's)
+ANALYSIS = {
+    "lint": ("tpumon_torch.tools.tpumon_lint",),
+    "check": ("tpumon_torch.tools.tpumon_check", "--baseline",
+              "tpumon_torch/tools/check_baseline.json"),
+}
+
+
+def analysis_start(work: str) -> dict:
+    """Start both analyzers (they run beside the builds) -> name ->
+    (process, its waiter thread, output path, {"s": its wall seconds})."""
+
+    procs = {}
+    for name, args in ANALYSIS.items():
+        out = os.path.join(work, f"{name}.out")
+        argv = [sys.executable, "-m", *args]
+        if name == "check":
+            argv += ["--json", os.path.join(work, "check.json")]
+        with open(out, "w") as f:
+            proc = subprocess.Popen(argv, cwd=HERE, stdout=f,
+                                    stderr=subprocess.STDOUT)
+        timing = {}
+
+        def wait(proc=proc, timing=timing, t0=time.monotonic()):
+            proc.wait()
+            timing["s"] = round(time.monotonic() - t0, 2)
+
+        waiter = threading.Thread(target=wait, daemon=True)
+        waiter.start()
+        procs[name] = (proc, waiter, out, timing)
+    return procs
+
+
+def analysis_phase(procs: dict, work: str, card: str) -> dict:
+    """Both analyzers' findings, pragmas and seconds, and the built codec
+    extension's exported constants held to the Python declarations (pass
+    4's pin, on the build the native legs load).  Any finding or baseline
+    drift fails the smoke."""
+
+    res = {}
+    for name, (proc, waiter, out, timing) in procs.items():
+        rc = proc.wait(timeout=600)
+        waiter.join()
+        text = open(out).read()
+        res[name] = {"rc": rc, "s": timing["s"]}
+        summary = [ln for ln in text.splitlines()
+                   if ln.startswith(f"tpumon-{name}: ")
+                   and " finding" in ln]
+        m = re.search(r"(\d+) findings?", summary[-1] if summary else "")
+        res[name]["findings"] = int(m.group(1)) if m else None
+        if name == "check":
+            res[name]["drift"] = sum(1 for ln in text.splitlines()
+                                     if "baseline drift" in ln)
+        if rc != 0 or res[name]["findings"] != 0 or res[name].get("drift"):
+            raise RuntimeError(f"tpumon-{name} failed (rc {rc}):\n"
+                               + text[-4000:])
+    with open(os.path.join(work, "check.json")) as f:
+        report = json.load(f)
+    kinds: dict = {}
+    for supp in report["suppressions"]:
+        kinds[supp["kind"]] = kinds.get(supp["kind"], 0) + 1
+    res["lint"]["suppressions"] = kinds.get("lint-disable", 0)
+    res["check"]["suppressions"] = sum(kinds.values())
+    res["check"]["by_kind"] = kinds
+    res["check"]["functions"] = report["stats"]["functions"]
+    res["check"]["tool_s"] = report["stats"]["seconds"]
+    from tpumon_torch.tools import tpumon_check as TC
+
+    built = TC.built_codec_constants(HERE)
+    if not built:
+        raise RuntimeError("the built codec extension did not load for "
+                           "the constant pins")
+    pins = TC.check_protocol_sync(HERE, codec_constants=built)
+    if pins:
+        raise RuntimeError("codec constant pins: "
+                           + "; ".join(f.render() for f in pins))
+    res["codec_pins"] = {"constants": len(built), "findings": 0}
+    res["card"] = card
+    return res
 
 
 def fail(msg: str) -> int:
@@ -5681,37 +5773,57 @@ def main() -> int:
                          text=True, timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0])
 
-    t0 = time.monotonic()
-    # the native agent, client, codec and poll engine build (g++) while
-    # the kernels do (nvcc)
-    native_build = {}
+    import tempfile
 
-    def build_native():
+    # the analysis planes run first, beside the builds (CPU only)
+    analysis_work = tempfile.mkdtemp(prefix="tpumon-analysis-")
+    analysis = analysis_start(analysis_work)
+    try:
+        t0 = time.monotonic()
+        # the native agent, client, codec and poll engine build (g++) while
+        # the kernels do (nvcc)
+        native_build = {}
+
+        def build_native():
+            try:
+                native_build["paths"] = _build.native()
+            except BaseException as e:  # raised below
+                native_build["error"] = e
+            native_build["s"] = time.monotonic() - t0
+
+        nb = threading.Thread(target=build_native)
+        nb.start()
+        lib = _build.load()
+        print(f"build: {time.monotonic() - t0:.1f} s")
+        nb.join()
+        if "error" in native_build:
+            return fail(f"the native agent did not build: "
+                        f"{native_build['error']}")
+        print(f"native build: {native_build['s']:.1f} s, "
+              + ", ".join(sorted(os.path.basename(str(p))
+                                 for p in native_build["paths"].values())))
+        # the codec and poll extensions the native legs load
+        # (TPUMON_NATIVE=1)
+        print("native extensions: " + json.dumps({
+            name: os.path.relpath(native_build["paths"][name], HERE)
+            for name in ("_tpumon_torch_codec", "_tpumon_torch_poll")}))
+        for line in _build.build_log().splitlines():
+            if any(w in line for w in ("registers", "spill",
+                                       "Compiling entry", "wgmma",
+                                       "warning")):
+                print("  " + line.strip()[:160])
         try:
-            native_build["paths"] = _build.native()
-        except BaseException as e:  # raised below
-            native_build["error"] = e
-        native_build["s"] = time.monotonic() - t0
-
-    nb = threading.Thread(target=build_native)
-    nb.start()
-    lib = _build.load()
-    print(f"build: {time.monotonic() - t0:.1f} s")
-    nb.join()
-    if "error" in native_build:
-        return fail(f"the native agent did not build: "
-                    f"{native_build['error']}")
-    print(f"native build: {native_build['s']:.1f} s, "
-          + ", ".join(sorted(os.path.basename(str(p))
-                             for p in native_build["paths"].values())))
-    # the codec and poll extensions the native legs load (TPUMON_NATIVE=1)
-    print("native extensions: " + json.dumps({
-        name: os.path.relpath(native_build["paths"][name], HERE)
-        for name in ("_tpumon_torch_codec", "_tpumon_torch_poll")}))
-    for line in _build.build_log().splitlines():
-        if any(w in line for w in ("registers", "spill", "Compiling entry",
-                                   "wgmma", "warning")):
-            print("  " + line.strip()[:160])
+            checked = analysis_phase(analysis, analysis_work,
+                                     smi.stdout.strip().splitlines()[0])
+        except RuntimeError as e:
+            return fail(f"analysis: {e}")
+        print("analysis: " + json.dumps(checked), flush=True)
+    finally:
+        for proc, _, _, _ in analysis.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(analysis_work, ignore_errors=True)
 
     nvml_phases(K, fields)
 

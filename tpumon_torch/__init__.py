@@ -64,6 +64,7 @@ class RunMode(enum.Enum):
 class Handle:
     """One initialized monitoring session over a backend."""
 
+    # tpumon: close-ok(members are passive containers until watches.start  — no thread, socket or file exists while __init__ runs, so a failed constructor has nothing to release)
     def __init__(self, backend: Backend, *, own_backend: bool = True,
                  clock=None) -> None:
         self.backend = backend

@@ -286,7 +286,11 @@ def _compile_native(t: NativeTarget, after: Optional[Path]) -> Path:
     if after is not None:
         cmd += [str(after), "-Wl,-rpath,$ORIGIN"]
     cmd += list(t.link)
-    r = subprocess.run(cmd, capture_output=True, text=True)
+    # the compiler runs while native() holds its build-once lock, on
+    # purpose: every caller wants the finished file, the lock is what
+    # makes the build happen once, and the wait ends with the compiler
+    r = subprocess.run(  # tpumon-check: disable=blocking-while-locked
+        cmd, capture_output=True, text=True)
     if r.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"{cc} failed on {t.name} (exit {r.returncode}):\n"

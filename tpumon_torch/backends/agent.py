@@ -105,6 +105,7 @@ class AgentBackend(Backend):
 
     # -- connection management ------------------------------------------------
 
+    # tpumon: thread-ok(connection state is written only with self._lock held — by _call, open and the sweep-frame shell — or by the one thread that owns the object alone: start_agent's startup probe, before any other thread sees it)
     def _connect(  # tpumon-check: disable=blocking-while-locked
             self) -> None:  # tpumon-lint: disable=lock-discipline
         # (callers hold self._lock — or are single-threaded during the
@@ -161,6 +162,7 @@ class AgentBackend(Backend):
         self._frame_decoder = None
         self._replay_watches()
 
+    # tpumon: thread-ok(connection state is written only with self._lock held — by _call, open and the sweep-frame shell — or by the one thread that owns the object alone: start_agent's startup probe, before any other thread sees it)
     def _raw_request(  # tpumon-check: disable=blocking-while-locked,hot-encode
             self, req: Dict[str, Any]) -> Dict[str, Any]:
         """One request/response on the current connection; caller holds
@@ -198,6 +200,7 @@ class AgentBackend(Backend):
             raise OSError("non-object JSON from agent")
         return resp
 
+    # tpumon: thread-ok(connection state is written only with self._lock held — by _call, open and the sweep-frame shell — or by the one thread that owns the object alone: start_agent's startup probe, before any other thread sees it)
     def _replay_watches(self) -> None:
         """Re-register client watches on a fresh connection.
 
@@ -437,6 +440,7 @@ class AgentBackend(Backend):
                 return self._sweep_frame_call(requests, max_age_s,
                                               events_since)
             except _SweepFrameUnknownOp:
+                # tpumon: thread-ok(one-way latch — only ever set True, when the agent answers unknown op, and a GIL-atomic bool store: a racing sweep at worst sends the binary probe once more)
                 self._sweep_frame_unsupported = True  # JSON forever
         reqs = [{"index": int(idx), "fields": [int(f) for f in fids]}
                 for idx, fids in requests]
@@ -450,6 +454,7 @@ class AgentBackend(Backend):
                 "read_fields_bulk", _want_io=True, **params)
         except BackendError as e:
             if "unknown op" in str(e):
+                # tpumon: thread-ok(latch — a GIL-atomic bool store, set when the agent answers unknown op and cleared only by a reconnect under self._lock: a racing sweep at worst sends the bulk op once more)
                 self._bulk_unsupported = True
                 return (super(AgentBackend, self).read_fields_bulk(
                     requests, now=now), None)

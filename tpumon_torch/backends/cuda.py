@@ -116,6 +116,11 @@ class CudaBackend(Backend):
         self._trace_enabled = os.environ.get("TPUMON_CUDA_TRACE", "1") != "0"
         self._trace = None
         self._trace_lock = threading.Lock()
+        #: guards the lazily filled per-device caches (``_props``,
+        #: ``_probes``, ``_last_not_idle``): the sweep thread and the
+        #: workload's own thread (``warmup_probes``, ``note_step``) both
+        #: reach them
+        self._cache_lock = threading.Lock()
 
     def open(self) -> None:
         if self._opened:
@@ -133,15 +138,18 @@ class CudaBackend(Backend):
         self._devices = []
         # a warmup thread mid-calibration must stop at its next phase
         # boundary: its calibration is dead work now
-        for eng in self._probes.values():
+        with self._cache_lock:
+            probes, self._probes = self._probes, {}
+        for eng in probes.values():
             if eng is not None:
                 eng.abandon()
-        self._probes = {}
         # no profiler session may outlive the backend (it would end under
         # the next one the process opens): close a session this thread
         # holds and wait out the capture in flight
-        if self._trace is not None:
-            self._trace.quiesce()
+        tr = self._trace
+        if tr is not None:
+            tr.quiesce()
+        with self._trace_lock:
             self._trace = None
         self._opened = False
 
@@ -153,11 +161,12 @@ class CudaBackend(Backend):
         return self._devices[index]
 
     def _properties(self, index: int):
-        props = self._props.get(index)
-        if props is None:
-            import torch
-            props = self._props[index] = \
-                torch.cuda.get_device_properties(self._dev(index))
+        with self._cache_lock:
+            props = self._props.get(index)
+            if props is None:
+                import torch
+                props = self._props[index] = \
+                    torch.cuda.get_device_properties(self._dev(index))
         return props
 
     def _uuid(self, index: int) -> str:
@@ -237,12 +246,13 @@ class CudaBackend(Backend):
     def _probe(self, index: int):
         if not self._probes_enabled:
             return None
-        eng = self._probes.get(index)
-        if eng is None:
-            from .probes import ProbeEngine
-            eng = self._probes[index] = ProbeEngine(
-                f"cuda:{self._dev(index)}",
-                min_interval_s=self.PROBE_INTERVAL_S)
+        with self._cache_lock:
+            eng = self._probes.get(index)
+            if eng is None:
+                from .probes import ProbeEngine
+                eng = self._probes[index] = ProbeEngine(
+                    f"cuda:{self._dev(index)}",
+                    min_interval_s=self.PROBE_INTERVAL_S)
         return eng
 
     def warmup_probes(self, index: int = 0) -> None:
@@ -485,7 +495,8 @@ class CudaBackend(Backend):
         if ((sample is not None and
              sample.duty_est > self.NOT_IDLE_THRESHOLD) or
                 (tr is not None and tr.duty > self.NOT_IDLE_THRESHOLD)):
-            self._last_not_idle[index] = mono
+            with self._cache_lock:
+                self._last_not_idle[index] = mono
         peak_tf = ((tr.peak_tflops if tr is not None and tr.peak_tflops
                     else None) or (caps.bf16_tflops if caps else None))
 
@@ -575,7 +586,8 @@ class CudaBackend(Backend):
                 v = int(round(sample.hbm_active_est * 100))
             elif fid == int(F.NOT_IDLE_TIME):
                 if sample is not None or tr is not None:
-                    last = self._last_not_idle.get(index)
+                    with self._cache_lock:
+                        last = self._last_not_idle.get(index)
                     v = int(mono - last) if last is not None else None
             elif fid == int(F.PROF_STEP_TIME):
                 # real workload steps beat the probe latency

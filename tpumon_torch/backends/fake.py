@@ -426,6 +426,7 @@ class FakeBackend(Backend):
 
         hz = self._burst_hz
         j1 = int(math.floor(t * hz))
+        # tpumon: thread-ok(memo of a pure function of t — the entry is built off to the side and published by one GIL-atomic dict store, so a racing reader sees the old or the new entry, both correct for their grid point)
         cached = self._burst_cache.get(chip)
         if cached is None or cached[0] != j1:
             acc = BurstAccumulator()
@@ -449,6 +450,7 @@ class FakeBackend(Backend):
                                 [self._value(chip, s, tj) for tj in ts])
             vals = acc.harvest().get(chip, {})
             cached = (j1, vals)
+            # tpumon: thread-ok(memo of a pure function of t — the entry is built off to the side and published by one GIL-atomic dict store, so a racing reader sees the old or the new entry, both correct for their grid point)
             self._burst_cache[chip] = cached
         return cached[1].get(fid)
 

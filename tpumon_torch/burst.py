@@ -104,6 +104,7 @@ class PyBurstAccumulator:
     def __init__(self) -> None:
         self._windows: Dict[Tuple[int, int], BurstWindow] = {}
 
+    # tpumon: thread-ok(accumulator handoff — a sampler's live accumulator is folded only by its producer thread and harvested only after the swap, once BurstSampler.harvest_if_due has waited out the in-flight fold; the consumer touches the fresh one only to seed anchors of cells the producer has not folded, and every other instance is local to one call)
     def fold(self, chip: int, fid: int, t: float, v: float) -> None:
         """Fold one sample — semantically ``fold_series`` with one
         element, kept separate so the live sampler thread pays no
@@ -130,6 +131,7 @@ class PyBurstAccumulator:
         w.vsum += v
         w.count += 1
 
+    # tpumon: thread-ok(accumulator handoff — a sampler's live accumulator is folded only by its producer thread and harvested only after the swap, once BurstSampler.harvest_if_due has waited out the in-flight fold; the consumer touches the fresh one only to seed anchors of cells the producer has not folded, and every other instance is local to one call)
     def fold_series(self, chip: int, fid: int, ts: Sequence[float],
                     vs: Sequence[FieldValue]) -> None:
         """Fold a batch of samples for one (chip, field) — the
@@ -176,6 +178,7 @@ class PyBurstAccumulator:
     def entries(self) -> int:
         return len(self._windows)
 
+    # tpumon: thread-ok(accumulator handoff — a sampler's live accumulator is folded only by its producer thread and harvested only after the swap, once BurstSampler.harvest_if_due has waited out the in-flight fold; the consumer touches the fresh one only to seed anchors of cells the producer has not folded, and every other instance is local to one call)
     def harvest(self) -> Dict[int, Dict[int, FieldValue]]:
         """Close the window: derived values for every cell that saw at
         least one sample, as ``{chip: {derived_fid: value}}`` ready to
@@ -203,6 +206,7 @@ class PyBurstAccumulator:
             w.vmin = w.vmax = w.vsum = w.integral = 0.0
         return out
 
+    # tpumon: thread-ok(accumulator handoff — a sampler's live accumulator is folded only by its producer thread and harvested only after the swap, once BurstSampler.harvest_if_due has waited out the in-flight fold; the consumer touches the fresh one only to seed anchors of cells the producer has not folded, and every other instance is local to one call)
     def adopt_anchors(self, other: "PyBurstAccumulator") -> None:
         """Carry ``other``'s integration anchors into this (fresh)
         accumulator — the swap-handoff's half of anchor persistence:
@@ -261,7 +265,7 @@ class BurstAccumulator:
             return
         py = self._py
         assert py is not None
-        py.fold(chip, fid, t, v)
+        py.fold(chip, fid, t, v)  # tpumon: codec-ok(facade fallback: the extension is absent, the reference IS the product here)
 
     def fold_series(self, chip: int, fid: int, ts: Sequence[float],
                     vs: Sequence[FieldValue]) -> None:
@@ -271,7 +275,7 @@ class BurstAccumulator:
             return
         py = self._py
         assert py is not None
-        py.fold_series(chip, fid, ts, vs)
+        py.fold_series(chip, fid, ts, vs)  # tpumon: codec-ok(facade fallback: the extension is absent, the reference IS the product here)
 
     def entries(self) -> int:
         nat = self._nat
@@ -370,6 +374,7 @@ class BurstSampler:
         overruns = float(self._overruns)
         return {"burst_hz": float(self.hz), "burst_overruns": overruns}
 
+    # tpumon: thread-ok(one consumer at a time per sampler — the exporter harvests on its sweep thread; the Python agent's serve and scrape threads harvest under Engine._harvest_lock; the call graph joins the instances)
     def harvest_if_due(self, now: Optional[float] = None,
                        ) -> Dict[int, Dict[int, FieldValue]]:
         """Close the window when ``window_s`` has elapsed since the
@@ -399,7 +404,7 @@ class BurstSampler:
             # GIL yield so the producer can finish its burst; runs on
             # the sweep thread, normally sub-millisecond and hard-
             # bounded by the deadline above — never the inner loop
-            time.sleep(0)  # tpumon-lint: disable=blocking-socket-in-fleetpoll
+            time.sleep(0)  # tpumon-lint: disable=blocking-socket-in-fleetpoll  # tpumon-check: disable=blocking-while-locked
         self._last_harvest = old.harvest()
         # anchor adoption into the live accumulator: a cell the
         # producer already folded into keeps its own (newer) anchor

@@ -67,6 +67,7 @@ class HostConn:
         self.address = address
         self._backend = None
 
+    # tpumon: thread-ok(one sampler per host per tick — the sweep is synchronous: each target's sample runs on one pool thread, and close runs after the pool has drained)
     def close(self) -> None:
         b, self._backend = self._backend, None
         if b is not None:
@@ -76,6 +77,7 @@ class HostConn:
             except Exception:  # noqa: BLE001 — teardown best-effort
                 pass
 
+    # tpumon: thread-ok(one sampler per host per tick — the sweep is synchronous: each target's sample runs on one pool thread, and close runs after the pool has drained)
     def _connect(self, timeout_s: float) -> Any:
         from ..backends.agent import AgentBackend
 
@@ -91,6 +93,7 @@ class HostConn:
         self._backend = b
         return b
 
+    # tpumon: thread-ok(one sampler per host per tick — the sweep is synchronous: each target's sample runs on one pool thread, and close runs after the pool has drained)
     def sample(self, timeout_s: float) -> HostSample:
         t0 = time.monotonic()
         b = self._backend

@@ -237,6 +237,7 @@ def check_modeled_links() -> dict:
     from .backends.fake import FakeBackend, FakeSliceConfig
     from .exporter.exporter import TpuExporter
 
+    # tpumon: close-ok(a FakeBackend holds nothing until init opens it: set_blank_fields only records the set, so a raise before the handoff leaks nothing)
     fb = FakeBackend(config=FakeSliceConfig(num_chips=8))
     fb.set_blank_fields(TF.PER_LINK_ICI_FIELDS)
     h = tpumon_torch.init(backend=fb)

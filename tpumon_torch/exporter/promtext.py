@@ -101,6 +101,7 @@ class SweepRenderer:
         self.line_cache_misses = 0
         self.last_hit_ratio: Optional[float] = None
 
+    # tpumon: thread-ok(one owner per renderer — the exporter's renderer is driven only by its sweep thread, and the Python agent builds a fresh one for each scrape under Engine._prom_lock; the caches are per instance, and the call graph joins the instances of one class)
     def _labels_str(self, chip: int, label_map: Mapping[str, str]) -> str:
         items = tuple(label_map.items())
         cached = self._label_cache.get(chip)
@@ -115,6 +116,7 @@ class SweepRenderer:
         self._evict_chip_lines((chip,))
         return joined
 
+    # tpumon: thread-ok(one owner per renderer — the exporter's renderer is driven only by its sweep thread, and the Python agent builds a fresh one for each scrape under Engine._prom_lock; the caches are per instance, and the call graph joins the instances of one class)
     def _headers(self, fid: int, meta: "FF.FieldMeta") -> Tuple[str, str]:
         cached = self._header_cache.get(fid)
         if cached is None:
@@ -123,6 +125,7 @@ class SweepRenderer:
             self._header_cache[fid] = cached
         return cached
 
+    # tpumon: thread-ok(one owner per renderer — the exporter's renderer is driven only by its sweep thread, and the Python agent builds a fresh one for each scrape under Engine._prom_lock; the caches are per instance, and the call graph joins the instances of one class)
     def render(self,
                per_chip: Mapping[int, Mapping[int, FieldValue]],
                labels_per_chip: Mapping[int, Mapping[str, str]],
@@ -178,6 +181,7 @@ class SweepRenderer:
 
     # -- incremental bytes pipeline -------------------------------------------
 
+    # tpumon: thread-ok(one owner per renderer — the exporter's renderer is driven only by its sweep thread, and the Python agent builds a fresh one for each scrape under Engine._prom_lock; the caches are per instance, and the call graph joins the instances of one class)
     def _evict_chip_lines(self, chips: Iterable[int]) -> None:
         """Drop cached lines (and their series-index entries) for chips
         whose labels rotated or that left the sweep."""
@@ -198,6 +202,7 @@ class SweepRenderer:
                     "utf-8")  # cached  # tpumon-lint: disable=encode-in-hot-path
         return b
 
+    # tpumon: thread-ok(one owner per renderer — the exporter's renderer is driven only by its sweep thread, and the Python agent builds a fresh one for each scrape under Engine._prom_lock; the caches are per instance, and the call graph joins the instances of one class)
     def _render_chunk(  # tpumon-lint: disable=encode-in-hot-path
             self, fid: int, meta: "FF.FieldMeta", chip: int,
             v: FieldValue,
@@ -233,6 +238,7 @@ class SweepRenderer:
                 f"{meta.prom_name}{{{labels}}} "
         return (prefix + format_value(v)).encode("utf-8"), (prefix[:-1],)
 
+    # tpumon: thread-ok(one owner per renderer — the exporter's renderer is driven only by its sweep thread, and the Python agent builds a fresh one for each scrape under Engine._prom_lock; the caches are per instance, and the call graph joins the instances of one class)
     def render_parts(self,
                      per_chip: Mapping[int, Mapping[int, FieldValue]],
                      labels_per_chip: Mapping[int, Mapping[str, str]],

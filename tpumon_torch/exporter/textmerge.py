@@ -234,6 +234,7 @@ class TextfileMerge:
                            "truncated", path, self.max_bytes)
         return data.decode("utf-8", "replace")
 
+    # tpumon: thread-ok(one consumer per merge — the exporter merges on its sweep thread, and the Python agent's scrapes merge under Engine._prom_lock; the call graph joins the two instances)
     def load(self, now: float) -> List[List[tuple]]:
         """Fresh drop files' parsed entries (setting :attr:`files`), with
         the parse cached on ``(path, mtime_ns, size, inode)``."""
@@ -288,6 +289,7 @@ class TextfileMerge:
             self.series, self.families = 0, set()
         return out
 
+    # tpumon: thread-ok(one consumer per merge — the exporter merges on its sweep thread, and the Python agent's scrapes merge under Engine._prom_lock; the call graph joins the two instances)
     def apply(self, series: Set[str], decl: Set[str],
               files_entries: List[List[tuple]],
               ) -> Tuple[Dict[str, List[str]], List[str]]:
@@ -337,8 +339,12 @@ class TextfileMerge:
         self.families = merged_fams
         return by_family, tail_lines
 
-    def merge_text(self, text: str, now: float) -> str:
-        """A whole exposition with the fresh drop files merged in."""
+    def merge_text(self, text: str, now: float) -> str:  # tpumon-lint: disable=encode-in-hot-path
+        """A whole exposition with the fresh drop files merged in: the
+        full-text merge (the exporter's oracle/enricher fallback, and the
+        agent's scrape), which re-indexes the text because an enricher may
+        have rewritten it.  The exporter's hot loop merges by parts
+        (``TpuExporter._merge_textfiles_parts``)."""
 
         series: Set[str] = set()
         decl: Set[str] = set()  # families declared OR sampled by the text

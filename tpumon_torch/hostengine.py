@@ -292,6 +292,7 @@ class Engine:
     run on the frame server's loop thread; the watches' sweep and the
     burst loop have threads of their own."""
 
+    # tpumon: close-ok(the watch manager is a passive container until a client's first watch starts its sweep thread, so nothing it holds needs releasing when a later step raises; the burst sampler, the one member that starts a thread, is acquired last)
     def __init__(self, backend: Backend, *, allow_inject: bool = False,
                  burst_hz: int = 0,
                  on_term: Optional[Any] = None,
@@ -303,6 +304,10 @@ class Engine:
         self.merge = merge
         self.pods = pods
         self._prom_lock = threading.Lock()
+        #: serializes the burst harvest and the live-read count between
+        #: the frame server's loop (sweeps, ops) and the HTTP scrape
+        #: threads: a sampler has one consumer at a time
+        self._harvest_lock = threading.Lock()
         self._prom_labels: List[Dict[str, str]] = []
         self._prom_labels_t = -1e18
         self.allow_inject = allow_inject
@@ -347,7 +352,8 @@ class Engine:
 
     def _harvest_if_due(self) -> None:
         if self.burst is not None:
-            self._harvest = self.burst.harvest_if_due(time.monotonic())
+            with self._harvest_lock:
+                self._harvest = self.burst.harvest_if_due(time.monotonic())
 
     def _burst_value(self, chip: int, fid: int) -> FieldValue:
         v = self._harvest.get(chip, {}).get(fid)
@@ -363,7 +369,8 @@ class Engine:
         """One backend read of the (chip, fields) no cache served."""
 
         reqs = [(c, fids) for c, fids in wanted.items() if fids]
-        self.samples += sum(len(f) for _, f in reqs)
+        with self._harvest_lock:
+            self.samples += sum(len(f) for _, f in reqs)
         if not reqs:
             return {}
         return self.backend.read_fields_bulk(reqs)
@@ -377,7 +384,9 @@ class Engine:
 
         self._harvest_if_due()
         n = self._chips()
-        now = time.time()
+        # wall clock on purpose: ``max_age`` bounds the age of the
+        # watches' samples, whose timestamps are wall-clock (the API)
+        now = time.time()  # tpumon-lint: disable=wallclock-in-sampling
         out: Dict[int, Dict[int, FieldValue]] = {}
         bad: List[int] = []
         live: Dict[int, List[int]] = {}
@@ -759,7 +768,11 @@ def _max_age(req: Dict[str, Any]) -> Optional[float]:
 
 
 def _reply(server: FrameServer, conn: FrameConn, obj: Dict[str, Any]) -> None:
-    server.send(conn, json.dumps(obj, separators=(",", ":")).encode() + b"\n")
+    # JSON replies: the non-sweep ops, and the error answer to a
+    # malformed binary request — a well-formed sweep answers a binary
+    # frame (Engine.sweep_frame)
+    server.send(conn, json.dumps(  # tpumon-lint: disable=json-in-sweep-path
+        obj, separators=(",", ":")).encode() + b"\n")
 
 
 class AgentHandler(ConnHandler):
@@ -858,9 +871,12 @@ def open_source(fake: bool, fake_chips: int = 4,
 
     b = NvmlBackend(kmsg_path=kmsg_path)
     b.open()
-    if b.chip_count() < 1:
+    try:
+        if b.chip_count() < 1:
+            raise LibraryNotFound("NVML sees no device on this host")
+    except BaseException:
         b.close()
-        raise LibraryNotFound("NVML sees no device on this host")
+        raise
     return b
 
 

@@ -322,6 +322,7 @@ def run_window(work: Workload, seconds: float, sync_every: int = 32,
         # profiling=True: the utilization/step-time families are what the
         # embedded path measures; dcn=True reads blank on one host and the
         # renderer omits blank families
+        # tpumon: close-ok(a failing window raises out of every caller — the runner's main and bench_gpu's legs — and the process exits: the handle's backend and this exporter, swept inline with no thread of its own, go with it; a completed window shuts the handle down below)
         exporter = TpuExporter(h, interval_ms=1000, profiling=True,
                                dcn=True, output_path=monitor_output)
         # feed real step boundaries to the backend: PROF_STEP_TIME then

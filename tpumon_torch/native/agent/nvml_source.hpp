@@ -216,6 +216,7 @@ class NvmlSource : public MetricSource {
   // -- events -----------------------------------------------------------------
 
   std::vector<AgentEvent> events_since(long long seq) override {
+    // tpumon: effect-ok(bounded event-ring scan under events_mu_ — the Xid event thread and the kmsg watcher hold it only to append one event, never across an NVML call)
     std::lock_guard<std::mutex> lock(events_mu_);
     std::vector<AgentEvent> out;
     for (const auto& e : events_)
@@ -435,6 +436,7 @@ class NvmlSource : public MetricSource {
   }
 
   bool refused(const std::string& k) {
+    // tpumon: effect-ok(bounded memo lock — state_mu_ guards only the memo tables: the NOT_SUPPORTED set, the per-device info and link caches, the link counters; each hold is one container lookup or insert, never an NVML call, I/O or wait, so a serve thread waits at most for another thread's single container operation)
     std::lock_guard<std::mutex> g(state_mu_);
     return unsupported_.count(k) != 0;
   }
@@ -443,6 +445,7 @@ class NvmlSource : public MetricSource {
   bool check(int rc, const std::string& k) {
     if (rc == NVML_ERROR_GPU_IS_LOST) throw Lost();
     if (rc == NVML_ERROR_NOT_SUPPORTED) {
+      // tpumon: effect-ok(bounded memo lock — state_mu_ guards only the memo tables: the NOT_SUPPORTED set, the per-device info and link caches, the link counters; each hold is one container lookup or insert, never an NVML call, I/O or wait, so a serve thread waits at most for another thread's single container operation)
       std::lock_guard<std::mutex> g(state_mu_);
       unsupported_.insert(k);
     }
@@ -519,6 +522,7 @@ class NvmlSource : public MetricSource {
   // the device's static record, read once (NvmlBackend.chip_info)
   const Info& info_of(Device& d) {
     {
+      // tpumon: effect-ok(bounded memo lock — state_mu_ guards only the memo tables: the NOT_SUPPORTED set, the per-device info and link caches, the link counters; each hold is one container lookup or insert, never an NVML call, I/O or wait, so a serve thread waits at most for another thread's single container operation)
       std::lock_guard<std::mutex> g(state_mu_);
       if (d.info) return *d.info;
     }
@@ -564,6 +568,7 @@ class NvmlSource : public MetricSource {
     if (uint_call(fn_.max_clock, "nvmlDeviceGetMaxClockInfo", h,
                   NVML_CLOCK_MEM, &v))
       info->mem_max_mhz = static_cast<int>(v);
+    // tpumon: effect-ok(bounded memo lock — state_mu_ guards only the memo tables: the NOT_SUPPORTED set, the per-device info and link caches, the link counters; each hold is one container lookup or insert, never an NVML call, I/O or wait, so a serve thread waits at most for another thread's single container operation)
     std::lock_guard<std::mutex> g(state_mu_);
     if (!d.info) d.info = std::move(info);
     return *d.info;
@@ -578,6 +583,7 @@ class NvmlSource : public MetricSource {
   // -- NVLink -----------------------------------------------------------------
 
   std::vector<unsigned> probe_links(Device& d) {
+    // tpumon: effect-ok(bounded memo lock — state_mu_ guards only the memo tables: the NOT_SUPPORTED set, the per-device info and link caches, the link counters; each hold is one container lookup or insert, never an NVML call, I/O or wait, so a serve thread waits at most for another thread's single container operation)
     std::lock_guard<std::mutex> g(state_mu_);
     if (d.links_known) return d.link_ids;
     std::vector<unsigned> all;
@@ -586,6 +592,7 @@ class NvmlSource : public MetricSource {
   }
 
   void learn_links(Device& d, const std::vector<unsigned>& ids) {
+    // tpumon: effect-ok(bounded memo lock — state_mu_ guards only the memo tables: the NOT_SUPPORTED set, the per-device info and link caches, the link counters; each hold is one container lookup or insert, never an NVML call, I/O or wait, so a serve thread waits at most for another thread's single container operation)
     std::lock_guard<std::mutex> g(state_mu_);
     if (!d.links_known) {
       d.links_known = true;
@@ -732,6 +739,7 @@ class NvmlSource : public MetricSource {
     Ask ask;
     {
       std::set<std::pair<unsigned, unsigned>> seen;
+      // tpumon: effect-ok(bounded memo lock — state_mu_ guards only the memo tables: the NOT_SUPPORTED set, the per-device info and link caches, the link counters; each hold is one container lookup or insert, never an NVML call, I/O or wait, so a serve thread waits at most for another thread's single container operation)
       std::lock_guard<std::mutex> g(state_mu_);
       for (auto& k : ask_in)
         if (seen.insert(k).second &&
@@ -754,6 +762,7 @@ class NvmlSource : public MetricSource {
       int rc = arr[i].nvmlReturn;
       if (rc == NVML_ERROR_GPU_IS_LOST) throw Lost();
       if (rc == NVML_ERROR_NOT_SUPPORTED) {
+        // tpumon: effect-ok(bounded memo lock — state_mu_ guards only the memo tables: the NOT_SUPPORTED set, the per-device info and link caches, the link counters; each hold is one container lookup or insert, never an NVML call, I/O or wait, so a serve thread waits at most for another thread's single container operation)
         std::lock_guard<std::mutex> g(state_mu_);
         unsupported_.insert(key("field", d.handle, ask[i].first,
                                 ask[i].second));
@@ -812,6 +821,7 @@ class NvmlSource : public MetricSource {
     std::pair<unsigned long long, long long> prev;
     bool had;
     {
+      // tpumon: effect-ok(bounded memo lock — state_mu_ guards only the memo tables: the NOT_SUPPORTED set, the per-device info and link caches, the link counters; each hold is one container lookup or insert, never an NVML call, I/O or wait, so a serve thread waits at most for another thread's single container operation)
       std::lock_guard<std::mutex> g(state_mu_);
       auto p = d.link_counters.find({link, f});
       had = p != d.link_counters.end();

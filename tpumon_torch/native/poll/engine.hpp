@@ -153,8 +153,7 @@ class Engine {
         fields_(std::move(fields)),
         lazy_(lazy) {
     for (int i = 0; i < 7; i++) agg_fids_[i] = agg_fids[i];
-    // epfd_ is a member, not a local: ownership lands in the engine at
-    // assignment; the destructor and close_all both release it
+    // tpumon: close-ok(epfd_ is a member, not a local — ownership lands in the engine at assignment; the destructor and close_all both release it, binding dealloc included)
     epfd_ = epoll_create1(EPOLL_CLOEXEC);
   }
 

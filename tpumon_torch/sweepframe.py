@@ -725,7 +725,7 @@ class SweepFrameEncoder:
         py = self._py
         assert py is not None
         # pure-Python fallback: the reference IS the product here
-        return py.encode_frame(chips, events, partial)
+        return py.encode_frame(chips, events, partial)  # tpumon: codec-ok(facade fallback: the extension is absent, the reference IS the product here)
 
     def encode_index_only_frame(self) -> bytes:
         nat = self._nat
@@ -788,7 +788,7 @@ class SweepFrameDecoder:
             return [_decode_event(b) for b in raw]
         py = self._py
         assert py is not None
-        events = py.apply(payload)
+        events = py.apply(payload)  # tpumon: codec-ok(facade fallback: the extension is absent, the reference IS the product here)
         self.last_changes = py.last_changes
         return events
 
@@ -815,7 +815,7 @@ class SweepFrameDecoder:
         payload, used = parsed
         py = self._py
         assert py is not None
-        events = py.apply(payload)
+        events = py.apply(payload)  # tpumon: codec-ok(facade fallback: the extension is absent, the reference IS the product here)
         self.last_changes = py.last_changes
         return used, events
 

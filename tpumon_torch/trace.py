@@ -773,7 +773,10 @@ def _synchronize_until(deadline: float) -> None:
         torch.cuda.synchronize()
         if time.monotonic() >= deadline:
             return
-        time.sleep(0.005)
+        # bounded by ``deadline`` (CLOSE_SETTLE_S after a close,
+        # TEARDOWN_ARM_S after a teardown), on the capture's own thread:
+        # the profiler lock it runs under serializes sessions by design
+        time.sleep(0.005)  # tpumon-check: disable=blocking-while-locked
 
 
 def settle_teardown() -> None:
@@ -1007,6 +1010,7 @@ class TraceEngine:
                     import atexit
 
                     atexit.register(self.quiesce)
+                    # tpumon: thread-ok(claim holder only — written by the one thread that took the capture claim — _capturing, set under _lock — which serializes every open and close of the engine's sessions)
                     self._atexit_registered = True
                 self._open(window_ms=None, forced=False, background=True)
         if wait:
@@ -1029,6 +1033,7 @@ class TraceEngine:
         if not (force or self._quiesced
                 or time.monotonic() - sess.t0 >= sess.want_s):
             return
+        # tpumon: thread-ok(claim holder only — written by the one thread that took the capture claim — _capturing, set under _lock — which serializes every open and close of the engine's sessions)
         self._session = None
         self._close(sess)
 
@@ -1127,6 +1132,7 @@ class TraceEngine:
 
     # -- capture ---------------------------------------------------------------
 
+    # tpumon: thread-ok(claim holder only — written by the one thread that took the capture claim — _capturing, set under _lock — which serializes every open and close of the engine's sessions)
     def _start_profiler(self):
         """Open a torch.profiler session on the calling thread."""
 
@@ -1178,12 +1184,18 @@ class TraceEngine:
                 if step is not None:
                     step()
                 else:
-                    time.sleep(max(0.0, sess.t0 + sess.want_s
-                                   - time.monotonic()))
+                    # the sleep IS the capture window (the session
+                    # records while we wait); the locks a sweep may hold
+                    # here serialize captures by design — one profiler
+                    # session per process, and the sweep that triggered
+                    # it wants the result
+                    time.sleep(max(  # tpumon-check: disable=blocking-while-locked
+                        0.0, sess.t0 + sess.want_s - time.monotonic()))
                 self.poll()
         finally:
             self.poll(force=True)
 
+    # tpumon: thread-ok(claim holder only — written by the one thread that took the capture claim — _capturing, set under _lock — which serializes every open and close of the engine's sessions)
     def _open(self, window_ms: Optional[float], forced: bool,
               background: bool) -> bool:
         """Open a session on the calling thread (the claim is held).  A
@@ -1277,7 +1289,7 @@ class TraceEngine:
 
     def _account_cost(self, t_open: float, wall_end: float,
                       parse_end: Optional[float], now: float, window: float,
-                      forced: bool) -> None:
+                      forced: bool) -> None:  # tpumon-lint: disable=lock-discipline
         # caller holds self._lock.  Cost accrues on failed captures too,
         # and is everything but ``window`` (the window itself and the
         # profiler's one-time initialization): opening, closing (the
