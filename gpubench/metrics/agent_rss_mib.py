@@ -1,0 +1,6 @@
+"""The native agent's (``gpu-hostengine``) largest resident set over the
+window (``VmRSS`` sampled at 10 Hz), MiB."""
+
+
+def read(run):
+    return run.rss_mib("agent")

@@ -1,0 +1,11 @@
+"""The 95th percentile of every scrape due in the window, due time to
+last byte (a failed one at the timeout), where the native agent serves
+the node's scrape itself (``--prom-port``), ms."""
+
+from gpubench.stats import percentile
+
+
+def read(run):
+    if run.config["scrape"]["role"] != "agent":
+        return None
+    return percentile(run.latencies_ms(), 95)
