@@ -767,10 +767,23 @@ def test_status_cli_and_rest_name_the_remote_engine(agents, capsys):
 # agents at one frozen epoch; the two bodies must be equal line for line
 # (:func:`same_scrape`)
 
+#: the scrape phases the port's agents serve and the reference's does not
+PORT_SELF = ("tpumon_agent_scrape_wait_ms", "tpumon_agent_scrape_collect_ms",
+             "tpumon_agent_scrape_write_ms")
 #: self families whose values are timings or process stats
 AGENT_SELF = ("tpumon_agent_cpu_percent", "tpumon_agent_memory_kb",
               "tpumon_agent_uptime_seconds", "tpumon_agent_scrape_render_ms",
-              "tpumon_agent_scrape_merge_ms")
+              "tpumon_agent_scrape_merge_ms") + PORT_SELF
+
+
+def family_of(line: str) -> str:
+    """The family a body line belongs to (a HELP/TYPE line's or a
+    sample's)."""
+
+    if line.startswith("#"):
+        parts = line.split(None, 3)
+        return parts[2] if len(parts) > 2 else ""
+    return line.split("{", 1)[0].split(" ", 1)[0]
 
 
 def prom_agent(cmd, sock, *args, env=None):
@@ -816,15 +829,22 @@ def same_scrape(native: str, port: str) -> None:
     within the fakes' golden tolerances (the native renders ``%.10g``, the
     port the shortest repr; its fake rounds 155 and the profiling gauges)
     but for the self families' timings and process stats and the native
-    fake's clock-driven link vectors (``SHAPE_ONLY``)."""
+    fake's clock-driven link vectors (``SHAPE_ONLY``).  The port's scrape
+    phases the native agent does not serve (``PORT_SELF``) are left out,
+    and a self family's HELP is compared by its family alone (the port's
+    ``render_ms`` is the formatting without the collect)."""
 
     from tpumon_torch import fields as FF
     from tpumon_torch.exporter.textmerge import parse_sample
 
     fid_of = {m.prom_name: fid for fid, m in FF.CATALOG.items()}
-    a, b = native.splitlines(), port.splitlines()
+    a = native.splitlines()
+    b = [ln for ln in port.splitlines() if family_of(ln) not in PORT_SELF]
     assert len(a) == len(b), (len(a), len(b))
     for x, y in zip(a, b):
+        if x.startswith("#") and family_of(x) in AGENT_SELF:
+            assert x.split(None, 3)[:3] == y.split(None, 3)[:3]
+            continue
         if x.startswith("#"):
             assert x == y
             continue
@@ -864,7 +884,16 @@ def scrape_both(tmp_path, *args, chips="2", env=None, path="/metrics",
             stop_agent(proc)
     # the port's native agent against the reference's, line for line
     same_scrape(out["native"], out["gpu"])
+    # and the port's two agents' self families against each other
+    assert same_self(out["gpu"]) == same_self(out["port"])
     return out["native"], out["port"]
+
+
+def same_self(body: str):
+    """A body's self-family lines, each sample cut to its series name."""
+
+    return [ln if ln.startswith("#") else ln.rsplit(" ", 1)[0]
+            for ln in body.splitlines() if family_of(ln) in AGENT_SELF]
 
 
 def test_prom_scrape_serves_the_catalog_like_the_native_agent(tmp_path):
@@ -941,6 +970,10 @@ def test_prom_scrape_survives_an_echoed_scrape_like_the_native(tmp_path):
     import re
 
     _, captured = scrape_both(tmp_path)
+    # the port's own scrape phases left out: the native agent, which does
+    # not serve them, would merge them (see the case after this one)
+    captured = "".join(ln + "\n" for ln in captured.splitlines()
+                       if family_of(ln) not in PORT_SELF)
     d = tmp_path / "drop"
     d.mkdir()
     (d / "echo.prom").write_text(
@@ -958,6 +991,66 @@ def test_prom_scrape_survives_an_echoed_scrape_like_the_native(tmp_path):
     assert not {k: v for k, v in metas.items() if v > 1}
     assert "tpumon_agent_merged_files 42" not in body
     assert re.search(r"tpumon_agent_merged_files 1\b", body)
+
+
+@pytest.mark.parametrize("side", ["gpu", "port"])
+def test_prom_scrape_never_merges_an_echo_of_its_phases(tmp_path, side):
+    """A drop file echoing the scrape's phase families: each stays the
+    agent's own, once, with its own value."""
+
+    from tpumon_torch.hostengine import SCRAPE_PHASES
+
+    d = tmp_path / "drop"
+    d.mkdir()
+    (d / "echo.prom").write_text("".join(
+        f"# HELP {fam} echoed.\n# TYPE {fam} gauge\n{fam} 999999\n"
+        for fam, _ in SCRAPE_PHASES))
+    cmd = gpu_agent() if side == "gpu" else PORT_AGENT
+    proc, port = prom_agent(cmd, str(tmp_path / "a.sock"), "--fake",
+                            "--merge-textfile", str(d / "*.prom"))
+    try:
+        status, body = http_get(port, "/metrics")
+    finally:
+        stop_agent(proc)
+    assert status == 200
+    lines = body.splitlines()
+    for fam, help_txt in SCRAPE_PHASES:
+        assert lines.count(f"# HELP {fam} {help_txt}") == 1, fam
+        assert sum(ln.startswith(f"{fam} ") for ln in lines) == 1, fam
+    assert "999999" not in body and "echoed." not in body
+
+
+@pytest.mark.parametrize("side", ["gpu", "port"])
+def test_prom_scrape_phases_fit_in_the_scrape_wall(tmp_path, side):
+    """wait + collect + render + merge of a scrape is at most its wall as
+    the client times it (accept to the last byte lies inside connect to
+    the last byte); the write served is the previous scrape's."""
+
+    import re
+
+    from tpumon_torch.hostengine import SCRAPE_PHASES
+
+    cmd = gpu_agent() if side == "gpu" else PORT_AGENT
+    proc, port = prom_agent(cmd, str(tmp_path / "a.sock"), "--fake")
+    try:
+        for k in range(5):
+            t0 = time.monotonic()
+            status, body = http_get(port, "/metrics")
+            wall_ms = (time.monotonic() - t0) * 1e3
+            assert status == 200
+            ms = {}
+            for fam, _ in SCRAPE_PHASES:
+                m = re.search(rf"^{fam} ([0-9.]+)$", body, re.M)
+                assert m, (fam, side)
+                ms[fam.split("_")[-2]] = float(m.group(1))
+            assert all(v >= 0.0 for v in ms.values()), ms
+            # each value is printed to the microsecond
+            assert ms["wait"] + ms["collect"] + ms["render"] + \
+                ms["merge"] <= wall_ms + 0.002, (ms, wall_ms)
+            if k == 0:
+                assert ms["write"] == 0.0      # no scrape before it
+    finally:
+        stop_agent(proc)
 
 
 def test_prom_scrape_truncates_an_oversized_drop_like_the_native(tmp_path):

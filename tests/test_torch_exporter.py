@@ -7,7 +7,8 @@ the reference's ``TpuExporter`` over a backend serving the same values
 same pinned clock, and the two bodies must be equal byte for byte once
 the self families whose values are timings or process stats are removed
 (``tpumon_exporter_scrape_duration_seconds``, ``_sweep_phase_seconds``,
-``_cpu_percent``, ``_memory_kb``).  The CLI runs as a subprocess over the
+``_cpu_percent``, ``_memory_kb``), and the port's own served-request
+families.  The CLI runs as a subprocess over the
 fake NVML (``tpumon_torch/testlib/fake_nvml.c``, loaded through
 ``TPUMON_NVML_PATH``), as a deployment runs it over ``libnvidia-ml``.
 """
@@ -52,11 +53,15 @@ def _python_codec(monkeypatch):
     port's native one (``tests/test_torch_codec_native.py``) may be."""
 
     monkeypatch.setattr(TC, "lib", None)
-#: self families whose values are timings or process stats
+#: self families whose values are timings or process stats, and the
+#: port's served-request families (``tpumon_exporter_request_phase_
+#: seconds`` and its counter), which the reference does not serve
 TIMING_FAMILIES = ("tpumon_exporter_scrape_duration_seconds",
                    "tpumon_exporter_sweep_phase_seconds",
                    "tpumon_exporter_cpu_percent",
-                   "tpumon_exporter_memory_kb")
+                   "tpumon_exporter_memory_kb",
+                   "tpumon_exporter_request_phase_seconds",
+                   "tpumon_exporter_requests_total")
 T0 = 2_000_000.0
 
 

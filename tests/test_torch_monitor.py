@@ -412,7 +412,8 @@ class _StubEngine:
 
 
 STATS = {"captures_ok": 7.0, "captures_failed": 2.0,
-         "capture_wall_s": 1.25, "capture_parse_s": 0.5,
+         "capture_wall_s": 1.25, "capture_close_s": 0.25,
+         "capture_parse_s": 0.5,
          "capture_cost_ewma_s": 0.375, "capture_window_ms": 137.5,
          "effective_interval_s": 18.75, "capturing": 1.0, "disabled": 0.0,
          "sample_age_s": 3.5, "attribution_suspect": 0.0,
@@ -429,7 +430,11 @@ def test_self_metric_lines_byte_identical_to_reference():
         got = ours.self_metric_lines(label)
         assert got == ref.self_metric_lines(label)
         assert len(got) == 21
-    assert ours.trace_cost_stats() == ref.trace_cost_stats()
+    # the reference's counters, and the port's close beside them
+    cost, ref_cost = ours.trace_cost_stats(), ref.trace_cost_stats()
+    assert {k: cost[k] for k in ref_cost} == ref_cost
+    assert set(cost) - set(ref_cost) == {"capture_close_s"}
+    assert cost["capture_close_s"] == 0.25
     assert ours.trace_capture_spans() == ref.trace_capture_spans()
     assert ours.attribution_stats() is None
 

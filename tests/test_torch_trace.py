@@ -822,7 +822,11 @@ def test_engine_capture_spans_include_in_flight(kits):
         assert eng.capture_spans() == []
         t0 = time.monotonic() - 2.0
         with eng._lock:
-            eng._capture_spans.append((t0 - 10.0, t0 - 7.0))
+            if kit.which == "port":   # a past capture, as its spans
+                eng.spans.record("capture", T._ns(t0 - 10.0),
+                                 T._ns(t0 - 7.0))
+            else:
+                eng._capture_spans.append((t0 - 10.0, t0 - 7.0))
             eng._capturing = True
             eng._open_since = t0
         spans = eng.capture_spans()
@@ -833,6 +837,40 @@ def test_engine_capture_spans_include_in_flight(kits):
             eng._capturing = False
             eng._open_since = None
         assert len(eng.capture_spans()) == 1
+
+
+def test_engine_capture_spans_come_from_the_capture_spans(kits):
+    """Both engines give one (open, done) interval a capture; the port's
+    are its ``capture`` spans, whose open, window, close and parse tile
+    them, and whose close is the session's stop."""
+
+    for kit in kits:
+        kit.inject()
+        kit.on_stop = lambda: time.sleep(0.02)
+        eng = kit.engine(capture_ms=30.0, min_interval_s=0.0)
+        eng.cost_target_s = 0.0          # keep the window at 30 ms
+        for _ in range(3):
+            eng.sample(0, wait=True)
+        got = eng.capture_spans()
+        assert len(got) == 3, kit.which
+        assert all(e - s >= 0.05 for s, e in got), kit.which
+    roots = [sp for sp in eng.spans.spans() if sp.parent == 0]
+    assert [(sp.start_ns / 1e9, sp.end_ns / 1e9) for sp in roots] == got
+    for root in roots:
+        kids = [sp for sp in eng.spans.spans() if sp.parent == root.id]
+        assert [sp.name for sp in kids] == ["capture.open", "capture.window",
+                                            "capture.close", "capture.parse"]
+        assert kids[0].start_ns == root.start_ns
+        assert kids[-1].end_ns == root.end_ns
+        assert all(a.end_ns == b.start_ns for a, b in zip(kids, kids[1:]))
+        assert kids[1].ns >= 30_000_000 and kids[2].ns >= 20_000_000
+    st, agg = eng.stats(), eng.spans.aggregates()
+    assert st["capture_close_s"] >= 0.06
+    assert st["capture_close_s"] == pytest.approx(agg["capture.close"][1])
+    assert st["capture_wall_s"] == pytest.approx(
+        agg["capture.open"][1] + agg["capture.window"][1]
+        + agg["capture.close"][1])
+    assert st["capture_parse_s"] == pytest.approx(agg["capture.parse"][1])
 
 
 def test_engine_expensive_capture_shrinks_window(kits):
@@ -950,7 +988,7 @@ def test_engine_wait_respects_inflight_capture(kits):
 
 
 def test_engine_stats(kits):
-    keys = []
+    keys = {}
     for kit in kits:
         kit.inject()
         eng = kit.engine(capture_ms=1, min_interval_s=60.0)
@@ -962,8 +1000,10 @@ def test_engine_stats(kits):
         assert st["disabled"] == 0.0
         assert st["attribution_suspect"] == 0.0
         assert st["attribution_consistency"] == -1.0
-        keys.append(sorted(st))
-    assert keys[0] == keys[1]
+        keys[kit.which] = set(st)
+    # the reference's keys, and the port's capture close beside its parse
+    assert keys["port"] - keys["ref"] == {"capture_close_s"}
+    assert keys["ref"] <= keys["port"]
 
 
 def test_engine_stats_count_failed_captures(kits):

@@ -48,6 +48,7 @@ import time
 from typing import Dict, List, Optional, Sequence
 
 from .. import fields as FF
+from .. import spans
 from ..types import (
     ChipArch, ChipCoords, ChipInfo, ClockInfo, HbmInfo,
     P2PLink, P2PLinkType, PciInfo, TopologyInfo, VersionInfo, gpu_caps,
@@ -346,7 +347,8 @@ class CudaBackend(Backend):
             return None
         st = self._trace.stats()
         return {k: st[k] for k in ("captures_ok", "captures_failed",
-                                   "capture_wall_s", "capture_parse_s",
+                                   "capture_wall_s", "capture_close_s",
+                                   "capture_parse_s",
                                    "capture_cost_ewma_s",
                                    "capture_window_ms",
                                    "effective_interval_s", "capturing")}
@@ -457,7 +459,8 @@ class CudaBackend(Backend):
         self._dev(index)
         field_ids = [int(f) for f in field_ids]
 
-        stats = self._hbm_stats(index)
+        with spans.span("hbm_stats"):
+            stats = self._hbm_stats(index)
         used_b = stats.get("used")
         total_b = stats.get("total") or 0
         caps = gpu_caps(self._properties(index).name)
@@ -470,7 +473,10 @@ class CudaBackend(Backend):
         want_util = bool(_UTIL_FIELDS & set(field_ids))
         # measured trace sample (preferred source) — None until the first
         # capture lands; the probes then carry the fields
-        tr = self._trace_sample(index) if want_util else None
+        tr = None
+        if want_util:
+            with spans.span("trace"), spans.span("peek"):
+                tr = self._trace_sample(index)
         # with a fresh, non-empty, exact trace sample the probe dispatch
         # (device work competing with the workload) is skipped, unless a
         # requested field has no other source: step time for a workload
@@ -483,9 +489,13 @@ class CudaBackend(Backend):
             int(F.PROF_HBM_ACTIVE) in field_ids or
             int(F.HBM_BW_UTIL) in field_ids)
         need_probe = want_util and (not tr_full or probe_only_wanted)
-        sample = self._probe_sample(index) if need_probe else None
+        sample = None
+        if need_probe:
+            with spans.span("probe"):
+                sample = self._probe_sample(index)
         if want_util:
-            self._trace_schedule(index)
+            with spans.span("trace"), spans.span("schedule"):
+                self._trace_schedule(index)
         # a capture that saw no device work while the probe reads busy
         # missed it: distrust the trace for this sweep, never report idle
         if (tr is not None and tr.n_ops == 0 and sample is not None

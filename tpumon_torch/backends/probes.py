@@ -34,6 +34,8 @@ from typing import Optional
 
 import torch
 
+from .. import spans
+
 
 class ProbeAbandoned(Exception):
     """Raised between warmup phases once the owning backend closed: the
@@ -251,11 +253,19 @@ class ProbeEngine:
             except ProbeAbandoned:
                 return None
             # median of 3: one jitter spike must not read as load, while
-            # real queueing delays most of them
-            lat_s = sorted(self._time(self._tiny_fn, self._tiny)
-                           for _ in range(3))[1]
-            mm_s = self._time(self._mm_fn, self._mm_x)
-            st_s = self._time(self._stream_fn, self._stream_x)
+            # real queueing delays most of them.  The first readback
+            # waits for whatever the workload still has queued on the
+            # stream (the drain; in a sweep the backend's memory read
+            # before it has mostly waited already); the rounds after it
+            # are the probe's own
+            with spans.span("drain"):
+                lat = [self._time(self._tiny_fn, self._tiny)]
+            with spans.span("rounds"):
+                lat += [self._time(self._tiny_fn, self._tiny)
+                        for _ in range(2)]
+                mm_s = self._time(self._mm_fn, self._mm_x)
+                st_s = self._time(self._stream_fn, self._stream_x)
+            lat_s = sorted(lat)[1]
 
             lat_us = lat_s * 1e6
             mm_tflops = self._mm_flops / mm_s / 1e12

@@ -45,6 +45,7 @@ from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
 from .. import _codec
 from .. import fields as FF
 from .. import log
+from .. import spans
 from ..backends.base import FieldValue
 from ..httputil import TextHTTPServer, accepts_gzip
 from ..introspect import SelfMonitor
@@ -98,6 +99,42 @@ def select_chips(all_chips: Sequence[int],
                 "known: %s)", key, dropped, sorted(all_chips))
         return picked
     return list(all_chips)
+
+
+#: the sweep's phases, in their order, as ``tpumon_exporter_sweep_phase_
+#: seconds`` serves them: each a child span of the ``sweep`` root
+SWEEP_PHASES = ("collect", "anomaly", "record", "stream", "render", "merge",
+                "publish")
+#: a served request's phases (:class:`MetricsHTTPServer`): each a child
+#: span of its ``request`` root
+REQUEST_PHASES = ("wait", "payload", "write")
+#: the exporter's timing self-families: (type, help), by family name
+SELF_FAMILIES = {
+    "tpumon_exporter_sweep_phase_seconds": (
+        "gauge", "Wall time of each phase of the previous sweep."),
+    "tpumon_exporter_request_phase_seconds": (
+        "gauge", "Wall time of each phase of the last /metrics request "
+        "completed before the sweep that rendered this body: wait "
+        "(accepted to handled: the thread, the interpreter lock, the "
+        "headers), payload (the body, any gzip included), write (headers "
+        "and body to the socket)."),
+    "tpumon_exporter_requests_total": (
+        "counter", "/metrics requests served since start."),
+}
+
+
+def phase_lines(family: str, lbl: str, secs: Mapping[str, float],
+                phases: Sequence[str], prefix: str = "") -> List[str]:
+    """A phase family's lines: one sample a phase present in ``secs``
+    (keyed ``prefix + phase``), none at all without one."""
+
+    present = [ph for ph in phases if prefix + ph in secs]
+    if not present:
+        return []
+    ptype, help_txt = SELF_FAMILIES[family]
+    return [f"# HELP {family} {help_txt}", f"# TYPE {family} {ptype}"] + [
+        "%s{%s,phase=\"%s\"} %.6f" % (family, lbl, ph, secs[prefix + ph])
+        for ph in present]
 
 
 class TpuExporter:
@@ -273,9 +310,12 @@ class TpuExporter:
         self._gzip_compress_lock = threading.Lock()
         self._sweep_count = 0
         self._last_success_monotonic: Optional[float] = None
-        self._last_sweep_duration = 0.0
-        #: previous sweep's per-phase wall seconds
-        self._last_phases: Dict[str, float] = {}
+        #: the sweep's spans (a ``sweep`` root, a child per phase, the
+        #: backend's reads under ``collect``) and the served requests'
+        #: (:class:`MetricsHTTPServer`)
+        self.spans = spans.Recorder()
+        #: the last sweep that returned, served one sweep late
+        self._last_sweep: Tuple[spans.Span, ...] = ()
         self._enricher: Optional[Callable[[str], str]] = None
         self._attributor = None
         self._stop = threading.Event()
@@ -488,11 +528,106 @@ class TpuExporter:
         return self.sweep_bytes(now).decode("utf-8")
 
     def sweep_bytes(self, now: Optional[float] = None) -> bytes:
-        t0 = time.monotonic()
-        t = now if now is not None else self._clock()
-        snapshot = self.handle.watches.update_all(wait=True, now=now)
-        phases = {}  # phase name -> seconds, published with one-sweep lag
+        with self.spans.root("sweep"):
+            body = self._sweep(now)
+        # served with one-sweep lag: a slow merge or a stalling output
+        # filesystem shows in the very self-metric operators alert on
+        self._last_sweep = self.spans.last("sweep")
+        return body
 
+    def _sweep(self, now: Optional[float]) -> bytes:
+        """One sweep inside its ``sweep`` span, a child span a phase."""
+
+        with spans.span("collect"):
+            t = now if now is not None else self._clock()
+            per_chip = self._collect(t, now)
+        findings: List[Any] = []
+        if self.anomaly is not None:
+            with spans.span("anomaly"):
+                findings = self._detect(per_chip, t)
+        if self.blackbox is not None:
+            # tee the sweep into the flight recorder, stamped with the
+            # sweep's wall time so replay lines up with Prometheus.
+            # Failure degrades the RECORDER, never the metric stream.
+            with spans.span("record"):
+                try:
+                    self.blackbox.record_sweep(per_chip, now=t)
+                    for rec in findings:
+                        # 0xB3 verdicts beside the frame they scored
+                        self.blackbox.record_finding(rec)
+                except Exception as e:
+                    log.warn_every("exporter.blackbox", 30.0,
+                                   "flight recorder tee failed: %r", e)
+        if self._stream is not None:
+            # tee the sweep to live subscribers: the frame is encoded
+            # ONCE against the publisher's delta table and fanned out
+            # as bytes; a slow subscriber is the frameserver's problem
+            # (bounded buffer, drop-to-keyframe), never this loop's
+            with spans.span("stream"):
+                try:
+                    self._stream.publish(per_chip, now=t)
+                    if findings:
+                        from ..blackbox import encode_finding
+                        for rec in findings:
+                            self._stream.publish_record(
+                                encode_finding(rec))
+                except Exception as e:
+                    log.warn_every("exporter.stream", 30.0,
+                                   "stream tee failed: %r", e)
+
+        with spans.span("render"):
+            extra = self._self_metrics()
+            if self._ici_modeled:
+                extra = list(extra) + self._modeled_link_lines(per_chip)
+            if self._enricher is None:
+                # hot path: delta-aware bytes render; the merge works
+                # from the renderer's series index instead of re-parsing
+                # the text.  Body assembly without a merge is render
+                # work: compose is booked under the render phase
+                parts = self.renderer.render_parts(per_chip, self._labels)
+                if not self._merge.globs:
+                    body = self.renderer.compose(parts, extra)
+            else:
+                # enricher escape hatch (arbitrary text rewrites): the
+                # renderer's incremental index cannot survive a
+                # text-level transform, so this path runs the full
+                # oracle renderer
+                text = self.renderer.render(per_chip, self._labels,
+                                            extra_lines=extra)
+                try:
+                    text = self._enricher(text)
+                except Exception as e:
+                    # attribution failure must not break the metric stream
+                    log.warn_every("exporter.enrich", 30.0,
+                                   "pod attribution failed; serving "
+                                   "unenriched metrics: %r", e)
+        with spans.span("merge"):
+            if self._enricher is None:
+                if self._merge.globs:
+                    body = self._merge_textfiles_parts(parts, extra, t)
+            else:
+                if self._merge.globs:
+                    text = self._merge.merge_text(text, t)
+                body = text.encode(  # tpumon-lint: disable=encode-in-hot-path
+                    "utf-8")  # (oracle fallback only — never the hot loop)
+        with spans.span("publish"):
+            if self.output_path:
+                atomic_write(self.output_path, body)
+            with self._lock:
+                self._last_bytes = body
+                self._last_gzip = None  # next gzip scrape recompresses once
+                self._gzip_bytes = 0    # gauge covers THIS sweep's variant
+                self._sweep_count += 1
+                self._last_success_monotonic = time.monotonic()
+        return body
+
+    def _collect(self, t: float, now: Optional[float]
+                 ) -> Dict[int, Mapping[int, FieldValue]]:
+        """The sweep's values a chip: the watch's snapshot (the backend's
+        reads), the burst harvest over it, the agent's introspection and
+        the pod labels."""
+
+        snapshot = self.handle.watches.update_all(wait=True, now=now)
         per_chip: Dict[int, Mapping[int, FieldValue]] = {}
         fid_set = self._fid_set
         nit = int(F.NOT_IDLE_TIME)
@@ -540,122 +675,41 @@ class TpuExporter:
         # inside the timed region: a kubelet refresh stalling the sweep
         # must show in scrape_duration
         self._apply_pod_labels()
-        t1 = time.monotonic()
-        phases["collect"] = t1 - t0
-        findings: List[Any] = []
-        if self.anomaly is not None:
-            # detection BEFORE the tee: this sweep's findings ride this
-            # sweep's recorder segment.  Kmsg lines queued by the
-            # watcher thread drain here, on the sweep thread.
-            try:
-                while True:
-                    try:
-                        line, k_ts = self._anomaly_kmsg_q.get_nowait()
-                    except queue.Empty:
-                        break
-                    if self.blackbox is not None:
-                        # recorded HERE, in drain order, so the on-disk
-                        # sequence is exactly the sequence the live
-                        # engine scored (backtest identity)
-                        self.blackbox.record_kmsg(line, now=k_ts)
-                    findings += self.anomaly.observe_kmsg(line, k_ts)
-                findings += self.anomaly.observe(per_chip, now=t)
-            except Exception as e:
-                # a broken detector must never cost the metric stream
-                log.warn_every("exporter.anomaly", 30.0,
-                               "anomaly engine failed: %r", e)
-            if findings:
-                self.last_findings = findings
-            t1a = time.monotonic()
-            phases["anomaly"] = t1a - t1
-            t1 = t1a
-        if self.blackbox is not None:
-            # tee the sweep into the flight recorder, stamped with the
-            # sweep's wall time so replay lines up with Prometheus.
-            # Failure degrades the RECORDER, never the metric stream.
-            try:
-                self.blackbox.record_sweep(per_chip, now=t)
-                for rec in findings:
-                    # 0xB3 verdicts beside the frame they scored
-                    self.blackbox.record_finding(rec)
-            except Exception as e:
-                log.warn_every("exporter.blackbox", 30.0,
-                               "flight recorder tee failed: %r", e)
-            t1b = time.monotonic()
-            phases["record"] = t1b - t1
-            t1 = t1b
-        if self._stream is not None:
-            # tee the sweep to live subscribers: the frame is encoded
-            # ONCE against the publisher's delta table and fanned out
-            # as bytes; a slow subscriber is the frameserver's problem
-            # (bounded buffer, drop-to-keyframe), never this loop's
-            try:
-                self._stream.publish(per_chip, now=t)
-                if findings:
-                    from ..blackbox import encode_finding
-                    for rec in findings:
-                        self._stream.publish_record(
-                            encode_finding(rec))
-            except Exception as e:
-                log.warn_every("exporter.stream", 30.0,
-                               "stream tee failed: %r", e)
-            t1s = time.monotonic()
-            phases["stream"] = t1s - t1
-            t1 = t1s
+        return per_chip
 
-        extra = self._self_metrics()
-        if self._ici_modeled:
-            extra = list(extra) + self._modeled_link_lines(per_chip)
-        if self._enricher is None:
-            # hot path: delta-aware bytes render; the merge works from
-            # the renderer's series index instead of re-parsing the text
-            parts = self.renderer.render_parts(per_chip, self._labels)
-            if self._merge.globs:
-                t2 = time.monotonic()
-                phases["render"] = t2 - t1
-                body = self._merge_textfiles_parts(parts, extra, t)
-            else:
-                # body assembly is render work: compose is booked under
-                # the render phase
-                body = self.renderer.compose(parts, extra)
-                t2 = time.monotonic()
-                phases["render"] = t2 - t1
-        else:
-            # enricher escape hatch (arbitrary text rewrites): the
-            # renderer's incremental index cannot survive a text-level
-            # transform, so this path runs the full oracle renderer
-            text = self.renderer.render(per_chip, self._labels,
-                                        extra_lines=extra)
-            try:
-                text = self._enricher(text)
-            except Exception as e:
-                # attribution failure must not break the metric stream
-                log.warn_every("exporter.enrich", 30.0,
-                               "pod attribution failed; serving "
-                               "unenriched metrics: %r", e)
-            t2 = time.monotonic()
-            phases["render"] = t2 - t1
-            if self._merge.globs:
-                text = self._merge.merge_text(text, t)
-            body = text.encode(  # tpumon-lint: disable=encode-in-hot-path
-                "utf-8")  # (oracle fallback only — never the hot loop)
-        t3 = time.monotonic()
-        phases["merge"] = t3 - t2
-        if self.output_path:
-            atomic_write(self.output_path, body)
-        with self._lock:
-            self._last_bytes = body
-            self._last_gzip = None  # next gzip scrape recompresses once
-            self._gzip_bytes = 0    # gauge covers THIS sweep's variant
-            self._sweep_count += 1
-            self._last_success_monotonic = time.monotonic()
-        phases["publish"] = time.monotonic() - t3
-        # full-pipeline duration, served with one-sweep lag: a slow merge
-        # or a stalling output filesystem shows in the very self-metric
-        # operators alert on, so the capture happens last
-        self._last_sweep_duration = time.monotonic() - t0
-        self._last_phases = phases
-        return body
+    def _detect(self, per_chip, t: float) -> List[Any]:
+        """Detection BEFORE the tee: this sweep's findings ride this
+        sweep's recorder segment.  Kmsg lines queued by the watcher
+        thread drain here, on the sweep thread."""
+
+        findings: List[Any] = []
+        try:
+            while True:
+                try:
+                    line, k_ts = self._anomaly_kmsg_q.get_nowait()
+                except queue.Empty:
+                    break
+                if self.blackbox is not None:
+                    # recorded HERE, in drain order, so the on-disk
+                    # sequence is exactly the sequence the live engine
+                    # scored (backtest identity)
+                    self.blackbox.record_kmsg(line, now=k_ts)
+                findings += self.anomaly.observe_kmsg(line, k_ts)
+            findings += self.anomaly.observe(per_chip, now=t)
+        except Exception as e:
+            # a broken detector must never cost the metric stream
+            log.warn_every("exporter.anomaly", 30.0,
+                           "anomaly engine failed: %r", e)
+        if findings:
+            self.last_findings = findings
+        return findings
+
+    def sweep_phases(self) -> Dict[str, float]:
+        """Seconds of each phase of the last sweep that returned."""
+
+        return {name.split(".", 1)[1]: s
+                for name, s in spans.seconds(self._last_sweep).items()
+                if name.count(".") == 1}
 
     # -- textfile merge (node-exporter textfile-collector role) ---------------
 
@@ -715,20 +769,21 @@ class TpuExporter:
             except Exception as e:
                 log.warn_every("exporter.selfhook", 60.0,
                                "backend self-metrics hook failed: %r", e)
+        last = self._last_sweep
         lines += rf("tpumon_exporter_scrape_duration_seconds", "gauge",
                     "Wall time of the previous full sweep "
                     "(collect+render+merge+publish).",
-                    lbl, self._last_sweep_duration, fmt=".6f")
-        if self._last_phases:
-            lines.append("# HELP tpumon_exporter_sweep_phase_seconds Wall "
-                         "time of each phase of the previous sweep.")
-            lines.append("# TYPE tpumon_exporter_sweep_phase_seconds gauge")
-            for ph in ("collect", "anomaly", "record", "stream",
-                       "render", "merge", "publish"):
-                if ph in self._last_phases:
-                    lines.append(
-                        "tpumon_exporter_sweep_phase_seconds{%s,phase=\"%s\"}"
-                        " %.6f" % (lbl, ph, self._last_phases[ph]))
+                    lbl, last[-1].ns / 1e9 if last else 0.0, fmt=".6f")
+        lines += phase_lines("tpumon_exporter_sweep_phase_seconds", lbl,
+                             self.sweep_phases(), SWEEP_PHASES)
+        served, req = self.spans.latest("request")
+        if req:
+            lines += phase_lines("tpumon_exporter_request_phase_seconds",
+                                 lbl, spans.seconds(req), REQUEST_PHASES,
+                                 prefix="request.")
+            lines += rf("tpumon_exporter_requests_total", "counter",
+                        SELF_FAMILIES["tpumon_exporter_requests_total"][1],
+                        lbl, served, fmt=".0f")
         lines += rf("tpumon_exporter_cpu_percent", "gauge",
                     "Exporter process CPU percent over the last window.",
                     lbl, st.cpu_percent)
@@ -1109,4 +1164,5 @@ class MetricsHTTPServer(TextHTTPServer):
                 return (200 if ok else 503), "text/plain", reason
             return 404, "text/plain", "not found\n"
 
-        super().__init__(dispatch, port=port, bind=bind)
+        super().__init__(dispatch, port=port, bind=bind,
+                         spans=exporter.spans)

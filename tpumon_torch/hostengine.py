@@ -75,6 +75,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from . import fields as FF
 from . import log
+from . import spans
 from .backends.agent import DEFAULT_SOCKET
 from .backends.base import (Backend, BackendError, ChipNotFound, FieldValue,
                             LibraryNotFound)
@@ -242,11 +243,23 @@ class EmptySource(Backend):
 SCRAPE_FIELDS = sorted(set(int(f) for f in (
     list(FF.EXPORTER_BASE_FIELDS) + list(FF.EXPORTER_PROFILING_FIELDS)
     + list(FF.EXPORTER_DCN_FIELDS))))
+#: the scrape's phase gauges, in the order they are served: (family,
+#: help) (``main.cc`` ``kScrapePhases``, line for line)
+SCRAPE_PHASES = (
+    ("tpumon_agent_scrape_wait_ms",
+     "Accepted to the scrape lock taken, this scrape."),
+    ("tpumon_agent_scrape_collect_ms",
+     "Burst harvest, watch cache and live reads of this scrape."),
+    ("tpumon_agent_scrape_render_ms",
+     "Catalog+self formatting time of this scrape, the collect excluded."),
+    ("tpumon_agent_scrape_merge_ms", "Drop-file merge time of this scrape."),
+    ("tpumon_agent_scrape_write_ms",
+     "Socket write of the previous /metrics response."),
+)
 #: the self families the merge must never take from a drop file
 _AGENT_MERGE_FAMILIES = ("tpumon_agent_merged_files",
-                         "tpumon_agent_merged_series",
-                         "tpumon_agent_scrape_render_ms",
-                         "tpumon_agent_scrape_merge_ms")
+                         "tpumon_agent_merged_series") + tuple(
+                             fam for fam, _ in SCRAPE_PHASES)
 #: how long a scrape's chip labels stand before they are read again (a
 #: card replaced at the same index must not keep its old uuid)
 LABEL_TTL_S = 10.0
@@ -304,6 +317,9 @@ class Engine:
         self.merge = merge
         self.pods = pods
         self._prom_lock = threading.Lock()
+        #: the /metrics requests' spans (the HTTP server's ``request``
+        #: roots: ``wait``, ``payload``, ``write``)
+        self.spans = spans.Recorder()
         #: serializes the burst harvest and the live-read count between
         #: the frame server's loop (sweeps, ops) and the HTTP scrape
         #: threads: a sampler has one consumer at a time
@@ -661,11 +677,13 @@ class Engine:
         self._prom_labels = out
         return out
 
-    def render_prom(self) -> str:
+    def render_prom(self, t_accept: float) -> str:
         """One scrape (``main.cc`` ``render_prom``): the catalog's scrape
         families, numbers only (the burst-derived ones while the burst
         loop runs), then the self-metrics, the merged drop files and the
-        scrape's own render and merge times.  One scrape at a time."""
+        scrape's own phases: its wait (``t_accept``, ``time.monotonic``,
+        to the lock), collect, formatting and merge, and the previous
+        scrape's write.  One scrape at a time."""
 
         with self._prom_lock:
             t_begin = time.monotonic()
@@ -674,7 +692,9 @@ class Engine:
             fids = SCRAPE_FIELDS + (sorted(
                 int(f) for f in FF.EXPORTER_BURST_FIELDS)
                 if self.burst is not None else [])
+            t_collect = time.monotonic()
             chips, _ = self._sweep([(c, fids) for c in range(n)], None)
+            collect_s = time.monotonic() - t_collect
             per_chip = {c: {f: v for f, v in vals.items()
                             if isinstance(v, (int, float, list))}
                         for c, vals in chips.items()}
@@ -694,14 +714,14 @@ class Engine:
             if self.merge is not None:
                 lines = self._merged(lines)
             t_merged = time.monotonic()
-            lines += render_family(
-                "tpumon_agent_scrape_render_ms", "gauge",
-                "Catalog+self render time of this scrape.", "",
-                (t_rendered - t_begin) * 1e3)
-            lines += render_family(
-                "tpumon_agent_scrape_merge_ms", "gauge",
-                "Drop-file merge time of this scrape.", "",
-                (t_merged - t_rendered) * 1e3)
+            write = [sp for sp in self.spans.last("request")
+                     if sp.name == "request.write"]
+            phase_ms = ((t_begin - t_accept) * 1e3, collect_s * 1e3,
+                        (t_rendered - t_begin - collect_s) * 1e3,
+                        (t_merged - t_rendered) * 1e3,
+                        write[0].ns / 1e6 if write else 0.0)
+            for (fam, help_txt), ms in zip(SCRAPE_PHASES, phase_ms):
+                lines += render_family(fam, "gauge", help_txt, "", ms)
             return "\n".join(lines) + "\n"
 
     def _merged(self, lines: List[str]) -> List[str]:
@@ -846,7 +866,11 @@ def _prom_dispatch(engine: Engine):
 
     def dispatch(path: str):
         if path == "/metrics":
-            return 200, ctype, engine.render_prom()
+            # the request's root span starts when accept returned
+            req = spans.current()
+            return 200, ctype, engine.render_prom(
+                (req.root or req).start_ns / 1e9 if req is not None
+                else time.monotonic())
         if path == "/healthz":
             if engine.health_ok():
                 return 200, ctype, "ok\n"
@@ -972,7 +996,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         signal.signal(signal.SIGINT, lambda *_: stop.set())
         server.start()
         if args.prom_port >= 0:
-            prom = TextHTTPServer(_prom_dispatch(engine), args.prom_port)
+            prom = TextHTTPServer(_prom_dispatch(engine), args.prom_port,
+                                  spans=engine.spans)
             prom.start()
             print(f"tpumon-hostengine: serving /metrics on port "
                   f"{prom.port}", file=sys.stderr, flush=True)

@@ -1,7 +1,12 @@
 """Shared minimal HTTP plumbing for the exporter, pod exporter and REST API.
 
-The port's copy of ``tpumon/httputil.py``, unchanged but for this
-docstring.
+The port's copy of ``tpumon/httputil.py``, with request spans: a server
+given a :class:`tpumon_torch.spans.Recorder` records each request to one
+of the :data:`TIMED_PATHS` as a ``request`` root from the moment ``accept``
+returned (stamped on the serving thread) with three children: ``wait``
+(accepted to ``do_GET`` entered: the handler thread's start, the
+interpreter lock, the request's headers), ``payload`` (the dispatch) and
+``write`` (the headers and the body to the socket).
 
 One implementation of the serve-text pattern all three daemons need:
 dispatch on the path (query string stripped), write Content-Type/Length,
@@ -26,14 +31,20 @@ from __future__ import annotations
 import inspect
 import re
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Callable, Mapping, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple, Union
+
+from . import spans as _spans
 
 #: minimal dispatch signature: path (no query string) -> (status,
 #: content_type, body); see the module docstring for the extended forms
 Dispatch = Callable[..., Tuple[Any, ...]]
 
 _QVALUE = re.compile(r"q\s*=\s*([0-9]+(?:\.[0-9]*)?)")
+
+#: the paths whose requests a server given spans records
+TIMED_PATHS = ("/metrics", "/tpu/metrics")
 
 
 def accepts_gzip(header: Optional[str]) -> bool:
@@ -61,8 +72,23 @@ def accepts_gzip(header: Optional[str]) -> bool:
     return bool(star)
 
 
+class _StampingServer(ThreadingHTTPServer):
+    """Stamps each connection (``time.monotonic_ns``) as ``accept``
+    returns, on the serving thread; its handler takes the stamp."""
+
+    def __init__(self, *args: Any) -> None:
+        super().__init__(*args)
+        self.accepted: Dict[Any, int] = {}
+
+    def get_request(self):
+        sock, addr = super().get_request()
+        self.accepted[sock] = time.monotonic_ns()
+        return sock, addr
+
+
 class TextHTTPServer:
-    def __init__(self, dispatch: Dispatch, port: int, bind: str = "") -> None:
+    def __init__(self, dispatch: Dispatch, port: int, bind: str = "",
+                 spans: Optional[_spans.Recorder] = None) -> None:
         dispatch_ref = dispatch
         try:
             wants_headers = len(
@@ -71,39 +97,57 @@ class TextHTTPServer:
             wants_headers = False
 
         class Handler(BaseHTTPRequestHandler):
+            def setup(self) -> None:
+                self.accepted_ns = self.server.accepted.pop(self.request,
+                                                            None)
+                super().setup()
+
             def do_GET(self) -> None:
+                entered = time.monotonic_ns()
                 path = self.path.split("?", 1)[0]
+                if spans is None or path not in TIMED_PATHS:
+                    self._serve(path)
+                    return
+                with spans.root("request",
+                                self.accepted_ns or entered) as req:
+                    if self.accepted_ns is not None:
+                        req.add("wait", self.accepted_ns, entered)
+                    self._serve(path)
+
+            def _serve(self, path: str) -> None:
                 extra: Optional[Mapping[str, str]] = None
-                try:
-                    if wants_headers:
-                        result = dispatch_ref(path, self.headers)
+                with _spans.span("payload"):
+                    try:
+                        if wants_headers:
+                            result = dispatch_ref(path, self.headers)
+                        else:
+                            result = dispatch_ref(path)
+                        if len(result) == 4:
+                            code, ctype, body, extra = result
+                        else:
+                            code, ctype, body = result
+                    except Exception as e:  # route errors -> 500, not a dead conn
+                        code, ctype, body = 500, "text/plain", f"error: {e}\n"
+                        extra = None
+                    data: Union[bytes, bytearray]
+                    if isinstance(body, str):
+                        data = body.encode()
                     else:
-                        result = dispatch_ref(path)
-                    if len(result) == 4:
-                        code, ctype, body, extra = result
-                    else:
-                        code, ctype, body = result
-                except Exception as e:  # route errors -> 500, not a dead conn
-                    code, ctype, body = 500, "text/plain", f"error: {e}\n"
-                    extra = None
-                data: Union[bytes, bytearray]
-                if isinstance(body, str):
-                    data = body.encode()
-                else:
-                    data = body  # pre-encoded: served as-is, zero copies
-                self.send_response(code)
-                self.send_header("Content-Type", ctype)
-                self.send_header("Content-Length", str(len(data)))
-                if extra:
-                    for name, value in extra.items():
-                        self.send_header(name, value)
-                self.end_headers()
-                self.wfile.write(data)
+                        data = body  # pre-encoded: served as-is, zero copies
+                with _spans.span("write"):
+                    self.send_response(code)
+                    self.send_header("Content-Type", ctype)
+                    self.send_header("Content-Length", str(len(data)))
+                    if extra:
+                        for name, value in extra.items():
+                            self.send_header(name, value)
+                    self.end_headers()
+                    self.wfile.write(data)
 
             def log_message(self, *args: Any) -> None:
                 pass
 
-        self.server = ThreadingHTTPServer((bind, port), Handler)
+        self.server = _StampingServer((bind, port), Handler)
         self.port = self.server.server_address[1]
         self._thread: Optional[threading.Thread] = None
 

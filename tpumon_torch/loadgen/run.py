@@ -122,6 +122,22 @@ def monitor_cost(cost0: dict, cost1: dict, sweep_s: float, elapsed: float,
     }
 
 
+def span_summary(per_sweep) -> dict:
+    """The runner's ``monitor_spans`` entry: for each span name, over the
+    window's inline sweeps that ran it, the count and the mean and 95th
+    percentile (nearest rank) of its seconds a sweep, in ms.
+    ``per_sweep``: name -> [seconds a sweep]."""
+
+    out = {}
+    for name, xs in sorted(per_sweep.items()):
+        xs = sorted(xs)
+        out[name] = {
+            "count": len(xs),
+            "mean_ms": round(1000.0 * sum(xs) / len(xs), 4),
+            "p95_ms": round(1000.0 * xs[math.ceil(0.95 * len(xs)) - 1], 4)}
+    return out
+
+
 def resolve_device(name: str):
     """``cuda`` (or ``cuda:N``) or ``cpu``; CUDA must exist when asked
     for — the runner never carries on quietly on the CPU."""
@@ -311,6 +327,7 @@ def run_window(work: Workload, seconds: float, sync_every: int = 32,
     note_step = lambda: None  # noqa: E731
     if self_monitor:
         import tpumon_torch
+        from tpumon_torch import spans
         from tpumon_torch.exporter.exporter import TpuExporter
         if (work.graph is not None and
                 os.environ.get("TPUMON_CUDA_TRACE", "1") != "0"):
@@ -377,7 +394,8 @@ def run_window(work: Workload, seconds: float, sync_every: int = 32,
             if exporter is not None else {}
 
     steps = 0
-    sweep_s = 0.0          # wall spent inside inline sweeps (hot loop)
+    per_sweep = {}         # span name -> its seconds in each inline sweep
+    slowest = {}           # the slowest inline sweep's span seconds
     blocks = []            # (start, end, n_steps) executed-work blocks
     #                        between sync barriers, for the within-run
     #                        capture-step-cost estimator
@@ -398,9 +416,12 @@ def run_window(work: Workload, seconds: float, sync_every: int = 32,
                 blocks.append((block_start, now, block_steps))
                 block_start, block_steps = now, 0
         if exporter is not None and time.monotonic() >= next_sample:
-            s0 = time.monotonic()
             exporter.sweep()
-            sweep_s += time.monotonic() - s0
+            secs = spans.seconds(exporter.spans.last("sweep"))
+            for name, x in secs.items():
+                per_sweep.setdefault(name, []).append(x)
+            if secs["sweep"] > slowest.get("sweep", -1.0):
+                slowest = secs
             monitor_samples += 1
             next_sample += 1.0
     work.sync()  # drain the (bounded) in-flight tail before timing stops
@@ -443,8 +464,12 @@ def run_window(work: Workload, seconds: float, sync_every: int = 32,
                         "capture_last_error": capture_error,
                         "attribution": attribution,
                         "monitor_cost": monitor_cost(
-                            cost0, cost1, sweep_s, elapsed, blocks,
-                            win_spans, t0)}
+                            cost0, cost1, sum(per_sweep.get("sweep", ())),
+                            elapsed, blocks, win_spans, t0),
+                        "monitor_spans": span_summary(per_sweep)}
+        # the slowest inline sweep, phase by phase: a stall names its span
+        family_stats["monitor_cost"]["slowest_sweep_ms"] = {
+            name: round(1000.0 * x, 4) for name, x in slowest.items()}
 
     result = {
         "pattern": work.pattern,

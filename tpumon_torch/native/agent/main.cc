@@ -31,6 +31,7 @@
 #include <unistd.h>
 
 #include <algorithm>
+#include <array>
 #include <atomic>
 #include <charconv>
 #include <condition_variable>
@@ -160,6 +161,24 @@ static double mono_now() {
   return static_cast<double>(ts.tv_sec) +
          static_cast<double>(ts.tv_nsec) / 1e9;
 }
+
+// the --prom-port scrape's phase gauges, in the order they are served
+// (tpumon_torch/hostengine.py SCRAPE_PHASES, line for line)
+struct ScrapePhase {
+  const char* name;
+  const char* help;
+};
+static constexpr std::array<ScrapePhase, 5> kScrapePhases = {{
+    {"tpumon_agent_scrape_wait_ms",
+     "Accepted to the scrape lock taken, this scrape."},
+    {"tpumon_agent_scrape_collect_ms",
+     "Burst harvest, watch cache and live reads of this scrape."},
+    {"tpumon_agent_scrape_render_ms",
+     "Catalog+self formatting time of this scrape, the collect excluded."},
+    {"tpumon_agent_scrape_merge_ms", "Drop-file merge time of this scrape."},
+    {"tpumon_agent_scrape_write_ms",
+     "Socket write of the previous /metrics response."},
+}};
 
 // ---- Prometheus numbers ------------------------------------------------------
 // A sample's value as the port's renderer prints it
@@ -348,7 +367,10 @@ class Server {
   // agent self-metrics the exporter would have re-exported.  Byte
   // contract matches promtext.py: HELP/TYPE once per family, {chip,
   // uuid,model} labels, blank (unsupported) values omitted.
-  std::string render_prom() {
+  //
+  // ``t_accept``: when the acceptor thread took the connection
+  // (mono_now); the scrape's wait runs from it to the lock.
+  std::string render_prom(double t_accept) {
     std::string out;
     out.reserve(1 << 16);
     char line[768];
@@ -357,7 +379,7 @@ class Server {
     // scrapes from doubling live-read load on the device path
     std::lock_guard<std::mutex> g(prom_mu_);
     // phase clock starts AFTER the lock: time spent queued behind a
-    // concurrent scrape is contention, not render cost, and must not
+    // concurrent scrape is the wait phase, not render cost, and must not
     // skew the phase split the soak attributes tails with
     double t_begin = mono_now();
     {
@@ -404,7 +426,10 @@ class Server {
         }
       }
     }
-    if (burst_) burst_->harvest_if_due(mono_now());
+    // the collect phase: the burst harvest, the watch cache and the live
+    // reads of every chip
+    double t_collect = mono_now();
+    if (burst_) burst_->harvest_if_due(t_collect);
     // the families this scrape serves, and each chip's values of them in
     // one read (the burst harvest, the watch cache, then one live read)
     std::vector<const PromFamily*> fams;
@@ -419,6 +444,7 @@ class Server {
     std::vector<std::vector<FieldValue>> vals;
     for (int c = 0; c < n_chips; c++)
       vals.push_back(chip_values(c, fids, true, -1.0, now));
+    double collect_s = mono_now() - t_collect;
     for (size_t k = 0; k < fams.size(); k++) {
       const PromFamily& fam = *fams[k];
       const bool vec_fam = fam.vector_label[0] != 0;
@@ -471,25 +497,29 @@ class Server {
     double t_rendered = mono_now();
     if (!merge_globs_.empty()) append_merged(&out);
     // per-scrape phase split, measured around THIS response: lets a
-    // soak attribute a slow scrape to catalog render vs drop-file
-    // merge from the body alone instead of guessing (the remainder of
-    // the client-observed latency is socket/transport).  Families are
+    // soak attribute a slow scrape to its wait, the collect, the
+    // formatting or the drop-file merge from the body alone instead of
+    // guessing (wait + collect + render + merge fit in the scrape's
+    // wall; the rest is the socket and the client).  The write is the
+    // previous scrape's: this one's is not done yet.  Families are
     // pre-registered in append_merged's dedup sets like the merged-
     // stats gauges, so an echoed capture cannot duplicate them.
     double t_merged = mono_now();
-    snprintf(line, sizeof(line),
-             "# HELP tpumon_agent_scrape_render_ms Catalog+self render "
-             "time of this scrape.\n"
-             "# TYPE tpumon_agent_scrape_render_ms gauge\n"
-             "tpumon_agent_scrape_render_ms %.3f\n"
-             "# HELP tpumon_agent_scrape_merge_ms Drop-file merge time "
-             "of this scrape.\n"
-             "# TYPE tpumon_agent_scrape_merge_ms gauge\n"
-             "tpumon_agent_scrape_merge_ms %.3f\n",
-             (t_rendered - t_begin) * 1e3, (t_merged - t_rendered) * 1e3);
-    out += line;
+    const double phase_ms[] = {
+        (t_begin - t_accept) * 1e3, collect_s * 1e3,
+        (t_rendered - t_begin - collect_s) * 1e3,
+        (t_merged - t_rendered) * 1e3, prom_write_ms_.load()};
+    for (size_t k = 0; k < kScrapePhases.size(); k++) {
+      snprintf(line, sizeof(line), "# HELP %s %s\n# TYPE %s gauge\n%s %.3f\n",
+               kScrapePhases[k].name, kScrapePhases[k].help,
+               kScrapePhases[k].name, kScrapePhases[k].name, phase_ms[k]);
+      out += line;
+    }
     return out;
   }
+
+  // the socket write of a /metrics response, served by the next scrape
+  void note_prom_write(double ms) { prom_write_ms_.store(ms); }
 
   // merge fresh .prom drop files into the scrape (see the free helpers
   // above for the validation/series-id pieces this shares with the
@@ -506,10 +536,10 @@ class Server {
     decl.insert("tpumon_agent_merged_series");
     series.insert("tpumon_agent_merged_files");
     series.insert("tpumon_agent_merged_series");
-    decl.insert("tpumon_agent_scrape_render_ms");
-    decl.insert("tpumon_agent_scrape_merge_ms");
-    series.insert("tpumon_agent_scrape_render_ms");
-    series.insert("tpumon_agent_scrape_merge_ms");
+    for (const auto& ph : kScrapePhases) {
+      decl.insert(ph.name);
+      series.insert(ph.name);
+    }
     {
       size_t pos = 0;
       while (pos < out->size()) {
@@ -832,7 +862,10 @@ class Server {
   Json read_fields(const Json& req) {
     int idx = static_cast<int>(req["index"].as_int(-1));
     if (idx < 0 || idx >= source_->chip_count()) return err("no such chip");
-    if (burst_) burst_->harvest_if_due(mono_now());
+    // the collect phase: the burst harvest, the watch cache and the live
+    // reads of every chip
+    double t_collect = mono_now();
+    if (burst_) burst_->harvest_if_due(t_collect);
     std::vector<int> fids = field_ids(req["fields"]);
     std::vector<FieldValue> vals =
         chip_values(idx, fids, false, -1.0, FakeSource::now());
@@ -857,7 +890,10 @@ class Server {
     double now = FakeSource::now();
     // close the burst window at most once per REQUEST, not per value:
     // chip_values then serves lookups from the harvest
-    if (burst_) burst_->harvest_if_due(mono_now());
+    // the collect phase: the burst harvest, the watch cache and the live
+    // reads of every chip
+    double t_collect = mono_now();
+    if (burst_) burst_->harvest_if_due(t_collect);
     JsonObject chips;
     JsonObject errors;
     for (const auto& r : req["reqs"].as_arr()) {
@@ -1288,6 +1324,7 @@ class Server {
   std::vector<std::string> merge_globs_;  // textfile-collector drop files
   double merge_max_age_ = 60.0;
   double merge_warned_ = -1e18;
+  std::atomic<double> prom_write_ms_{0.0};  // the last /metrics write
 
   // pod attribution (kubelet pod-resources; device_pod.go analog) — the
   // round-1 gap: attribution was Python-only, so the zero-Python data
@@ -1518,7 +1555,7 @@ static bool path_is(const std::string& req, const char* path) {
   return next == ' ' || next == '?' || next == '\r' || next == '\n';
 }
 
-static void serve_prom_client(int fd, Server* server) {
+static void serve_prom_client(int fd, Server* server, double t_accept) {
   // NOTE: g_prom_inflight was incremented by the acceptor *before* this
   // thread was spawned — incrementing here would leave a window where a
   // just-accepted connection is invisible to the shutdown drain.
@@ -1535,8 +1572,9 @@ static void serve_prom_client(int fd, Server* server) {
     req.append(chunk, static_cast<size_t>(n));
   }
   std::string status = "200 OK", body;
-  if (path_is(req, "/metrics")) {
-    body = server->render_prom();
+  bool metrics = path_is(req, "/metrics");
+  if (metrics) {
+    body = server->render_prom(t_accept);
   } else if (path_is(req, "/healthz")) {
     if (server->health_ok()) {
       body = "ok\n";
@@ -1556,11 +1594,13 @@ static void serve_prom_client(int fd, Server* server) {
            status.c_str(), body.size());
   std::string out = hdr + body;
   size_t off = 0;
+  double t_write = mono_now();
   while (off < out.size()) {
     ssize_t w = write(fd, out.data() + off, out.size() - off);
     if (w <= 0) break;
     off += static_cast<size_t>(w);
   }
+  if (metrics) server->note_prom_write((mono_now() - t_write) * 1e3);
   {
     // erase before close: the fd number may be reused by a concurrent
     // accept the instant it is closed
@@ -1596,6 +1636,7 @@ static int start_prom_listener(int port, Server* server,
     while (wait_readable(fd)) {
       int cfd = accept(fd, nullptr, nullptr);
       if (cfd < 0) continue;  // EAGAIN: another wake-up took it
+      double t_accept = mono_now();
       // detached (a per-scrape thread held until shutdown would leak
       // its stack for the daemon's lifetime); the drain below keeps
       // them from outliving the Server they reference.  Account the
@@ -1606,7 +1647,7 @@ static int start_prom_listener(int port, Server* server,
         g_prom_fds.insert(cfd);
       }
       try {
-        std::thread(serve_prom_client, cfd, server).detach();
+        std::thread(serve_prom_client, cfd, server, t_accept).detach();
       } catch (const std::system_error&) {
         {
           std::lock_guard<std::mutex> g(g_prom_fds_mu);

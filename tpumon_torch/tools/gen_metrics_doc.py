@@ -114,6 +114,25 @@ def render() -> str:
     ]
     from tpumon_torch.relay import METRIC_FAMILIES as RELAY_FAMILIES
     lines += _family_table(RELAY_FAMILIES)
+    lines += [
+        "",
+        "Timing self-metrics: the exporter's sweep phases and its latest"
+        " served `/metrics` request's phases, read from its spans"
+        " (`tpumon_torch.spans`) and served one sweep late"
+        " (`tpumon_torch.exporter.exporter.SELF_FAMILIES`), and the"
+        " agents' `--prom-port` scrape phases"
+        " (`tpumon_torch.hostengine.SCRAPE_PHASES`, the same in"
+        " `gpu-hostengine`). An agent serves its own scrape's phases but"
+        " the write, the previous scrape's; its wait, collect, render and"
+        " merge fit in the scrape's wall, `render_ms` being the formatting"
+        " alone:",
+    ]
+    from tpumon_torch.exporter.exporter import SELF_FAMILIES
+    from tpumon_torch.hostengine import SCRAPE_PHASES
+    lines += _family_table(
+        [(fam, ptype, help_txt)
+         for fam, (ptype, help_txt) in SELF_FAMILIES.items()]
+        + [(fam, "gauge", help_txt) for fam, help_txt in SCRAPE_PHASES])
     lines.append("")
     return "\n".join(lines)
 

@@ -61,11 +61,11 @@ import os
 import re
 import threading
 import time
-from collections import deque
 from dataclasses import dataclass
 from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 from . import log
+from . import spans as _spans
 from .collectives import CommRecord, comm_records, split_bytes
 from .types import gpu_caps
 
@@ -505,9 +505,13 @@ def _parse(events) -> _Parsed:
     t_first: Optional[int] = None  # the session's first host event
     t_sync: Optional[int] = None   # its last device synchronize
     for e in events:
+        name = e.name()
+        if name.startswith(_spans.PREFIX):
+            # the monitor's own spans (host ranges, and their device
+            # extents where Kineto draws them): read as if absent
+            continue
         start = e.start_ns()
         end = start + e.duration_ns()
-        name = e.name()
         if e.device_type() == cuda:
             dev.append((e.device_index(), start, end, name,
                         e.correlation_id(), e.linked_correlation_id()))
@@ -855,6 +859,12 @@ def close_session(prof):
     return prof.profiler.kineto_results
 
 
+def _ns(t: float) -> int:
+    """A ``time.monotonic`` reading in the spans' integer nanoseconds."""
+
+    return round(t * 1e9)
+
+
 class _Session:
     """One open profiler session of the engine."""
 
@@ -935,12 +945,11 @@ class TraceEngine:
         self._capturing = False
         self._captures_ok = 0
         self._captures_failed = 0
-        #: wall seconds with the session open, host seconds parsing
-        self._capture_wall_s = 0.0
-        self._capture_parse_s = 0.0
-        #: (t_open, t_done) of recent captures, for the runner's
-        #: within-run capture-step-cost estimator
-        self._capture_spans: deque = deque(maxlen=256)
+        #: each capture's spans: a ``capture`` root from open to done,
+        #: with ``open``, ``window``, ``close`` (the session's stop on the
+        #: capturing thread) and ``parse`` children as far as it got; the
+        #: last 256 captures kept, the cost counters summed from them
+        self.spans = _spans.Recorder(capacity=256 * 5)
         #: open time of the capture in flight (None outside one)
         self._open_since: Optional[float] = None
         #: the open session; read without the lock on the hot path (one
@@ -1046,7 +1055,8 @@ class TraceEngine:
         failure alike); a capture in flight contributes (open, now)."""
 
         with self._lock:
-            out = list(self._capture_spans)
+            out = [(sp.start_ns / 1e9, sp.end_ns / 1e9)
+                   for sp in self.spans.spans() if sp.parent == 0]
             if self._capturing and self._open_since is not None:
                 out.append((self._open_since, time.monotonic()))
             return out
@@ -1113,11 +1123,17 @@ class TraceEngine:
             ages = [time.monotonic() - s.ts for s in samples]
             cons = [s.attribution_consistency for s in samples
                     if s.attribution_consistency is not None]
+            phase = {k.split(".", 1)[1]: v[1]
+                     for k, v in self.spans.aggregates().items()
+                     if k.startswith("capture.")}
             return {
                 "captures_ok": float(self._captures_ok),
                 "captures_failed": float(self._captures_failed),
-                "capture_wall_s": self._capture_wall_s,
-                "capture_parse_s": self._capture_parse_s,
+                # open to closed, the window included
+                "capture_wall_s": sum(phase.get(k, 0.0) for k in
+                                      ("open", "window", "close")),
+                "capture_close_s": phase.get("close", 0.0),
+                "capture_parse_s": phase.get("parse", 0.0),
                 "capture_cost_ewma_s": (-1.0 if self._cost_ewma_s is None
                                         else self._cost_ewma_s),
                 "capture_window_ms": self._window_ms,
@@ -1217,7 +1233,7 @@ class TraceEngine:
                 PROFILER_LOCK.release()
                 raise
         except Exception:
-            self._fail(t_open, None, 0.0, forced)
+            self._fail([("open", t_open, None)], 0.0, forced)
             return False
         # the first session's open carries the profiler's one-time
         # initialization (seconds on the card): no capture cost, or it
@@ -1226,59 +1242,66 @@ class TraceEngine:
         self._started = True
         self._session = _Session(prof, t_open, want_ms / 1000.0, forced,
                                  init_s, background)
+        # the engine's own session: the monitor's spans become its ranges
+        _spans.mirroring = True
         return True
 
     def _close(self, sess: _Session) -> None:
-        window = time.monotonic() - sess.t0
+        _spans.mirroring = False
+        t_stop = time.monotonic()
+        window = t_stop - sess.t0
+        phases = [("open", sess.t_open, sess.t0), ("window", sess.t0, t_stop)]
         try:
             try:
                 result = self._stop_profiler(sess.prof)
             finally:
                 PROFILER_LOCK.release()
         except Exception:
-            self._fail(sess.t_open, None, window + sess.init_s,
-                       sess.forced)
+            self._fail(phases + [("close", t_stop, None)],
+                       window + sess.init_s, sess.forced)
             return
         t_closed = time.monotonic()
+        phases.append(("close", t_stop, t_closed))
         if sess.background:
             threading.Thread(target=self._parse,
-                             args=(sess, result, window, t_closed),
+                             args=(sess, result, window, phases),
                              daemon=True, name="tpumon-trace-parse").start()
         else:
-            self._parse(sess, result, window, t_closed)
+            self._parse(sess, result, window, phases)
 
     def _parse(self, sess: _Session, result, window: float,
-               t_closed: float) -> None:
+               phases: List[Tuple[str, float, float]]) -> None:
+        t_closed = phases[-1][2]
         try:
             samples = self._collect(result, window)
         except Exception:
-            self._fail(sess.t_open, t_closed, window + sess.init_s,
-                       sess.forced)
+            self._fail(phases + [("parse", t_closed, None)],
+                       window + sess.init_s, sess.forced)
             return
         t_parsed = time.monotonic()
         with self._lock:
             self._samples.update(samples)
             self._failures = 0
             self._captures_ok += 1
-            self._account_cost(sess.t_open, t_closed, t_parsed, t_parsed,
-                               window + sess.init_s, sess.forced)
+            self._account_cost(phases + [("parse", t_closed, t_parsed)],
+                               t_parsed, window + sess.init_s, sess.forced)
             self._capturing = False
 
-    def _fail(self, t_open: float, t_closed: Optional[float], window: float,
-              forced: bool) -> None:
-        """Account a failed capture, back off after repeated failures and
-        release the claim."""
+    def _fail(self, phases: List[Tuple[str, float, Optional[float]]],
+              window: float, forced: bool) -> None:
+        """Account a failed capture, its last phase (end None) ending
+        now; back off after repeated failures and release the claim."""
 
         import sys
 
         now = time.monotonic()
+        name, start, _ = phases[-1]
+        phases = phases[:-1] + [(name, start, now)]
         with self._lock:
             self.last_error = repr(sys.exc_info()[1])
             self._failures += 1
             self._captures_failed += 1
-            self._account_cost(t_open, t_closed if t_closed is not None
-                               else now, now if t_closed is not None
-                               else None, now, window, forced)
+            self._account_cost(phases, now, window, forced)
             if self._failures >= self.MAX_CONSECUTIVE_FAILURES:
                 self._disabled_until = (
                     time.monotonic() + 10 * max(self.min_interval, 1.0))
@@ -1287,8 +1310,8 @@ class TraceEngine:
         log.warn_every("trace.capture", 60.0,
                        "profiler capture failed: %r", sys.exc_info()[1])
 
-    def _account_cost(self, t_open: float, wall_end: float,
-                      parse_end: Optional[float], now: float, window: float,
+    def _account_cost(self, phases: List[Tuple[str, float, float]],
+                      now: float, window: float,
                       forced: bool) -> None:  # tpumon-lint: disable=lock-discipline
         # caller holds self._lock.  Cost accrues on failed captures too,
         # and is everything but ``window`` (the window itself and the
@@ -1296,9 +1319,10 @@ class TraceEngine:
         # device sync and the profiler's own post-processing, on the
         # workload's thread) and the parse.  A forced capture skips the
         # EWMA and the controller: its window is not the periodic one.
-        self._capture_wall_s += max(0.0, wall_end - t_open)
-        if parse_end is not None:
-            self._capture_parse_s += max(0.0, parse_end - wall_end)
+        t_open = phases[0][1]
+        self.spans.record("capture", _ns(t_open), _ns(now),
+                          [(name, _ns(s), _ns(max(s, e)))
+                           for name, s, e in phases])
         if not forced:
             cost = max(0.0, (now - t_open) - window)
             self._cost_ewma_s = cost if self._cost_ewma_s is None \
@@ -1311,5 +1335,4 @@ class TraceEngine:
                                self._window_ms *
                                self.cost_target_s / self._cost_ewma_s))
                 self._window_ms = 0.5 * self._window_ms + 0.5 * want
-        self._capture_spans.append((t_open, now))
         self._open_since = None
