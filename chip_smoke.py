@@ -70,7 +70,12 @@
    card) against the eager step from the same parameters, 5 steps each
    after the graph's warm-up: every loss within rtol 2e-2, the q, k, v
    and o updates within ``UPDATE_RTOL``, no growth of allocated memory
-   over the replays; each step's wall ms beside the other's.
+   over the replays; each step's wall ms beside the other's.  The graph
+   step's fused update (``sgd_update``, ``tpumon_torch/csrc/sgd_update.cu``,
+   the port's own kernel) is held bit for bit to its plain version and to
+   the unfused update (``model._sgd``, then the cast) at the bench model's
+   leaves, a planted stale element must fail, and it is timed beside its
+   byte bound and the five-op chain it replaced.
 5. Drives each main path in-process with the launch counts set to 0 just
    before it and read just after: ``tpumon_torch.loadgen.run --size bench
    --self-monitor --seconds 3`` (the graph step; fails unless the loss is
@@ -284,13 +289,17 @@ FLASH_KERNELS = (
     ("flash_bwd_dkv", "_flash_bwd_dkv_kernel",
      "tpumon/loadgen/kernels.py:219"),
 )
-KERNELS = FLASH_KERNELS + (
+LOAD_KERNELS = (
     ("mxu_burn", "_mxu_kernel", "tpumon/loadgen/kernels.py:34"),
     ("hbm_stream", "_stream_kernel", "tpumon/loadgen/kernels.py:59"),
 )
+#: the port's own kernel: the reference's jitted step leaves its update to
+#: XLA's fusion, so it replaces no Pallas kernel
+UPDATE_KERNELS = (("sgd_update", None, None),)
+KERNELS = FLASH_KERNELS + LOAD_KERNELS + UPDATE_KERNELS
 #: each main path's run, and the kernels it must launch
 PATHS = {
-    "train": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+    "train": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "sgd_update"),
     "mxu": ("mxu_burn",),
     "hbm": ("hbm_stream",),
     "mixed": ("mxu_burn", "hbm_stream"),
@@ -938,11 +947,98 @@ def load_kernel_cases(K, lib) -> dict:
     stream = stream_case(K, lib, K.HBM_SHAPE["cuda"])
     stream["at_reference_shape"] = stream_case(K, lib, (2048, 4096))
     rows = {"mxu_burn": mxu_case(K, lib), "hbm_stream": stream}
-    for name, tpu_kernel, replaces in KERNELS[3:]:
+    for name, tpu_kernel, replaces in LOAD_KERNELS:
         rows[name] = {"name": name, "route": "cuda",
                       "source": "tpumon_torch/csrc/load_kernels.cu",
                       "replaces": f"{replaces} ({tpu_kernel})", **rows[name]}
     return rows
+
+
+def update_inputs(M, seed: int = 6):
+    """The bench model's float leaves as the graph step updates them: f32
+    masters (the seeded init), bf16 gradients of a size that lr * g moves
+    them, and the masters' bf16 working copies."""
+
+    import torch
+
+    params = M.init_params(torch.Generator("cuda").manual_seed(seed),
+                           M.ModelConfig.bench())
+    masters = [t for t in M.tree_leaves(params) if t.is_floating_point()]
+    g = torch.Generator("cuda").manual_seed(seed + 1)
+    grads = [torch.randn(t.shape, generator=g, device="cuda")
+             .to(torch.bfloat16) for t in masters]
+    return masters, grads, [t.to(torch.bfloat16) for t in masters]
+
+
+def update_case(K, M, lib) -> dict:
+    """``sgd_update`` at the bench model's leaves: the kernel bit for bit
+    equal to its plain version (on CPU copies) and to the unfused update
+    on the card (``model._sgd``, then the cast), a planted last element
+    left stale rejected, and its times beside its bound.  The library
+    yardstick is the five-op chain the kernel replaced in the graph step,
+    every leaf: the forward's f32 -> bf16 cast, the gradient's bf16 -> f32
+    cast, ``lr * g``, ``t - lr * g`` and ``t.copy_``."""
+
+    import ctypes
+
+    import torch
+    from tpumon_torch import _build
+
+    lr = 1e-3
+    masters, grads, works = update_inputs(M)
+    cpu = [[t.cpu() for t in ts] for ts in (masters, grads, works)]
+    stale = cpu[0][-1].view(-1)[-1].item()
+    want = [t.clone() for t in masters]
+    M._sgd(want, grads, lr)
+    K.sgd_update(masters, grads, works, lr)
+    torch.cuda.synchronize()
+    K.sgd_update_plain(*cpu, lr)
+    for i, (t, w) in enumerate(zip(masters, works)):
+        if not (torch.equal(t.cpu(), cpu[0][i]) and torch.equal(t, want[i])
+                and torch.equal(w.cpu(), cpu[2][i])
+                and torch.equal(w, want[i].to(torch.bfloat16))):
+            raise AssertionError(f"sgd_update leaf {i}: kernel differs from "
+                                 f"its plain version or the unfused update "
+                                 f"(max abs err {max_err(t, want[i]):.3e})")
+    fault = masters[-1].clone()
+    fault.view(-1)[-1] = stale
+    if torch.equal(fault, want[-1]):
+        raise AssertionError("the sgd_update check passes a stale element")
+    n = len(masters)
+    ptrs = [(ctypes.c_void_p * n)(*(t.data_ptr() for t in ts))
+            for ts in (masters, grads, works)]
+    sizes = (ctypes.c_longlong * n)(*(t.numel() for t in masters))
+    stream = torch.cuda.current_stream().cuda_stream
+    raw = lambda: _build.check(lib.tpumon_sgd_update(
+        *(ctypes.addressof(p) for p in ptrs), ctypes.addressof(sizes), n, lr,
+        stream), "sgd_update")
+
+    def library():
+        for t, g in zip(masters, grads):
+            t.to(torch.bfloat16)
+            t.copy_(t - lr * g.to(torch.float32))
+
+    elements = sum(t.numel() for t in masters)
+    nbytes = 12 * elements
+    kernel_ms = time_ms(raw, 200)
+    return {
+        "name": "sgd_update", "route": "cuda",
+        "source": "tpumon_torch/csrc/sgd_update.cu",
+        "replaces": "none: XLA fuses the update into the reference's "
+                    "jitted train step",
+        "leaves": n, "elements": elements, "bitwise": True,
+        "ms": time_ms(lambda: K.sgd_update(masters, grads, works, lr), 200),
+        "kernel_ms": kernel_ms,
+        "device_ms": device_ms(raw, 200, per_call=1),
+        "gbps": nbytes / kernel_ms / 1e6,
+        "plain_ms": time_ms(lambda: K.sgd_update_plain(masters, grads, works,
+                                                       lr), 50),
+        **bound(nbytes, 0),
+        "library_ms": time_ms(library, 50),
+        "library_device_ms": device_ms(library, 50),
+        "library_call": "every leaf: t.to(bf16), g.to(f32), lr * g, "
+                        "t - lr * g, t.copy_",
+    }
 
 
 def attention_check(K) -> dict:
@@ -1268,7 +1364,7 @@ def sharded_check(K, M) -> tuple:
             params, loss = step(params, tokens)
             torch.cuda.synchronize()
             if name == "sharded":
-                launches = {k: K.LAUNCHES[k] for k in PATHS["train"]}
+                launches = {k: K.LAUNCHES[k] for k, _, _ in FLASH_KERNELS}
             up = {n: params["layers"][n].detach() - before[n]
                   for n in before}
             wq, wk, wv = up["wqkv"].chunk(3, dim=-1)
@@ -5837,6 +5933,7 @@ def main() -> int:
         rows[name]["at_long_sequence"] = row
     backward = backward_table(rows)
     rows.update(load_kernel_cases(K, lib))
+    rows["sgd_update"] = update_case(K, M, lib)
     print("attention check, excess: " + json.dumps(attention_check(K)))
     print("model check: " + json.dumps(model_check(M)))
     print("graph check: " + json.dumps(graph_check(M, R)))

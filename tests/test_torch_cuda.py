@@ -18,7 +18,10 @@ stated numerics (on the CPU an f32 emulation of them, on the card the
 kernels) and fails a kernel that skips a tile or never rescales its
 running softmax sums.
 
-``hbm_stream``'s kernel equals its plain version bit for bit.
+``hbm_stream``'s kernel equals its plain version bit for bit, and so does
+``sgd_update``'s, the train step's fused update, which must also equal
+``model._sgd`` followed by the forward's bf16 cast: the CUDA graph step
+built on it keeps masters bit-equal to the eager ``model.train_step``.
 ``mxu_burn``'s is held by ``kernels.mxu_excess`` (every element within 8 *
 sqrt(iters) bf16 unit roundoffs of the output's RMS) on bounded inputs, x
 random normal and w a random orthogonal matrix, at the pattern's tile and
@@ -31,7 +34,10 @@ import numpy as np
 import pytest
 import torch
 
+from tpumon_torch.loadgen import graph as G
 from tpumon_torch.loadgen import kernels as K
+from tpumon_torch.loadgen import model as M
+from tpumon_torch.loadgen import run as R
 
 TILE = 64  # the kernels' tile, rows and keys
 
@@ -425,3 +431,188 @@ def test_patterns_step_on_kernels(cuda, name, kernels):
     torch.cuda.synchronize()
     launched = {k for k in K.LAUNCHES if K.LAUNCHES[k] > before[k]}
     assert launched == kernels
+
+
+# ---- the train step's fused update ----------------------------------------------
+
+def _bench_shapes():
+    """The bench model's float leaves, in the model's order."""
+
+    cfg = M.ModelConfig.bench()
+    L, D, F, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab
+    return [(V, D), (L, D, 3 * D), (L, D, D), (L, D, F), (L, F, D), (L, D),
+            (L, D), (D,), (D, V)]
+
+
+def _update_inputs(shapes, device, seed=0):
+    """f32 masters, bf16 gradients (some of them large enough that lr * g
+    rounds against t) and bf16 working copies of the masters."""
+
+    g = torch.Generator(device).manual_seed(seed)
+    masters = [torch.randn(s, generator=g, device=device) for s in shapes]
+    grads = [(torch.randn(s, generator=g, device=device) * 10.0)
+             .to(torch.bfloat16) for s in shapes]
+    works = [t.to(torch.bfloat16) for t in masters]
+    return masters, grads, works
+
+
+def _sgd_then_cast(masters, grads, lr):
+    """The unfused update: ``model._sgd``, then the forward's cast."""
+
+    masters = [t.clone() for t in masters]
+    M._sgd(masters, grads, lr)
+    return masters, [t.to(torch.bfloat16) for t in masters]
+
+
+# lengths off the kernel's 8-element vectors and its 4096-element tiles,
+# and a leaf of several dimensions
+UPDATE_SHAPES = [[(1,)], [(7,)], [(1025,)], [(3, 5, 7)], [(2, 4100)],
+                 [(1,), (7,), (1025,), (4096,), (4097,)]]
+UPDATE_LRS = [1e-3, 0.37, 3.0]
+
+
+@pytest.mark.parametrize("lr", UPDATE_LRS)
+@pytest.mark.parametrize("shapes", UPDATE_SHAPES)
+def test_sgd_update_plain_is_sgd_then_cast(shapes, lr):
+    masters, grads, works = _update_inputs(shapes, "cpu")
+    want, want_w = _sgd_then_cast(masters, grads, lr)
+    before = dict(K.LAUNCHES)
+    K.sgd_update(masters, grads, works, lr)
+    assert K.LAUNCHES == before
+    for t, w, a, b in zip(masters, works, want, want_w):
+        assert torch.equal(t, a) and torch.equal(w, b)
+    assert any(not torch.equal(t, t0) for t, t0 in zip(
+        masters, _update_inputs(shapes, "cpu")[0]))
+
+
+def _refusals():
+    def make():
+        return _update_inputs([(4, 8), (16,)], "cpu")
+
+    def dtype(i, j, to):
+        def f():
+            x = make()
+            x[i][j] = x[i][j].to(to)
+            return x
+        return f
+
+    def shape():
+        m, g, w = make()
+        g[1] = g[1][:15].clone()
+        return m, g, w
+
+    def count():
+        m, g, w = make()
+        return m, g[:1], w
+
+    def strided():
+        m, g, w = make()
+        m[0] = m[0].t()
+        g[0], w[0] = g[0].t().contiguous(), w[0].t().contiguous()
+        return m, g, w
+
+    def empty_leaf():
+        m, g, w = make()
+        return ([t[:0] for t in m], [t[:0] for t in g], [t[:0] for t in w])
+
+    return {"master_bf16": dtype(0, 0, torch.bfloat16),
+            "grad_f32": dtype(1, 1, torch.float32),
+            "work_f32": dtype(2, 0, torch.float32),
+            "shape_mismatch": shape, "count_mismatch": count,
+            "non_contiguous": strided, "no_leaves": lambda: ([], [], []),
+            "empty_leaf": empty_leaf}
+
+
+@pytest.mark.parametrize("fault", sorted(_refusals()))
+def test_sgd_update_refuses(fault):
+    masters, grads, works = _refusals()[fault]()
+    with pytest.raises(ValueError, match="sgd_update"):
+        K.sgd_update(masters, grads, works, 1e-3)
+
+
+@pytest.mark.parametrize("flash", [False, True])
+def test_train_body_matches_train_step(flash):
+    """The graph step's body (the bf16 working copies, their gradients and
+    the fused update; the plain version on the CPU) keeps masters and loss
+    bit-equal to the eager ``model.train_step`` over steps, and each copy
+    the bf16 cast of its master."""
+
+    import dataclasses
+
+    cfg, params, tokens = R.workload("tiny", 2, torch.device("cpu"))
+    cfg = dataclasses.replace(cfg, flash=flash)
+    eager = M.tree_map(lambda t: t.clone(), params)
+    masters, work = G.float_leaves(params), G.working_copy(params)
+    loss = torch.zeros(())
+    for _ in range(3):
+        G.train_body(cfg, tokens, 1e-3, masters, work, loss)
+        eager, want = M.train_step(cfg, eager, tokens)
+        assert loss.item() == want.item()
+    for t, e, w in zip(masters, G.float_leaves(eager), G.float_leaves(work)):
+        assert torch.equal(t, e.detach())
+        assert torch.equal(w.detach(), t.to(torch.bfloat16))
+
+
+def _misaligned(shapes, device):
+    """The inputs as views 4 bytes past the start of a larger buffer:
+    contiguous, but off the kernel's 16-byte vectors."""
+
+    out = []
+    for ts in _update_inputs(shapes, device, seed=1):
+        out.append([torch.cat([t.reshape(-1)[:2], t.reshape(-1)])[2:]
+                    .view(t.shape) for t in ts])
+    return out
+
+
+@pytest.mark.parametrize("case", ["bench", "ragged", "misaligned"])
+def test_sgd_update_kernel_bitwise(cuda, case):
+    """The kernel equals its plain version (on CPU copies) and the
+    unfused update on the card, bit for bit: the bench leaves, lengths off
+    its vectors, and leaves whose pointers are not 16-byte aligned."""
+
+    shapes = {"bench": _bench_shapes(),
+              "ragged": [(1,), (7,), (1025,), (8,), (4097,), (2, 3, 5)],
+              "misaligned": [(1025,), (64,), (3, 33)]}[case]
+    if case == "misaligned":
+        masters, grads, works = _misaligned(shapes, cuda)
+        assert all(t.data_ptr() % 16 for t in masters)
+    else:
+        masters, grads, works = _update_inputs(shapes, cuda)
+    lr = 1e-3
+    cpu = [[t.cpu() for t in ts] for ts in (masters, grads, works)]
+    card_want, card_want_w = _sgd_then_cast(masters, grads, lr)
+    before = K.LAUNCHES["sgd_update"]
+    K.sgd_update(masters, grads, works, lr)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["sgd_update"] == before + 1
+    K.sgd_update_plain(*cpu, lr)
+    for t, w, pt, pw, a, b in zip(masters, works, cpu[0], cpu[2],
+                                  card_want, card_want_w):
+        assert torch.equal(t.cpu(), pt) and torch.equal(w.cpu(), pw)
+        assert torch.equal(t, a) and torch.equal(w, b)
+
+
+def test_graph_step_matches_eager_train_step(cuda):
+    """The bench step as a CUDA graph on the fused update: after its
+    warm-up steps and 3 replays the masters equal, bit for bit, those of
+    as many eager ``model.train_step`` steps from copies of the same
+    weights and batch; each working copy is its master cast to bf16; one
+    fused-update launch a replay."""
+
+    cfg, params, tokens = R.workload("bench", R.DEFAULT_BATCH, cuda)
+    eager = M.tree_map(lambda t: t.clone(), params)
+    before = K.LAUNCHES["sgd_update"]
+    graph = G.GraphStep(cfg, params, tokens)
+    assert graph.launches["sgd_update"] == 1
+    assert K.LAUNCHES["sgd_update"] == before + G.WARMUP_STEPS
+    for _ in range(3):
+        _, loss = graph.step()
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["sgd_update"] == before + G.WARMUP_STEPS + 3
+    for _ in range(G.WARMUP_STEPS + 3):
+        eager, want = M.train_step(cfg, eager, tokens)
+    assert loss.item() == want.item()
+    for t, e, w in zip(graph.leaves, G.float_leaves(eager),
+                       G.float_leaves(graph.work)):
+        assert torch.equal(t, e.detach())
+        assert torch.equal(w.detach(), t.to(torch.bfloat16))

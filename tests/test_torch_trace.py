@@ -234,6 +234,8 @@ def test_mixed_capture_never_synthesizes_zeros_like_reference():
     ("(anonymous namespace)::mxu_kernel(__nv_bfloat16 const*)", None, "mxu"),
     ("(anonymous namespace)::stream_kernel(float const*, float*)", None,
      "vector"),
+    ("(anonymous namespace)::sgd_update_kernel((anonymous namespace)::Table,"
+     " float)", None, "vector"),
     # copies by direction, before their op
     ("Memcpy HtoD (Pageable -> Device)", "aten::copy_", "infeed"),
     ("Memcpy DtoH (Device -> Pinned)", "aten::_local_scalar_dense",
@@ -278,6 +280,7 @@ def test_categorize_routes(kernel, op, want):
 def test_exact_routes():
     exact = lambda k, o=None: T._route(k, o)[1]  # noqa: E731
     assert exact("x::flash_fwd_kernel<64>()") and exact("stream_kernel")
+    assert exact("(anonymous namespace)::sgd_update_kernel(Table, float)")
     assert exact("Memcpy HtoD (Pageable -> Device)") and exact("Memset (D)")
     assert exact("anything", "aten::add")
     assert not exact("nvjet_tst_x") and not exact("elementwise_kernel")

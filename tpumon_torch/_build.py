@@ -57,8 +57,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 #: source -> its C entry points -> argument types (pointers, ints, the
-#: softmax scale, the stream); every entry returns cudaGetLastError() as
-#: an int
+#: softmax scale or learning rate, the stream); every entry returns
+#: cudaGetLastError() as an int
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "csrc/flash_attn.cu": {
         "tpumon_flash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
@@ -70,6 +70,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "csrc/load_kernels.cu": {
         "tpumon_mxu_burn": (_P, _P, _P, _I, _I, _P),
         "tpumon_hbm_stream": (_P, _P, _L, _P),
+    },
+    "csrc/sgd_update.cu": {
+        "tpumon_sgd_update": (_P, _P, _P, _P, _I, _F, _P),
     },
 }
 SOURCES = tuple(SIGNATURES)

@@ -1,6 +1,7 @@
 """The loadgen's device kernels: flash attention for the monitored
-workload and the two load-shaping kernels, each hand-written in CUDA for
-Hopper with a plain PyTorch twin; and the load patterns built on them.
+workload, the two load-shaping kernels and the train step's fused SGD
+update, each hand-written in CUDA for Hopper with a plain PyTorch twin;
+and the load patterns built on them.
 
 Counterpart of ``tpumon/loadgen/kernels.py``: the same public contracts
 (:func:`flash_attention` on (B, S, H, D) tensors, folded to (B*H, S, D),
@@ -9,10 +10,13 @@ square bf16 tiles; :func:`hbm_stream` over (256, 1024) blocks with its
 divisibility check; :func:`make_pattern`) and the same five device
 kernels: flash forward, dQ and dK/dV in
 ``tpumon_torch/csrc/flash_attn.cu``, the tensor-core burn and the memory
-stream in ``tpumon_torch/csrc/load_kernels.cu``.
+stream in ``tpumon_torch/csrc/load_kernels.cu``.  One more kernel has no
+Pallas counterpart: :func:`sgd_update` (``tpumon_torch/csrc/sgd_update.cu``),
+the update that XLA fuses into the reference's jitted train step.
 
 Each kernel has a wrapper (:func:`flash_fwd`, :func:`flash_bwd_dq`,
-:func:`flash_bwd_dkv`, :func:`mxu_burn`, :func:`hbm_stream`).  A wrapper
+:func:`flash_bwd_dkv`, :func:`mxu_burn`, :func:`hbm_stream`,
+:func:`sgd_update`).  A wrapper
 runs its plain version (the ``*_plain`` function beside it) when, and
 only when, its tensors lie on the CPU; on a CUDA tensor it launches the
 kernel or raises.  Every launch adds one to ``LAUNCHES[<wrapper name>]``,
@@ -26,7 +30,8 @@ backward pass, all in f32.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import ctypes
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,7 +41,7 @@ from .. import _build
 #: kernel launches per wrapper since the counts were last set to 0
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
                             "flash_bwd_dkv": 0, "mxu_burn": 0,
-                            "hbm_stream": 0}
+                            "hbm_stream": 0, "sgd_update": 0}
 
 #: head dims the CUDA kernels are instantiated for
 KERNEL_HEAD_DIMS = (64, 128)
@@ -503,6 +508,70 @@ def hbm_stream(x: torch.Tensor) -> torch.Tensor:
             torch.cuda.current_stream().cuda_stream), "hbm_stream")
     LAUNCHES["hbm_stream"] += 1
     return o
+
+
+# ---- the train step's update ----------------------------------------------------
+
+#: leaves one :func:`sgd_update` launch takes (its kernel's table)
+SGD_MAX_LEAVES = 64
+
+
+def sgd_update_plain(masters: Sequence[torch.Tensor],
+                     grads: Sequence[torch.Tensor],
+                     works: Sequence[torch.Tensor], lr: float) -> None:
+    """The f32 SGD update of every master ``t`` by its bf16 gradient
+    ``g``, then its bf16 working copy ``w`` refreshed from it, in place:
+    :func:`..model._sgd` followed by the forward's cast."""
+
+    for t, g, w in zip(masters, grads, works):
+        t.copy_(t - lr * g.float())
+        w.copy_(t.to(torch.bfloat16))
+
+
+def sgd_update(masters: Sequence[torch.Tensor],
+               grads: Sequence[torch.Tensor],
+               works: Sequence[torch.Tensor], lr: float) -> None:
+    """:func:`sgd_update_plain` over every leaf: ``masters`` f32,
+    ``grads`` and ``works`` bf16 of the masters' shapes, all contiguous.
+    One kernel launch on CUDA, whatever the number of leaves (at most
+    :data:`SGD_MAX_LEAVES`), bit for bit the plain version; the plain
+    version on the CPU.  Reads each master and gradient once and writes
+    each master and working copy once: 12 bytes an element."""
+
+    masters, grads, works = list(masters), list(grads), list(works)
+    if not masters or not len(masters) == len(grads) == len(works):
+        raise ValueError(f"sgd_update: want as many gradients and working "
+                         f"copies as masters (at least one), got "
+                         f"{len(masters)}, {len(grads)}, {len(works)}")
+    for i, (t, g, w) in enumerate(zip(masters, grads, works)):
+        if (t.dtype, g.dtype, w.dtype) != (torch.float32, torch.bfloat16,
+                                           torch.bfloat16):
+            raise ValueError(f"sgd_update: leaf {i}: want an f32 master, a "
+                             f"bf16 gradient and a bf16 copy, got {t.dtype}, "
+                             f"{g.dtype}, {w.dtype}")
+        if not t.shape == g.shape == w.shape or t.numel() == 0:
+            raise ValueError(f"sgd_update: leaf {i}: want one non-empty "
+                             f"shape, got {tuple(t.shape)}, "
+                             f"{tuple(g.shape)}, {tuple(w.shape)}")
+        if not (t.is_contiguous() and g.is_contiguous()
+                and w.is_contiguous()):
+            raise ValueError(f"sgd_update: leaf {i}: not contiguous")
+    if _on_cpu(*masters, *grads, *works, name="sgd_update"):
+        with torch.no_grad():
+            sgd_update_plain(masters, grads, works, lr)
+        return
+    n = len(masters)
+    if n > SGD_MAX_LEAVES:
+        raise ValueError(f"sgd_update: {n} leaves, the kernel takes "
+                         f"{SGD_MAX_LEAVES}")
+    ptrs = [(ctypes.c_void_p * n)(*(t.data_ptr() for t in ts))
+            for ts in (masters, grads, works)]
+    sizes = (ctypes.c_longlong * n)(*(t.numel() for t in masters))
+    with torch.cuda.device(masters[0].device):
+        _build.check(_build.load().tpumon_sgd_update(
+            *(ctypes.addressof(p) for p in ptrs), ctypes.addressof(sizes), n,
+            lr, torch.cuda.current_stream().cuda_stream), "sgd_update")
+    LAUNCHES["sgd_update"] += 1
 
 
 # ---- load patterns ---------------------------------------------------------------

@@ -74,7 +74,7 @@ from .types import gpu_caps
 #: the port's own kernels, by name (they launch through ctypes, so no aten
 #: op encloses them)
 _PORT_MXU_RE = re.compile(r"\b(flash_\w+_kernel|mxu_kernel)\b")
-_PORT_VECTOR_RE = re.compile(r"\bstream_kernel\b")
+_PORT_VECTOR_RE = re.compile(r"\b(stream_kernel|sgd_update_kernel)\b")
 #: conv(?!ert): convolution/cudnn_convolution yes, a dtype cast no
 _CONV_RE = re.compile(r"conv(?!ert)")
 _MXU_OPS = frozenset({"mm", "addmm", "bmm", "baddbmm", "addbmm", "matmul",
@@ -141,7 +141,8 @@ def categorize(kernel_name: str, op_name: Optional[str] = None) -> str:
     """Device record -> {mxu, vector, data, collective, infeed, outfeed}
     (the counterpart of ``xplane.categorize``), by the first route that
     applies: the port's own kernels by name (``flash_*_kernel`` and
-    ``mxu_kernel`` mxu, ``stream_kernel`` vector); a memcpy or memset by
+    ``mxu_kernel`` mxu, ``stream_kernel`` and ``sgd_update_kernel``
+    vector); a memcpy or memset by
     its direction (HtoD infeed, DtoH outfeed, the rest data); the aten op
     that launched the kernel (:func:`op_category`); the kernel's own name
     (cuBLAS/CUTLASS/cuDNN convolution kernels mxu, NCCL collective);
